@@ -1,0 +1,481 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+Run from the repository root on a machine with one NVIDIA GPU (H100):
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from the sources in the checkout, then
+runs, failing on the first phase that fails (exit code != 0):
+
+1. env     — the card (nvidia-smi name and power limit), torch and CUDA
+             versions, the kernels' build time.
+2. kernel  — K1, the ragged paged-attention kernel, against its plain
+             PyTorch version on the card at gemma2-9b's attention shapes
+             (H=16, K=8, D=256, block 16, 512 packed lanes mixing decode
+             rows with contexts past the 4096 window, prefill chunks,
+             speculative verify rows and pad lanes), at pool dtypes float32,
+             bfloat16, int8 and fp8_e4m3, window None / 4096, softcap
+             None / 50; plus exact-zero pad lanes, bit-invariance to -1 table
+             widening, and k=0 verify rows bit-matching one-token decode.
+             Times: kernel and plain version (CUDA events, median), and the
+             bound (bytes and operations the work needs at least, over the
+             card's published peaks).
+3. model   — one packed step of the full-width model cut to 2 layers, with
+             the kernel against the same step with the plain attention.
+4. serve   — ``ServeEngine`` serving gemma2-9b (CONFIG: full width, all 42
+             layers, bf16, seeded random weights) 8 requests: one 4500-token
+             prompt chunked over several ticks across the 4096 window, seven
+             of 16-300 tokens (two share a 64-token prefix), 32 greedy new
+             tokens each.  Then again with speculative decoding (spec_k=2),
+             whose greedy streams must be identical, and with an int8 pool.
+             Asserts host_syncs == ticks and K1 launches == ticks x 42.
+5. trace   — the first serve run again under torch.profiler: device time
+             by kernel and the device's idle share (informational).
+
+It prints one JSON line per phase, then the card's name and power limit as
+nvidia-smi gives them, then the kernels line, and last
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+MEM_BW = 3.35e12                  # H100 SXM HBM3 bytes/s (data sheet)
+PEAK = {torch.bfloat16: 989e12,   # dense tensor-core bf16 FLOP/s
+        torch.float32: 67e12}     # f32 outside the tensor cores
+K1_TPU = "src/repro/kernels/decode_attention/kernel.py:283"
+K1_SRC = "src/repro_torch/kernels/csrc/ragged_paged_attention.cu"
+BOUND_FORMULA = (
+    "max(bytes / 3.35e12 B/s, flops / peak[q dtype]); bytes = unique K/V "
+    "blocks visible to some token x bs*K*(2*D*kv_itemsize + 8 if scaled) + "
+    "2*T*H*D*q_itemsize + 4*(R*nb + 2*T); flops = 4*D*H per visible (token, "
+    "position); peak 989e12 (bf16 tensor cores) or 67e12 (f32)")
+LIBRARY_NOTE = ("none: no single PyTorch call attends each packed token over "
+                "its own request's blocks of a paged pool")
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int, flush: torch.Tensor | None = None) -> float:
+    """Median device time of ``fn`` over ``reps`` runs (CUDA events around
+    each run; ``flush`` is rewritten before each so the 50 MB L2 is cold, as
+    the served path finds it after the other layers' traffic)."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+# ================================================================= kernel
+# (ctx, fed): the row's tokens are the last ``fed`` positions of ``ctx``
+KERNEL_ROWS = [(5200, 1), (4097, 1), (2000, 1), (700, 1), (64, 1),   # decode
+               (4500, 300), (120, 120),                       # prefill chunks
+               (3000, 3), (800, 2)]                           # verify rows
+H, KV, D, BS, T = 16, 8, 256, 16, 512
+
+
+def kernel_inputs(dev, rng):
+    n_blocks = [-(-c // BS) for c, _ in KERNEL_ROWS]
+    N = 1 + sum(n_blocks) + 2
+    nb = max(n_blocks)
+    bt = np.full((len(KERNEL_ROWS), nb), -1, np.int32)
+    perm = rng.permutation(np.arange(1, N))
+    i = 0
+    for r, n in enumerate(n_blocks):
+        bt[r, :n] = perm[i:i + n]
+        i += n
+    rows = np.full(T, -1, np.int32)
+    pos = np.full(T, -1, np.int32)
+    n = 0
+    for r, (ctx, fed) in enumerate(KERNEL_ROWS):
+        rows[n:n + fed] = r
+        pos[n:n + fed] = np.arange(ctx - fed, ctx)
+        n += fed
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    q = torch.randn((T, H, D), generator=g, device=dev)
+    k = torch.randn((N, BS, KV, D), generator=g, device=dev)
+    v = torch.randn((N, BS, KV, D), generator=g, device=dev)
+    to = lambda a: torch.from_numpy(a).to(dev)
+    return q, k, v, to(bt), to(rows), to(pos), n, bt, rows, pos
+
+
+def work(bt, rows, pos, window, kv_item, q_item, quant):
+    """Bytes and operations the function needs at least on these inputs:
+    every K/V block visible to at least one token, read once for all kv
+    heads (plus its scales), q read and out written once, the index
+    operands once; two products of 2·D flops per visible (token, head,
+    position)."""
+    needed: set[int] = set()
+    visible = 0
+    for t in range(len(pos)):
+        qp, r = int(pos[t]), int(rows[t])
+        if qp < 0 or r < 0:
+            continue
+        live = int((bt[r] >= 0).sum())
+        lo = max(0, qp - window + 1) if window else 0
+        hi = min(qp, live * BS - 1)
+        visible += max(0, hi - lo + 1)
+        for j in range(lo // BS, hi // BS + 1):
+            needed.add(max(int(bt[r, j]), 0))
+    per_block = BS * KV * (2 * D * kv_item + (8 if quant else 0))
+    nbytes = (len(needed) * per_block + 2 * T * H * D * q_item
+              + bt.size * 4 + 2 * len(pos) * 4)
+    return nbytes, visible * H * 4 * D
+
+
+def kernel_phase(dev) -> list[dict]:
+    from repro_torch.kernels.decode_attention import ops, quant, ref
+
+    rng = np.random.default_rng(0)
+    q32, k32, v32, bt, rows, pos, n_valid, bt_np, rows_np, pos_np = \
+        kernel_inputs(dev, rng)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
+    emit({"phase": "kernel_bound", "bound_ms": BOUND_FORMULA,
+          "library_ms": LIBRARY_NOTE})
+    cases = []
+    for kv_dtype in ("float32", "bfloat16", "int8", "fp8_e4m3"):
+        # f32 pool with f32 q: the JAX suite's 2e-5.  Otherwise q is the
+        # served model's bf16 and the output is rounded to bf16 on both
+        # sides (one bf16 ulp of |out| <= 1 is 2^-8): the suite's 2e-2.
+        if kv_dtype == "float32":
+            q, kp, vp, ks, vs, tol = q32, k32, v32, None, None, 2e-5
+        else:
+            q, tol = q32.to(torch.bfloat16), 2e-2
+            if kv_dtype == "bfloat16":
+                kp, vp, ks, vs = k32.to(torch.bfloat16), v32.to(
+                    torch.bfloat16), None, None
+            else:
+                kp, ks = quant.quantize_kv(k32, kv_dtype)
+                vp, vs = quant.quantize_kv(v32, kv_dtype)
+        kv_item = kp.element_size()
+        for window in (None, 4096):
+            for cap in (None, 50.0):
+                args = (q, kp, vp, bt, rows, pos)
+                kw = dict(k_scale=ks, v_scale=vs, window=window, softcap=cap)
+                out = ops.ragged_paged_attention(*args, **kw)
+                if ks is None:
+                    plain = lambda: ref.ragged_paged_attention_ref(
+                        *args, window=window, softcap=cap)
+                else:
+                    plain = lambda: ref.ragged_paged_attention_quant_ref(
+                        q, kp, vp, ks, vs, bt, rows, pos, window=window,
+                        softcap=cap)
+                want = plain()
+                torch.cuda.synchronize()
+                err = (out.float() - want.float()).abs().max().item()
+                assert err <= tol, (kv_dtype, window, cap, err, tol)
+                assert bool((out[n_valid:] == 0).all()), "pad lanes not zero"
+                nbytes, ops_ = work(bt_np, rows_np, pos_np, window, kv_item,
+                                    q.element_size(), ks is not None)
+                t_bytes = nbytes / MEM_BW * 1e3
+                t_ops = ops_ / PEAK[q.dtype] * 1e3
+                case = dict(
+                    kv_dtype=kv_dtype, q_dtype=str(q.dtype).split(".")[1],
+                    window=window, softcap=cap, max_abs_err=err, tol=tol,
+                    kernel_ms=cuda_ms(lambda: ops.ragged_paged_attention(
+                        *args, **kw), 25, flush),
+                    plain_ms=cuda_ms(plain, 5, flush),
+                    bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    bytes=nbytes, flops=ops_, library_ms=None)
+                cases.append(case)
+                emit({"phase": "kernel", **case})
+        # bit-exact contracts, once per pool dtype
+        kw = dict(k_scale=ks, v_scale=vs, window=4096, softcap=50.0)
+        tight = ops.ragged_paged_attention(q, kp, vp, bt, rows, pos, **kw)
+        wide = torch.cat([bt, torch.full((bt.shape[0], 7), -1,
+                                         dtype=torch.int32, device=dev)], 1)
+        widened = ops.ragged_paged_attention(q, kp, vp, wide.contiguous(),
+                                             rows, pos, **kw)
+        assert torch.equal(tight, widened), "-1 widening changed the output"
+        dec = [0, 1, 2, 3, 4]                       # the decode rows
+        dpos = pos[:5].contiguous()
+        decode = ops.paged_decode_attention(q[:5].contiguous(), kp, vp,
+                                            bt[dec].contiguous(), dpos, **kw)
+        lanes = [6, 1, 3, 9, 4]                     # scrambled, pads between
+        qr = torch.zeros((10, H, D), dtype=q.dtype, device=dev)
+        rr = torch.full((10,), -1, dtype=torch.int32, device=dev)
+        pr = torch.full((10,), -1, dtype=torch.int32, device=dev)
+        for b, lane in enumerate(lanes):
+            qr[lane], rr[lane], pr[lane] = q[b], b, dpos[b]
+        packed = ops.ragged_paged_attention(qr, kp, vp, bt[dec].contiguous(),
+                                            rr, pr, **kw)
+        for b, lane in enumerate(lanes):
+            assert torch.equal(packed[lane], decode[b]), "k=0 row != decode"
+        assert bool((packed[[0, 2, 5, 7, 8]] == 0).all())
+        emit({"phase": "kernel_contracts", "kv_dtype": kv_dtype,
+              "pad_lanes_zero": True, "widening_bit_invariant": True,
+              "k0_verify_equals_decode": True})
+    return cases
+
+
+# ================================================================== model
+def model_phase(cfg, dev) -> dict:
+    """One packed step of the full-width model cut to 2 layers: the kernel
+    path against the same step with the plain attention on the same pool."""
+    from repro_torch.kernels.decode_attention import ref
+    from repro_torch.models import (attention, init_paged_pools, init_params,
+                                    paged_mixed_step)
+
+    small = cfg.replace(n_layers=2)
+    params = init_params(small, torch.Generator(device=dev).manual_seed(1),
+                         device=dev)
+    params["embed"]["table"].mul_(small.d_model ** -0.5)
+    rng = np.random.default_rng(1)
+    Tm = 64
+    bt = torch.tensor([[1, 2, 3, 4, -1, -1, -1, -1],
+                       [5, 6, -1, -1, -1, -1, -1, -1]], dtype=torch.int32,
+                      device=dev)
+    toks = torch.from_numpy(rng.integers(0, small.vocab_size, Tm).astype(
+        np.int32)).to(dev)
+    pos = torch.tensor(list(range(50)) + list(range(10)) + [-1] * 4,
+                       dtype=torch.int32, device=dev)
+    rows = torch.tensor([0] * 50 + [1] * 10 + [-1] * 4, dtype=torch.int32,
+                        device=dev)
+    sidx = torch.tensor([49, 59], dtype=torch.int32, device=dev)
+    logits = {}
+    kernel_fn = attention.da_ops.ragged_paged_attention
+
+    def plain_fn(*a, k_scale=None, v_scale=None, **kw):
+        return ref.ragged_paged_attention_ref(*a, **kw)
+
+    for name, fn in (("kernel", kernel_fn), ("plain", plain_fn)):
+        attention.da_ops.ragged_paged_attention = fn
+        try:
+            pools = init_paged_pools(small, 16, 16, device=dev)
+            logits[name] = paged_mixed_step(params, pools, bt, toks, pos,
+                                            rows, sidx, small)
+        finally:
+            attention.da_ops.ragged_paged_attention = kernel_fn
+    a, b = logits["kernel"], logits["plain"]
+    assert a.shape == (2, small.vocab_size) and bool(torch.isfinite(a).all())
+    err = (a - b).abs().max().item()
+    scale = b.abs().max().item()
+    # bf16 activations: the attention outputs may differ by one bf16 ulp,
+    # which two layers carry into the logits at the 1e-2 relative level
+    assert err <= 2e-2 * scale, (err, scale)
+    res = {"phase": "model", "layers": 2, "max_abs_err": err,
+           "logit_scale": scale, "argmax_equal":
+           bool(torch.equal(a.argmax(-1), b.argmax(-1)))}
+    emit(res)
+    del params
+    return res
+
+
+# ================================================================== serve
+def serve_requests(vocab: int):
+    from repro_torch.serving.scheduler import Request
+
+    rng = np.random.default_rng(2)
+    prefix = rng.integers(0, vocab, 64)
+    phrase = rng.integers(0, vocab, 20)
+    prompts = [rng.integers(0, vocab, 4500),
+               np.concatenate([prefix, rng.integers(0, vocab, 100)]),
+               np.concatenate([prefix, rng.integers(0, vocab, 236)]),
+               np.tile(phrase, 6),          # repetitive: n-gram drafts fire
+               rng.integers(0, vocab, 16),
+               rng.integers(0, vocab, 77),
+               rng.integers(0, vocab, 300),
+               rng.integers(0, vocab, 31)]
+    return [Request(request_id=f"r{i}", session_key=f"s{i}",
+                    prompt=p.astype(np.int32), max_new_tokens=32)
+            for i, p in enumerate(prompts)]
+
+
+def serve_once(cfg, params, dev, smi: str, **kw) -> tuple[dict, dict]:
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.serving.engine import ServeEngine
+
+    eng = ServeEngine(cfg, params, n_slots=8, token_budget=512, max_len=8192,
+                      num_blocks=1024, device=dev, **kw)
+    assert eng.cm.pools[0]["k"].device.type == dev.type
+    assert params["embed"]["table"].device.type == dev.type
+    done = []
+    eng.on_complete = done.append
+    reqs = serve_requests(cfg.vocab_size)
+    ops.ragged_paged_attention.launches = 0
+    t0 = time.monotonic()
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = ops.ragged_paged_attention.launches
+    s = eng.stats
+    assert len(done) == len(reqs) and all(r.error is None for r in done)
+    assert all(len(r.tokens) == 32 for r in done)
+    assert all(0 <= t < cfg.vocab_size for r in done for t in r.tokens)
+    assert all(np.isfinite(r.scores).all() for r in done)
+    assert s.host_syncs == s.ticks, (s.host_syncs, s.ticks)
+    assert s.prefix_hit_tokens > 0
+    res = {"phase": "serve", "kv_dtype": kw.get("kv_dtype") or "bfloat16",
+           "spec_k": kw.get("spec_k", 0), "card": smi,
+           "n_layers": cfg.n_layers, "pool_bytes": eng.cm.pool_bytes(),
+           "num_blocks": eng.cm.num_blocks, "ticks": s.ticks,
+           "host_syncs": s.host_syncs, "k1_launches": launches,
+           "prefill_chunks": s.prefill_chunks,
+           "prefix_hit_tokens": s.prefix_hit_tokens,
+           "spec_drafted": s.spec_drafted, "spec_accepted": s.spec_accepted,
+           "tokens_out": s.tokens_out, "wall_s": wall,
+           "tokens_per_s": s.tokens_out / wall,
+           "ttft_p50_s": statistics.median(s.ttft_s),
+           "tpot_p50_s": statistics.median(s.tpot_s),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    emit(res)
+    streams = {r.request_id: list(r.tokens) for r in done}
+    del eng
+    torch.cuda.empty_cache()
+    return res, streams
+
+
+def serve_phase(dev, smi: str) -> dict:
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import init_params
+
+    cfg = get_config("gemma2-9b")
+    model_phase(cfg, dev)
+    t0 = time.monotonic()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    # N(0, 1/d) embedding rows (x sqrt(d) at lookup gives unit-scale
+    # inputs, as a trained gemma has) instead of the initialiser's N(0, 1),
+    # whose logits saturate the final softcap and make every stream a tie
+    params["embed"]["table"].mul_(cfg.d_model ** -0.5)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    assert n_params == cfg.param_count(), (n_params, cfg.param_count())
+    emit({"phase": "init", "params": n_params,
+          "seconds": time.monotonic() - t0})
+    main, greedy = serve_once(cfg, params, dev, smi)
+    assert main["pool_bytes"] >= 4 << 30
+    spec, spec_streams = serve_once(cfg, params, dev, smi, spec_k=2)
+    assert spec_streams == greedy, "spec_k=2 greedy streams differ"
+    assert spec["spec_drafted"] > 0
+    int8, _ = serve_once(cfg, params, dev, smi, kv_dtype="int8")
+    for res in (main, spec, int8):      # K1 at every layer of every tick
+        assert res["k1_launches"] == res["ticks"] * cfg.n_layers, res
+    trace_phase(cfg, params, dev)
+    return main
+
+
+def trace_phase(cfg, params, dev) -> None:
+    """Where the time goes: the main serve run again under torch.profiler,
+    device time by kernel (self time, summed over launches) and the device's
+    busy share of the wall time.  Informational: the timings above come
+    from runs without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.engine import ServeEngine
+
+    eng = ServeEngine(cfg, params, n_slots=8, token_budget=512, max_len=8192,
+                      num_blocks=1024, device=dev)
+    for r in serve_requests(cfg.vocab_size):
+        eng.submit(r)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    kernels = [(ev.self_device_time_total, ev.count, ev.key)
+               for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and ev.self_device_time_total > 0]
+    kernels.sort(reverse=True)
+    busy_ms = sum(k[0] for k in kernels) / 1e3
+    groups = {"K1": ("ragged_paged_attention",),
+              "gemm": ("gemm", "nvjet", "cutlass", "xmma")}
+    share = {g: sum(us for us, _, key in kernels
+                    if any(p in key.lower() for p in pats)) / 1e3
+             for g, pats in groups.items()}
+    share["other"] = busy_ms - sum(share.values())
+    emit({"phase": "trace", "ticks": eng.stats.ticks, "wall_ms": wall * 1e3,
+          "device_busy_ms": busy_ms if kernels else "not measured",
+          "device_idle_share": 1 - busy_ms / (wall * 1e3) if kernels
+          else "not measured",
+          "group_ms": share,
+          "top": [{"kernel": key[:90], "launches": n, "ms": us / 1e3}
+                  for us, n, key in kernels[:8]]})
+    del eng
+    torch.cuda.empty_cache()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+# =================================================================== main
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels import build
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi()
+    emit({"phase": "env", "card": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "python": sys.version.split()[0],
+          "build_s": build.build()})
+    cases = kernel_phase(dev)
+    main_run = serve_phase(dev, smi)
+    rep = next(c for c in cases if c["kv_dtype"] == "bfloat16"
+               and c["window"] is None and c["softcap"] == 50.0)
+    print(smi)
+    emit({"kernels": [{
+        "name": "ragged_paged_attention", "id": "K1", "route": "cuda",
+        "source": K1_SRC, "replaces": K1_TPU,
+        "tpu": "kernels/decode_attention/kernel.py:ragged_paged_attention_fwd",
+        "port": K1_SRC, "checked": True,
+        "launches": main_run["k1_launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "ms": rep["kernel_ms"], "plain_ms": rep["plain_ms"],
+        "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+        "library_ms": None,
+        "shape": "T=512 H=16 K=8 D=256 bs=16, bf16 q and pool, softcap 50"}]})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,170 @@
+"""Public wrappers of the ragged paged-attention kernel (K1).
+
+``ragged_paged_attention`` keeps the JAX package's layout and signature
+(``kernels/decode_attention/ops.py``).  The tensor's device picks the path:
+
+- a CPU tensor runs the plain PyTorch version (``ref.py``);
+- a CUDA tensor launches the hand-written CUDA C++ kernel
+  (``kernels/csrc/ragged_paged_attention.cu``, built at first use) or
+  raises — there is no fallback.
+
+Replaces the TPU kernel ``kernels/decode_attention/kernel.py::
+ragged_paged_attention_fwd`` (body ``_ragged_kernel``).  On the H100 it is
+bound by the bytes it streams: each request row's live K/V blocks (plus
+scales for int8/fp8 pools), which the kernel reads straight out of the
+shared pool through the block table, dequantizing in registers so only the
+narrow bytes cross device memory.  See the source note in the ``.cu`` file
+for the design and what later changes should do about the per-token re-reads.
+
+``ragged_paged_attention.launches`` counts kernel launches (never plain
+calls), so a run can show that its main path went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import build
+from .ref import ragged_paged_attention_quant_ref, ragged_paged_attention_ref
+
+_Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+             torch.float8_e4m3fn: 3}
+_QUANT_CODES = (2, 3)
+_SMEM_LIMIT = 232_448                 # bytes of shared memory a CTA may use
+
+_lib_fn = None
+
+
+def _kernel():
+    global _lib_fn
+    if _lib_fn is None:
+        fn = build.load("ragged_paged_attention").ragged_paged_attention
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [I, I, P, P, P, P, P, P, P, P, P,
+                       I, I, I, I, I, I, I, F, F, I, P]
+        fn.restype = I
+        _lib_fn = fn
+    return _lib_fn
+
+
+def _check(q, k_pool, v_pool, block_tables, row_ids, token_pos, k_scale,
+           v_scale, window, softcap):
+    dev = q.device
+    named = {"q": q, "k_pool": k_pool, "v_pool": v_pool,
+             "block_tables": block_tables, "row_ids": row_ids,
+             "token_pos": token_pos}
+    if k_scale is not None:
+        named.update(k_scale=k_scale, v_scale=v_scale)
+    for n, x in named.items():
+        if x.device != dev:
+            raise ValueError(f"{n} is on {x.device}, q on {dev}")
+        if not x.is_contiguous():
+            raise ValueError(f"{n} must be contiguous")
+    if q.dtype not in _Q_CODES:
+        raise TypeError(f"q dtype {q.dtype} not in {list(_Q_CODES)}")
+    if k_pool.dtype not in _KV_CODES or v_pool.dtype != k_pool.dtype:
+        raise TypeError(f"pool dtypes {k_pool.dtype}/{v_pool.dtype} must "
+                        f"match and be one of {list(_KV_CODES)}")
+    for n in ("block_tables", "row_ids", "token_pos"):
+        if named[n].dtype != torch.int32:
+            raise TypeError(f"{n} must be int32, got {named[n].dtype}")
+    if q.dim() != 3 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)}, pools "
+                         f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}: want "
+                         f"(T,H,D) and two (N,bs,K,D)")
+    T, H, D = q.shape
+    N, bs, K, Dk = k_pool.shape
+    if Dk != D or H % K:
+        raise ValueError(f"head_dim {D} vs pool {Dk}, or heads {H} not a "
+                         f"multiple of kv heads {K}")
+    if block_tables.dim() != 2 or block_tables.shape[0] == 0:
+        raise ValueError(f"block_tables must be (R>0, nb), got "
+                         f"{tuple(block_tables.shape)}")
+    if row_ids.shape != (T,) or token_pos.shape != (T,):
+        raise ValueError("row_ids and token_pos must be (T,)")
+    quant = _KV_CODES[k_pool.dtype] in _QUANT_CODES
+    if quant != (k_scale is not None) or (k_scale is None) != (v_scale is None):
+        raise ValueError("int8/fp8 pools need k_scale and v_scale; float "
+                         "pools take none")
+    if quant:
+        for s in (k_scale, v_scale):
+            if s.dtype != torch.float32 or s.shape != (N, bs, K):
+                raise ValueError(f"scales must be float32 {(N, bs, K)}, got "
+                                 f"{s.dtype} {tuple(s.shape)}")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive or None, got {window}")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"softcap must be positive or None, got {softcap}")
+    G = H // K
+    smem = 4 * (2 * G * D + 2 * bs * D + G * bs + 3 * G)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"(G={G}, bs={bs}, D={D}) needs {smem} B of shared "
+                         f"memory per CTA, over the {_SMEM_LIMIT} B limit")
+
+
+def ragged_paged_attention(q, k_pool, v_pool, block_tables, row_ids,
+                           token_pos, *, k_scale=None, v_scale=None,
+                           window: int | None = None,
+                           softcap: float | None = None,
+                           scale: float | None = None):
+    """Mixed prefill-chunk + decode attention over a paged KV pool.
+
+    q: (T,H,D) packed tokens (float32 or bfloat16); pools (num_blocks,
+    block_size, K, D) in float32, bfloat16, int8 or float8_e4m3fn;
+    block_tables (R,nb) int32 physical block ids (-1 = unused; valid ids are
+    below num_blocks); row_ids (T,) int32 request row of each packed token
+    (-1 = pad lane); token_pos (T,) int32 absolute positions (-1 = pad
+    lane).  ``k_scale``/``v_scale`` (num_blocks, block_size, K) float32
+    accompany int8/fp8 pools.  Returns (T,H,D) in q's dtype; pad lanes are
+    exact zeros."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not q.is_cuda:
+        if k_scale is None:
+            return ragged_paged_attention_ref(
+                q, k_pool, v_pool, block_tables, row_ids, token_pos,
+                window=window, softcap=softcap, scale=scale)
+        return ragged_paged_attention_quant_ref(
+            q, k_pool, v_pool, k_scale, v_scale, block_tables, row_ids,
+            token_pos, window=window, softcap=softcap, scale=scale)
+    _check(q, k_pool, v_pool, block_tables, row_ids, token_pos, k_scale,
+           v_scale, window, softcap)
+    T, H, D = q.shape
+    N, bs, K, _ = k_pool.shape
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _kernel()(
+            _Q_CODES[q.dtype], _KV_CODES[k_pool.dtype], q.data_ptr(),
+            k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scale.data_ptr() if k_scale is not None else None,
+            v_scale.data_ptr() if v_scale is not None else None,
+            block_tables.data_ptr(), row_ids.data_ptr(), token_pos.data_ptr(),
+            out.data_ptr(), T, H, K, D, block_tables.shape[0],
+            block_tables.shape[1], bs, float(scale),
+            float(softcap) if softcap is not None else 0.0,
+            int(window) if window is not None else 0, stream)
+    if err != 0:
+        raise RuntimeError(f"ragged_paged_attention kernel launch failed: "
+                           f"CUDA error {err}")
+    ragged_paged_attention.launches += 1
+    return out
+
+
+ragged_paged_attention.launches = 0
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_tables, q_pos, *,
+                           k_scale=None, v_scale=None,
+                           window: int | None = None,
+                           softcap: float | None = None,
+                           scale: float | None = None):
+    """One-token decode over a paged pool: q (B,H,D), block_tables (B,nb),
+    q_pos (B,).  The ragged kernel's degenerate packing, one token per
+    request: ``row_ids == arange(B)``."""
+    rows = torch.arange(q.shape[0], dtype=torch.int32, device=q.device)
+    return ragged_paged_attention(q, k_pool, v_pool, block_tables, rows,
+                                  q_pos, k_scale=k_scale, v_scale=v_scale,
+                                  window=window, softcap=softcap, scale=scale)

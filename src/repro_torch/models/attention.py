@@ -1,0 +1,133 @@
+"""GQA attention against the paged KV block pool (ragged mode).
+
+Port of the JAX package's ``models/attention.py`` paged path: the QKV
+projections and RoPE, the pool layout, quantize-on-write and the packed
+ragged write, then ragged paged attention through the K1 wrapper
+(``kernels/decode_attention/ops.py``) — the hand-written CUDA kernel for
+CUDA tensors, its plain version for CPU tensors.
+
+The pool is updated IN PLACE (``index_put_``): this is the port's
+counterpart of the JAX engine donating the pool to its jitted step.  Every
+packed token's K/V is written before the layer's attention reads, so a
+chunk token sees its same-dispatch predecessors and a same-tick sibling's
+shared prefix blocks.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention import quant as da_quant
+
+from .config import LayerSpec, ModelConfig
+from .layers import dense_init, dtype_of, rmsnorm, rmsnorm_init, rope
+
+
+# ------------------------------------------------------------------ params
+def attn_init(generator: torch.Generator, cfg: ModelConfig, device) -> dict:
+    d, H, K, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = dtype_of(cfg)
+    p = {
+        "wq": dense_init(generator, (d, H, D), dt, device),
+        "wk": dense_init(generator, (d, K, D), dt, device),
+        "wv": dense_init(generator, (d, K, D), dt, device),
+        "wo": dense_init(generator, (H, D, d), dt, device, in_axis=0),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(D, device)
+        p["k_norm"] = rmsnorm_init(D, device)
+    return p
+
+
+# ------------------------------------------------------------------ paging
+def init_paged_pool(cfg: ModelConfig, num_blocks: int, block_size: int,
+                    kv_dtype: str | None = None, *, device) -> dict:
+    """One layer's share of the global KV block pool: (num_blocks,
+    block_size, K, D) K/V leaves; int8 / fp8_e4m3 add f32 ``k_scale`` /
+    ``v_scale`` leaves (num_blocks, block_size, K), initialised to 1 so
+    untouched blocks (the reserved null block too) dequantize to zeros."""
+    K, D = cfg.n_kv_heads, cfg.head_dim
+    kv_dtype = cfg.kv_dtype if kv_dtype is None else kv_dtype
+    dt = da_quant.storage_dtype(kv_dtype, dtype_of(cfg))
+    shape = (num_blocks, block_size, K, D)
+    pool = {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+    if da_quant.is_quantized(kv_dtype):
+        pool["k_scale"] = torch.ones(shape[:3], dtype=torch.float32,
+                                     device=device)
+        pool["v_scale"] = torch.ones(shape[:3], dtype=torch.float32,
+                                     device=device)
+    return pool
+
+
+def _quantize_for_pool(pool: dict, k_new, v_new):
+    """Quantize new K/V entries to the pool's storage dtype (identity for
+    unquantized pools); per-token-per-head scales."""
+    if "k_scale" not in pool:
+        return k_new, v_new, None, None
+    name = "int8" if pool["k"].dtype == torch.int8 else "fp8_e4m3"
+    kq, ks = da_quant.quantize_kv(k_new, name)
+    vq, vs = da_quant.quantize_kv(v_new, name)
+    return kq, vq, ks, vs
+
+
+def _ragged_paged_write(pool: dict, k_new, v_new, positions, block_table,
+                        row_ids) -> None:
+    """Scatter a PACKED token batch's K/V into pool blocks, in place: token
+    t lands in its own request's block, resolved through ``row_ids``.
+
+    k_new/v_new: (T,K,D); positions (T,) absolute (-1 = pad); block_table
+    (R,nb); row_ids (T,) request row per token (-1 = pad).  Pad lanes all
+    land on block 0, slot 0 (the reserved null block); with duplicate
+    indices that slot's contents are unspecified, as in the reference."""
+    bs = pool["k"].shape[1]
+    rows = row_ids.clamp(0, block_table.shape[0] - 1).long()
+    posc = positions.clamp(min=0).long()
+    blk = block_table[rows, posc // bs].long()
+    valid = (row_ids >= 0) & (positions >= 0)
+    zero = torch.zeros_like(blk)
+    blk = torch.where(valid, blk.clamp(min=0), zero)
+    slot = torch.where(valid, posc % bs, zero)
+    k_new, v_new, ks, vs = _quantize_for_pool(pool, k_new, v_new)
+    pool["k"].index_put_((blk, slot), k_new.to(pool["k"].dtype))
+    pool["v"].index_put_((blk, slot), v_new.to(pool["v"].dtype))
+    if ks is not None:
+        pool["k_scale"].index_put_((blk, slot), ks)
+        pool["v_scale"].index_put_((blk, slot), vs)
+
+
+# ------------------------------------------------------------------- apply
+def _qkv(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
+         cfg: ModelConfig, spec: LayerSpec):
+    """Projection + qk-norm + RoPE.  x (T, d), positions (T,) →
+    q (T,H,D), k/v (T,K,D)."""
+    T, d = x.shape
+    q = (x @ params["wq"].reshape(d, -1)).reshape(T, cfg.n_heads, -1)
+    k = (x @ params["wk"].reshape(d, -1)).reshape(T, cfg.n_kv_heads, -1)
+    v = (x @ params["wv"].reshape(d, -1)).reshape(T, cfg.n_kv_heads, -1)
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q)
+        k = rmsnorm(params["k_norm"], k)
+    q = rope(q, positions, spec.rope_theta)
+    k = rope(k, positions, spec.rope_theta)
+    return q, k, v
+
+
+def paged_attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
+                    *, cfg: ModelConfig, spec: LayerSpec, pool: dict,
+                    block_table: torch.Tensor,
+                    row_ids: torch.Tensor) -> torch.Tensor:
+    """Ragged-mode attention against the paged pool: x (T, d) is ONE packed
+    row of mixed prefill-chunk, decode and verify tokens; token t belongs to
+    request row ``row_ids[t]`` of ``block_table`` (-1 = pad lane).  Writes
+    all packed K/V into ``pool`` first, then every token attends causally at
+    its own position.  Returns (T, d)."""
+    T = x.shape[0]
+    q, k, v = _qkv(params, x, positions, cfg=cfg, spec=spec)
+    _ragged_paged_write(pool, k, v, positions, block_table, row_ids)
+    out = da_ops.ragged_paged_attention(
+        q, pool["k"], pool["v"], block_table, row_ids, positions,
+        k_scale=pool.get("k_scale"), v_scale=pool.get("v_scale"),
+        window=spec.window, softcap=cfg.attn_logit_softcap,
+        scale=cfg.head_dim ** -0.5)
+    return out.reshape(T, -1) @ params["wo"].reshape(-1, cfg.d_model)

@@ -1,0 +1,367 @@
+"""Port parity: config, layer functions, weight/pool conversion and the paged
+mixed step of the PyTorch port against the JAX package.
+
+The same params (a JAX ``init_params`` tree carried across through numpy)
+and the same inputs go through both packages on the CPU.  The JAX side runs
+its XLA attention path; the port runs the plain version of its ragged
+paged-attention kernel (CPU tensors).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+import repro.models as J
+from repro.configs.registry import get_config as jget_config
+from repro.models import layers as jlayers
+from repro.models import mlp as jmlp
+from repro.models.config import LayerSpec as JLayerSpec
+from repro.models.config import ModelConfig as JModelConfig
+from repro.models.config import Segment as JSegment
+import repro_torch.models as P
+from repro_torch.configs.registry import ARCH_IDS, get_config
+from repro_torch.models import layers as players
+from repro_torch.models import mlp as pmlp
+from repro_torch.models.config import LayerSpec, ModelConfig, Segment
+
+torch.set_num_threads(1)
+
+# tests/test_paged_kv.py:14, in both packages
+JCFG = JModelConfig(name="t", family="dense", n_layers=2, d_model=32,
+                    n_heads=4, n_kv_heads=2, d_ff=64, vocab_size=128,
+                    dtype="float32", q_chunk=16)
+PCFG = ModelConfig(name="t", family="dense", n_layers=2, d_model=32,
+                   n_heads=4, n_kv_heads=2, d_ff=64, vocab_size=128,
+                   dtype="float32", q_chunk=16)
+CONFIGS = {"test": (JCFG, PCFG),
+           "gemma2_smoke": (jget_config("gemma2-9b", smoke=True),
+                            get_config("gemma2-9b", smoke=True))}
+KV_DTYPES = ("float32", "bfloat16", "int8", "fp8_e4m3")
+LADDER = {"float32": 2e-5, "bfloat16": 2e-2, "int8": 8e-2,
+          "fp8_e4m3": 2.5e-1}                 # tests/test_kernels.py:426
+
+_jmixed = jax.jit(J.paged_mixed_step, static_argnames=("cfg",))
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _params(name):
+    jcfg, pcfg = CONFIGS[name]
+    jp = J.init_params(jax.random.PRNGKey(0), jcfg)
+    return jp, P.params_from_numpy(_np_tree(jp), pcfg, device="cpu")
+
+
+def _f32(a):
+    """A pool leaf as f32 numpy: ml_dtypes arrays (JAX side) and raw-bit
+    arrays (``pools_to_numpy``) alike."""
+    if a.dtype == np.uint16:
+        a = a.view(ml_dtypes.bfloat16)
+    elif a.dtype == np.uint8:
+        a = a.view(ml_dtypes.float8_e4m3fn)
+    return np.asarray(a).astype(np.float32)
+
+
+# =============================================================== config
+@pytest.mark.parametrize("ours,ref", [(ModelConfig, JModelConfig),
+                                      (LayerSpec, JLayerSpec),
+                                      (Segment, JSegment)])
+def test_config_dataclasses_match_reference(ours, ref):
+    def sig(cls):
+        return [(f.name, f.default, f.default_factory)
+                for f in dataclasses.fields(cls)]
+    assert sig(ours) == sig(ref)
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+def test_gemma2_layout_and_param_count_match_reference(smoke):
+    ours, ref = get_config("gemma2-9b", smoke=smoke), \
+        jget_config("gemma2-9b", smoke=smoke)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert [(s.repeat, [dataclasses.astuple(p) for p in s.pattern])
+            for s in ours.layout()] == \
+        [(s.repeat, [dataclasses.astuple(p) for p in s.pattern])
+         for s in ref.layout()]
+    assert ours.param_count() == ref.param_count()
+    assert ARCH_IDS == ("gemma2-9b",)
+    # flat layer order: copy r, pattern position i -> layer 2r + i, so the
+    # window sits on the even (local) layers only
+    windows = [s.window for s in P.layer_specs(ours)]
+    assert windows == [ours.window, None] * (ours.n_layers // 2)
+
+
+# ======================================================== layer functions
+def _j(x):
+    return jnp.asarray(x)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_rmsnorm_matches(dt):
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(3, 5, 64)).astype(np.float32) * 3
+    scale = rng.normal(size=(64,)).astype(np.float32) * 0.1
+    jx = _j(x).astype(dt)
+    want = jlayers.rmsnorm({"scale": _j(scale)}, jx)
+    got = players.rmsnorm({"scale": torch.from_numpy(scale)},
+                          _t(jx.astype(jnp.float32)).to(getattr(torch, dt)))
+    assert got.dtype == getattr(torch, dt)
+    tol = 1e-6 if dt == "float32" else 8e-3     # one bf16 rounding
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_rope_half_split_matches(dt):
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(7, 4, 16)).astype(np.float32)
+    pos = rng.integers(0, 5000, size=(7,)).astype(np.int32)
+    jx = _j(x).astype(dt)
+    want = jlayers.rope(jx, _j(pos), 10_000.0)
+    tx = _t(jx.astype(jnp.float32)).to(getattr(torch, dt))
+    got = players.rope(tx, torch.from_numpy(pos), 10_000.0)
+    assert got.dtype == tx.dtype
+    tol = 2e-4 if dt == "float32" else 2e-2    # f32 sin/cos at pos ~5000
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=tol, rtol=tol)
+
+
+def test_embed_scale_rounds_sqrt_d_to_the_model_dtype():
+    """gemma2's sqrt(3584) = 59.87 is applied as bf16(59.87) = 59.75, in
+    both packages, and the scaled embeddings agree bit for bit."""
+    d = 3584
+    rng = np.random.default_rng(2)
+    table = rng.normal(size=(11, d)).astype(np.float32)
+    toks = np.asarray([3, 0, 10, 3], np.int32)
+    jt = _j(table).astype(jnp.bfloat16)
+    want = jlayers.embed_lookup({"table": jt}, _j(toks), scale=True, d=d)
+    tt = torch.from_numpy(np.asarray(jt).view(np.uint16).copy()).view(
+        torch.bfloat16)
+    got = players.embed_lookup({"table": tt}, torch.from_numpy(toks),
+                               scale=True, d=d)
+    assert torch.tensor(np.sqrt(d), dtype=torch.bfloat16).item() == 59.75
+    assert np.array_equal(got.view(torch.int16).numpy().view(np.uint16),
+                          np.asarray(want).view(np.uint16))
+    np.testing.assert_array_equal(
+        got.float().numpy(), (tt[toks].float() * 59.75).to(
+            torch.bfloat16).float().numpy())
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_unembed_returns_f32_logits_and_softcap_keeps_dtype(dt):
+    rng = np.random.default_rng(3)
+    table = _j(rng.normal(size=(50, 32)).astype(np.float32)).astype(dt)
+    x = _j(rng.normal(size=(2, 3, 32)).astype(np.float32)).astype(dt)
+    want = jlayers.softcap(jlayers.unembed({"table": table}, x), 30.0)
+    to_t = lambda a: _t(a.astype(jnp.float32)).to(getattr(torch, dt))
+    logits = players.unembed({"table": to_t(table)}, to_t(x))
+    got = players.softcap(logits, 30.0)
+    assert logits.dtype == got.dtype == torch.float32
+    assert want.dtype == jnp.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+    half = players.softcap(torch.ones(3, dtype=torch.bfloat16) * 40, 30.0)
+    assert half.dtype == torch.bfloat16
+    assert players.softcap(logits, None) is logits
+
+
+def test_gated_mlp_matches():
+    rng = np.random.default_rng(4)
+    cfg = PCFG
+    jp = jmlp.mlp_init(jax.random.PRNGKey(5), JCFG)
+    x = rng.normal(size=(1, 6, cfg.d_model)).astype(np.float32)
+    want = jmlp.mlp(jp, _j(x))
+    got = pmlp.mlp({k: _t(v) for k, v in jp.items()},
+                   torch.from_numpy(x[0]))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want)[0], atol=1e-5,
+                               rtol=1e-5)
+
+
+# ====================================================== weights and pools
+def test_params_from_numpy_unstacks_in_scan_order():
+    jcfg, pcfg = CONFIGS["gemma2_smoke"]
+    jp, pp = _params("gemma2_smoke")
+    seg = jcfg.layout()[0]
+    assert len(pp["layers"]) == pcfg.n_layers
+    for r in range(seg.repeat):
+        for i in range(len(seg.pattern)):
+            layer = pp["layers"][r * len(seg.pattern) + i]
+            src = jp["segments"][0][i]
+            for path in (("attn", "wq"), ("mlp", "w_down"),
+                         ("post_norm_mlp", "scale")):
+                np.testing.assert_array_equal(
+                    layer[path[0]][path[1]].numpy(),
+                    np.asarray(src[path[0]][path[1]][r]))
+    np.testing.assert_array_equal(pp["embed"]["table"].numpy(),
+                                  np.asarray(jp["embed"]["table"]))
+    # bf16 weights carry over bit for bit
+    jb = J.init_params(jax.random.PRNGKey(1), jcfg.replace(dtype="bfloat16"))
+    pb = P.params_from_numpy(_np_tree(jb), pcfg.replace(dtype="bfloat16"),
+                             device="cpu")
+    assert pb["layers"][3]["attn"]["wo"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        pb["layers"][3]["attn"]["wo"].view(torch.int16).numpy().view(
+            np.uint16),
+        np.asarray(jb["segments"][0][1]["attn"]["wo"][1]).view(np.uint16))
+
+
+@pytest.mark.parametrize("kv", KV_DTYPES)
+def test_pools_round_trip_bit_for_bit(kv):
+    jcfg, pcfg = CONFIGS["gemma2_smoke"]
+    rng = np.random.default_rng(6)
+    tree = _np_tree(J.init_paged_pools(jcfg, 5, 4, kv_dtype=kv))
+    tree = jax.tree.map(
+        lambda a: (rng.normal(size=a.shape) * 3).astype(a.dtype), tree)
+    pools = P.pools_from_numpy(tree, pcfg, device="cpu")
+    assert len(pools) == pcfg.n_layers
+    back = P.pools_to_numpy(pools, pcfg)
+    for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(back)):
+        assert a.shape == b.shape
+        assert a.tobytes() == b.tobytes()
+
+
+# ======================================================= paged mixed step
+def _schedule(pcfg, bs):
+    """Two ticks of packed work over three request rows: tick 1 packs a
+    prefill chunk, a full short prompt and a decode row whose context is
+    already in the pool; tick 2 continues the chunk, decodes, and verifies
+    a 3-token speculative row.  Returns the block tables and per-tick
+    (tokens, positions, rows, sample_idx)."""
+    rng = np.random.default_rng(7)
+    T = 24
+    bt = np.asarray([[1, 2, 3, 4, 5, -1], [6, 7, -1, -1, -1, -1],
+                     [8, 9, 10, -1, -1, -1]], np.int32)
+
+    def pack(parts):
+        toks = np.zeros(T, np.int32)
+        pos = np.full(T, -1, np.int32)
+        rows = np.full(T, -1, np.int32)
+        sidx = np.zeros((3, 3), np.int32)
+        n = 0
+        for row, start, length in parts:
+            toks[n:n + length] = rng.integers(0, pcfg.vocab_size, length)
+            pos[n:n + length] = np.arange(start, start + length)
+            rows[n:n + length] = row
+            sidx[row] = n + np.minimum(np.arange(3), length - 1)
+            n += length
+        return toks, pos, rows, sidx
+
+    # row 2's context [0, 9) is written by tick 1 as a 9-token chunk
+    tick1 = pack([(0, 0, 10), (1, 0, 5), (2, 0, 9)])
+    tick2 = pack([(0, 10, 8), (1, 5, 1), (2, 9, 3)])
+    return bt, [tick1, tick2]
+
+
+@pytest.mark.parametrize("kv", KV_DTYPES)
+@pytest.mark.parametrize("name", ["test", "gemma2_smoke"])
+def test_paged_mixed_step_matches_jax(name, kv):
+    jcfg, pcfg = CONFIGS[name]
+    jp, pp = _params(name)
+    bs, N = 4, 12
+    bt, ticks = _schedule(pcfg, bs)
+    jpools = J.init_paged_pools(jcfg, N, bs, kv_dtype=kv)
+    ppools = P.init_paged_pools(pcfg, N, bs, kv_dtype=kv, device="cpu")
+    ptrs = [p["k"].data_ptr() for p in ppools]
+    for toks, pos, rows, sidx in ticks:
+        want, jpools = _jmixed(jp, jpools, _j(bt), _j(toks), _j(pos), _j(rows),
+                               _j(sidx), cfg=jcfg)
+        got = P.paged_mixed_step(pp, ppools, torch.from_numpy(bt),
+                                 *(torch.from_numpy(a)
+                                   for a in (toks, pos, rows, sidx)), pcfg)
+        want = np.asarray(want)
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        # f32 / int8 / fp8 pools hold the same values on both sides (the
+        # quantizers agree bit for bit); with a bf16 pool the JAX XLA path
+        # rounds its P·V product to bf16 while the port accumulates in f32
+        # (ROADMAP.md Queue 3, F1): the ladder, scaled to the logits
+        tol = (LADDER[kv] * np.abs(want).max() if kv == "bfloat16"
+               else 1e-4)
+        np.testing.assert_allclose(got.numpy(), want, atol=tol, rtol=1e-4)
+    # in place: the same storage, every step
+    assert [p["k"].data_ptr() for p in ppools] == ptrs
+    # every pool leaf but block 0 (where pad lanes scribble in any order)
+    mine = P.pools_to_numpy(ppools, pcfg)
+    for a, b in zip(jax.tree.leaves(_np_tree(jpools)), jax.tree.leaves(mine)):
+        np.testing.assert_allclose(_f32(b)[:, 1:], _f32(a)[:, 1:],
+                                   atol=LADDER[kv], rtol=LADDER[kv])
+
+
+def test_two_chunk_mixed_step_reproduces_prefill_then_decode():
+    """tests/test_mixed_tick.py:58 on the port: a prompt prefilled in two
+    packed chunks, then decoded one packed token, reproduces the JAX
+    package's phase-separated paged_prefill + paged_decode_step."""
+    jp, pp = _params("test")
+    bs = 4
+    prompt = np.arange(1, 11, dtype=np.int32)
+    bt1 = _j(np.asarray([[1, 2, 3, -1]], np.int32))
+    pools = J.init_paged_pools(JCFG, num_blocks=10, block_size=bs)
+    logits_ref, pools_ref = J.paged_prefill(
+        jp, pools, bt1, _j(prompt)[None], jnp.arange(10, dtype=jnp.int32)[None],
+        JCFG)
+    tok = int(jnp.argmax(logits_ref[0]))
+    dl_ref, _ = J.paged_decode_step(jp, pools_ref, bt1,
+                                    jnp.asarray([tok], jnp.int32),
+                                    jnp.asarray([[10]], jnp.int32), JCFG)
+    T = 8
+    btR = torch.tensor([[1, 2, 3, -1], [-1, -1, -1, -1]], dtype=torch.int32)
+
+    def pack(toks, poss, sidx):
+        t = np.zeros(T, np.int32)
+        p = np.full(T, -1, np.int32)
+        r = np.full(T, -1, np.int32)
+        t[:len(toks)], p[:len(poss)], r[:len(poss)] = toks, poss, 0
+        return [torch.from_numpy(a) for a in (t, p, r,
+                                              np.asarray(sidx, np.int32))]
+
+    ppools = P.init_paged_pools(PCFG, 10, bs, device="cpu")
+    P.paged_mixed_step(pp, ppools, btR, *pack(prompt[:6], range(6), [0, 0]),
+                       PCFG)
+    lg = P.paged_mixed_step(pp, ppools, btR,
+                            *pack(prompt[6:], range(6, 10), [3, 0]), PCFG)
+    np.testing.assert_allclose(lg[0].numpy(), np.asarray(logits_ref[0]),
+                               atol=1e-4, rtol=1e-4)
+    assert int(torch.argmax(lg[0])) == tok
+    dlg = P.paged_mixed_step(pp, ppools, btR, *pack([tok], [10], [0, 0]),
+                             PCFG)
+    np.testing.assert_allclose(dlg[0].numpy(), np.asarray(dl_ref[0]),
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_unported_layer_kinds_raise():
+    moe = PCFG.replace(n_experts=4, top_k=2)
+    with pytest.raises(NotImplementedError, match="attn_mlp"):
+        P.init_paged_pools(moe, 4, 4, device="cpu")
+    with pytest.raises(NotImplementedError):
+        P.init_params(PCFG.replace(family="ssm"), device="cpu")
+
+
+def test_qk_norm_and_untied_head_match_jax():
+    """qk-norm (gemma3-style) and an untied head ride the same step."""
+    jcfg = JCFG.replace(qk_norm=True, tie_embeddings=False)
+    pcfg = PCFG.replace(qk_norm=True, tie_embeddings=False)
+    jp = J.init_params(jax.random.PRNGKey(3), jcfg)
+    pp = P.params_from_numpy(_np_tree(jp), pcfg, device="cpu")
+    assert "head" in pp and "q_norm" in pp["layers"][0]["attn"]
+    bt, ticks = _schedule(pcfg, 4)
+    jpools = J.init_paged_pools(jcfg, 12, 4)
+    ppools = P.init_paged_pools(pcfg, 12, 4, device="cpu")
+    for toks, pos, rows, sidx in ticks:
+        want, jpools = _jmixed(jp, jpools, _j(bt), _j(toks), _j(pos), _j(rows),
+                               _j(sidx), cfg=jcfg)
+        got = P.paged_mixed_step(pp, ppools, torch.from_numpy(bt),
+                                 *(torch.from_numpy(a)
+                                   for a in (toks, pos, rows, sidx)), pcfg)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                                   rtol=1e-4)
+    own = P.init_params(pcfg, torch.Generator().manual_seed(0), device="cpu")
+    assert own["head"]["table"].shape == (pcfg.vocab_size, pcfg.d_model)
