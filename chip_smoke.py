@@ -5,33 +5,59 @@ Run from the repository root on a machine with one NVIDIA GPU (H100):
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from the sources in the checkout, then
-runs, failing on the first phase that fails (exit code != 0):
+It builds the port's CUDA kernels from the sources in the checkout (one
+``nvcc`` per source, in parallel), then runs these phases in order, failing
+on the first phase that fails (exit code != 0):
 
-1. env     — the card (nvidia-smi name and power limit), torch and CUDA
-             versions, the kernels' build time.
-2. kernel  — K1, the ragged paged-attention kernel, against its plain
-             PyTorch version on the card at gemma2-9b's attention shapes
-             (H=16, K=8, D=256, block 16, 512 packed lanes mixing decode
-             rows with contexts past the 4096 window, prefill chunks,
-             speculative verify rows and pad lanes), at pool dtypes float32,
-             bfloat16, int8 and fp8_e4m3, window None / 4096, softcap
-             None / 50; plus exact-zero pad lanes, bit-invariance to -1 table
-             widening, and k=0 verify rows bit-matching one-token decode.
-             Times: kernel and plain version (CUDA events, median), and the
-             bound (bytes and operations the work needs at least, over the
-             card's published peaks).
-3. model   — one packed step of the full-width model cut to 2 layers, with
-             the kernel against the same step with the plain attention.
-4. serve   — ``ServeEngine`` serving gemma2-9b (CONFIG: full width, all 42
-             layers, bf16, seeded random weights) 8 requests: one 4500-token
-             prompt chunked over several ticks across the 4096 window, seven
-             of 16-300 tokens (two share a 64-token prefix), 32 greedy new
-             tokens each.  Then again with speculative decoding (spec_k=2),
-             whose greedy streams must be identical, and with an int8 pool.
-             Asserts host_syncs == ticks and K1 launches == ticks x 42.
-5. trace   — the first serve run again under torch.profiler: device time
-             by kernel and the device's idle share (informational).
+1. env          — the card (nvidia-smi name and power limit), torch and
+                  CUDA versions, the kernels' build time.
+2. kernel       — K1, the ragged paged-attention kernel, against its plain
+                  PyTorch version on the card at gemma2-9b's attention shapes
+                  (H=16, K=8, D=256, block 16, 512 packed lanes mixing decode
+                  rows with contexts past the 4096 window, prefill chunks,
+                  speculative verify rows and pad lanes), at pool dtypes
+                  float32, bfloat16, int8 and fp8_e4m3, window None / 4096,
+                  softcap None / 50; plus exact-zero pad lanes,
+                  bit-invariance to -1 table widening, and k=0 verify rows
+                  bit-matching one-token decode; then bf16 pools at the
+                  h2o-danube widths (H=32, K=8, D=80 and D=120), each at its
+                  config's window.  Times: kernel and plain version (CUDA
+                  events, median, cold L2), and the bound (bytes and
+                  operations the work needs at least, over the card's
+                  published peaks).
+3. flash_kernel — K2, the flash-attention kernel, against its plain version:
+                  gemma2-9b's shapes (B=1, S=8192, H=16, K=8, D=256) in f32
+                  and bf16 with window None / 4096 and softcap None / 50, one
+                  case at each other config's shapes and window, and a ragged
+                  S=8000; times as for K1, plus scaled_dot_product_attention
+                  where it computes the same function (library_ms; the port
+                  never calls it).
+4. score_check  — gemma2-9b at full width cut to 2 layers: ``forward`` with
+                  K2 against the same forward with the plain attention on
+                  2048 tokens, and ``forward``'s logits on a 512-token prompt
+                  against ``paged_mixed_step`` prefilling it as one packed
+                  chunk (K2 and K1 computing one attention).
+5. model        — one packed step of the same 2-layer model, with K1
+                  against the same step with the plain attention.
+6. serve        — ``ServeEngine`` serving gemma2-9b (CONFIG: full width, all
+                  42 layers, bf16, seeded random weights) 8 requests: one
+                  4500-token prompt chunked over several ticks across the
+                  4096 window, seven of 16-300 tokens (two share a 64-token
+                  prefix), 32 greedy new tokens each.  Then again with
+                  speculative decoding (spec_k=2), whose greedy streams must
+                  be identical, and with an int8 pool.  Asserts host_syncs ==
+                  ticks and K1 launches == ticks x 42.
+7. trace        — the first serve run again under torch.profiler: device
+                  time by kernel and the device's idle share
+                  (informational).
+8. score        — ``forward`` at full width and full depth, bf16, seeded
+                  random weights, B=1: gemma2-9b, gemma3-4b and
+                  h2o-danube-1.8b at S=8192, h2o-danube-3-4b at S=9216 (past
+                  its 8192 window); finite f32 logits of shape (1, S, V) and
+                  K2 launches == n_layers per forward; wall time, tokens/s,
+                  peak memory.
+9. score_trace  — one gemma2-9b score forward under torch.profiler
+                  (informational).
 
 It prints one JSON line per phase, then the card's name and power limit as
 nvidia-smi gives them, then the kernels line, and last
@@ -52,6 +78,7 @@ import torch
 MEM_BW = 3.35e12                  # H100 SXM HBM3 bytes/s (data sheet)
 PEAK = {torch.bfloat16: 989e12,   # dense tensor-core bf16 FLOP/s
         torch.float32: 67e12}     # f32 outside the tensor cores
+GEMM_KEYS = ("gemm", "nvjet", "cutlass", "xmma")   # cuBLAS kernel names
 K1_TPU = "src/repro/kernels/decode_attention/kernel.py:283"
 K1_SRC = "src/repro_torch/kernels/csrc/ragged_paged_attention.cu"
 BOUND_FORMULA = (
@@ -94,15 +121,41 @@ def cuda_ms(fn, reps: int, flush: torch.Tensor | None = None) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def checked_case(kernel, plain, tol, nbytes, flops, peak_dtype, flush, reps,
+                 **fields) -> tuple[dict, torch.Tensor]:
+    """Run ``kernel`` and its ``plain`` version once and hold them within
+    ``tol``; then time both (``reps`` = kernel and plain repetitions, cold
+    L2) beside the bound: the larger of ``nbytes`` over the memory rate and
+    ``flops`` over the peak of ``peak_dtype``.  Returns the case and the
+    kernel's output."""
+    out, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= tol, (fields, err, tol)
+    del want
+    t_bytes, t_ops = nbytes / MEM_BW * 1e3, flops / PEAK[peak_dtype] * 1e3
+    case = dict(fields, max_abs_err=err, tol=tol,
+                kernel_ms=cuda_ms(kernel, reps[0], flush),
+                plain_ms=cuda_ms(plain, reps[1], flush),
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, flops=flops)
+    return case, out
+
+
 # ================================================================= kernel
 # (ctx, fed): the row's tokens are the last ``fed`` positions of ``ctx``
 KERNEL_ROWS = [(5200, 1), (4097, 1), (2000, 1), (700, 1), (64, 1),   # decode
                (4500, 300), (120, 120),                       # prefill chunks
                (3000, 3), (800, 2)]                           # verify rows
 H, KV, D, BS, T = 16, 8, 256, 16, 512
+# K1 at the h2o-danube widths (head_dim 80 and 120), bf16 pool, the
+# config's own window: (arch, H, K, D, window)
+K1_WIDTHS = [("h2o-danube-1.8b", 32, 8, 80, 4096),
+             ("h2o-danube-3-4b", 32, 8, 120, 8192)]
 
 
-def kernel_inputs(dev, rng):
+def kernel_inputs(dev, rng, h=H, kv=KV, d=D):
     n_blocks = [-(-c // BS) for c, _ in KERNEL_ROWS]
     N = 1 + sum(n_blocks) + 2
     nb = max(n_blocks)
@@ -120,14 +173,14 @@ def kernel_inputs(dev, rng):
         pos[n:n + fed] = np.arange(ctx - fed, ctx)
         n += fed
     g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
-    q = torch.randn((T, H, D), generator=g, device=dev)
-    k = torch.randn((N, BS, KV, D), generator=g, device=dev)
-    v = torch.randn((N, BS, KV, D), generator=g, device=dev)
+    q = torch.randn((T, h, d), generator=g, device=dev)
+    k = torch.randn((N, BS, kv, d), generator=g, device=dev)
+    v = torch.randn((N, BS, kv, d), generator=g, device=dev)
     to = lambda a: torch.from_numpy(a).to(dev)
     return q, k, v, to(bt), to(rows), to(pos), n, bt, rows, pos
 
 
-def work(bt, rows, pos, window, kv_item, q_item, quant):
+def work(bt, rows, pos, window, kv_item, q_item, quant, h=H, kv=KV, d=D):
     """Bytes and operations the function needs at least on these inputs:
     every K/V block visible to at least one token, read once for all kv
     heads (plus its scales), q read and out written once, the index
@@ -145,10 +198,10 @@ def work(bt, rows, pos, window, kv_item, q_item, quant):
         visible += max(0, hi - lo + 1)
         for j in range(lo // BS, hi // BS + 1):
             needed.add(max(int(bt[r, j]), 0))
-    per_block = BS * KV * (2 * D * kv_item + (8 if quant else 0))
-    nbytes = (len(needed) * per_block + 2 * T * H * D * q_item
+    per_block = BS * kv * (2 * d * kv_item + (8 if quant else 0))
+    nbytes = (len(needed) * per_block + 2 * T * h * d * q_item
               + bt.size * 4 + 2 * len(pos) * 4)
-    return nbytes, visible * H * 4 * D
+    return nbytes, visible * h * 4 * d
 
 
 def kernel_phase(dev) -> list[dict]:
@@ -180,7 +233,6 @@ def kernel_phase(dev) -> list[dict]:
             for cap in (None, 50.0):
                 args = (q, kp, vp, bt, rows, pos)
                 kw = dict(k_scale=ks, v_scale=vs, window=window, softcap=cap)
-                out = ops.ragged_paged_attention(*args, **kw)
                 if ks is None:
                     plain = lambda: ref.ragged_paged_attention_ref(
                         *args, window=window, softcap=cap)
@@ -188,24 +240,14 @@ def kernel_phase(dev) -> list[dict]:
                     plain = lambda: ref.ragged_paged_attention_quant_ref(
                         q, kp, vp, ks, vs, bt, rows, pos, window=window,
                         softcap=cap)
-                want = plain()
-                torch.cuda.synchronize()
-                err = (out.float() - want.float()).abs().max().item()
-                assert err <= tol, (kv_dtype, window, cap, err, tol)
+                case, out = checked_case(
+                    lambda: ops.ragged_paged_attention(*args, **kw), plain,
+                    tol, *work(bt_np, rows_np, pos_np, window, kv_item,
+                               q.element_size(), ks is not None),
+                    q.dtype, flush, (25, 5), kv_dtype=kv_dtype,
+                    q_dtype=str(q.dtype).split(".")[1], window=window,
+                    softcap=cap, library_ms=None)
                 assert bool((out[n_valid:] == 0).all()), "pad lanes not zero"
-                nbytes, ops_ = work(bt_np, rows_np, pos_np, window, kv_item,
-                                    q.element_size(), ks is not None)
-                t_bytes = nbytes / MEM_BW * 1e3
-                t_ops = ops_ / PEAK[q.dtype] * 1e3
-                case = dict(
-                    kv_dtype=kv_dtype, q_dtype=str(q.dtype).split(".")[1],
-                    window=window, softcap=cap, max_abs_err=err, tol=tol,
-                    kernel_ms=cuda_ms(lambda: ops.ragged_paged_attention(
-                        *args, **kw), 25, flush),
-                    plain_ms=cuda_ms(plain, 5, flush),
-                    bound_ms=max(t_bytes, t_ops),
-                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                    bytes=nbytes, flops=ops_, library_ms=None)
                 cases.append(case)
                 emit({"phase": "kernel", **case})
         # bit-exact contracts, once per pool dtype
@@ -234,6 +276,21 @@ def kernel_phase(dev) -> list[dict]:
         emit({"phase": "kernel_contracts", "kv_dtype": kv_dtype,
               "pad_lanes_zero": True, "widening_bit_invariant": True,
               "k0_verify_equals_decode": True})
+    for arch, h, kv, d, window in K1_WIDTHS:
+        q, kp, vp, bt, rows, pos, n_valid, bt_np, rows_np, pos_np = \
+            kernel_inputs(dev, np.random.default_rng(3), h, kv, d)
+        args = tuple(x.to(torch.bfloat16) for x in (q, kp, vp)) + (bt, rows,
+                                                                    pos)
+        case, out = checked_case(
+            lambda: ops.ragged_paged_attention(*args, window=window),
+            lambda: ref.ragged_paged_attention_ref(*args, window=window),
+            2e-2, *work(bt_np, rows_np, pos_np, window, 2, 2, False, h, kv, d),
+            torch.bfloat16, flush, (25, 5), kv_dtype="bfloat16",
+            q_dtype="bfloat16", arch=arch, H=h, K=kv, D=d, window=window,
+            softcap=None, library_ms=None)
+        assert bool((out[n_valid:] == 0).all()), "pad lanes not zero"
+        cases.append(case)
+        emit({"phase": "kernel", **case})
     return cases
 
 
@@ -405,27 +462,270 @@ def trace_phase(cfg, params, dev) -> None:
         eng.run_until_drained()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
+    emit({"phase": "trace", "ticks": eng.stats.ticks,
+          **_device_time(prof, wall, {"K1": ("ragged_paged_attention",),
+                                      "gemm": GEMM_KEYS})})
+    del eng
+    torch.cuda.empty_cache()
+
+
+# ============================================================ flash kernel
+# (arch, B, S, H, K, D, dtype, window, softcap): gemma2-9b's attention at
+# S = 8192 in both dtypes with and without its window and softcap, one case
+# at each other config's shapes and window, and a ragged S
+FLASH_CASES = (
+    [("gemma2-9b", 1, 8192, 16, 8, 256, dt, w, c)
+     for dt in (torch.float32, torch.bfloat16)
+     for w in (None, 4096) for c in (None, 50.0)]
+    + [("gemma3-4b", 1, 8192, 8, 4, 256, torch.bfloat16, 1024, None),
+       ("h2o-danube-1.8b", 1, 8192, 32, 8, 80, torch.bfloat16, 4096, None),
+       ("h2o-danube-3-4b", 1, 9216, 32, 8, 120, torch.bfloat16, 8192, None),
+       ("gemma2-9b", 1, 8000, 16, 8, 256, torch.bfloat16, 4096, 50.0)])
+FLASH_BOUND = (
+    "max(bytes / 3.35e12 B/s, flops / peak[dtype]); bytes = (q + out) "
+    "B*S*H*D + (k + v) B*S*K*D, times the itemsize; flops = 4*D*H per "
+    "visible (query, key) pair, B * sum_i min(i + 1, window); peak 989e12 "
+    "(bf16 tensor cores) or 67e12 (f32)")
+FLASH_LIBRARY = (
+    "scaled_dot_product_attention(is_causal=True) on the cases it computes "
+    "exactly (no window, no softcap), with K and V expanded to H heads "
+    "outside the timed region; null elsewhere: SDPA takes neither a sliding "
+    "window with is_causal nor a logit softcap")
+K2_TPU = "src/repro/kernels/flash_attention/kernel.py:89"
+K2_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
+
+
+def visible_pairs(S: int, window: int | None) -> int:
+    """Causal (query, key) pairs with i - j < window: sum_i min(i+1, w)."""
+    if window is None or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def flash_work(B, S, H, K, D, window, item):
+    nbytes = (2 * B * S * H * D + 2 * B * S * K * D) * item
+    return nbytes, 4 * D * H * B * visible_pairs(S, window)
+
+
+def flash_kernel_phase(dev, cases=FLASH_CASES, reps=(10, 3)) -> list[dict]:
+    """K2 against its plain version on the card at each case's shapes."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
+    emit({"phase": "flash_bound", "bound_ms": FLASH_BOUND,
+          "library_ms": FLASH_LIBRARY})
+    out_cases = []
+    for i, (arch, B, S, H_, K_, D_, dt, window, cap) in enumerate(cases):
+        g = torch.Generator(device=dev).manual_seed(100 + i)
+        q, k, v = (torch.randn((B, S, n, D_), generator=g, device=dev).to(dt)
+                   for n in (H_, K_, K_))
+        kw = dict(window=window, softcap=cap)
+        # the JAX suite's tolerances (tests/test_kernels.py:43): both sides
+        # compute in f32; in bf16 they round one output to bf16 each
+        case, out = checked_case(
+            lambda: ops.flash_attention(q, k, v, **kw),
+            lambda: ref.attention_ref(q, k, v, **kw),
+            2e-5 if dt == torch.float32 else 2e-2,
+            *flash_work(B, S, H_, K_, D_, window, q.element_size()), dt,
+            flush, reps, arch=arch, B=B, S=S, H=H_, K=K_, D=D_,
+            dtype=str(dt).split(".")[1], window=window, softcap=cap)
+        assert out.dtype == dt and out.shape == q.shape
+        library, lib_err = None, None
+        if window is None and cap is None:
+            import torch.nn.functional as F
+            qt = q.transpose(1, 2).contiguous()
+            kt, vt = (x.repeat_interleave(H_ // K_, dim=2).transpose(
+                1, 2).contiguous() for x in (k, v))
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                          is_causal=True)
+            lib_err = (sdpa().transpose(1, 2).float()
+                       - out.float()).abs().max().item()
+            library = cuda_ms(sdpa, reps[0], flush)
+            del qt, kt, vt
+        case.update(library_ms=library, library_vs_kernel_max_abs_err=lib_err)
+        out_cases.append(case)
+        emit({"phase": "flash_kernel", **case})
+        del q, k, v, out
+    del flush
+    torch.cuda.empty_cache()
+    return out_cases
+
+
+# ================================================================== score
+def _seeded_params(cfg, dev, seed):
+    """Seeded random weights with N(0, 1/d) embedding rows, as the serve
+    phase uses."""
+    from repro_torch.models import init_params
+
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         device=dev)
+    params["embed"]["table"].mul_(cfg.d_model ** -0.5)
+    return params
+
+
+def _prompt(vocab, S, seed, dev):
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, vocab, (1, S)).astype(
+        np.int32)).to(dev)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+    return toks, pos
+
+
+def score_check_phase(cfg, dev, S=2048, S_prompt=512) -> dict:
+    """The full-width model cut to 2 layers: ``forward`` with K2 against the
+    same forward with the plain attention, and ``forward``'s logits against
+    ``paged_mixed_step`` prefilling the same prompt as one packed chunk
+    (K2 and K1 computing the same attention)."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.models import (attention, forward, init_paged_pools,
+                                    paged_mixed_step)
+
+    small = cfg.replace(n_layers=2)
+    params = _seeded_params(small, dev, 4)
+    toks, pos = _prompt(small.vocab_size, S, 4, dev)
+    kernel_fn = attention.fa_ops.flash_attention
+
+    def plain_fn(q, k, v, *, positions=None, **kw):
+        return fa_ref.attention_ref(q, k, v, **kw)
+
+    logits = {}
+    for name, fn in (("kernel", kernel_fn), ("plain", plain_fn)):
+        attention.fa_ops.flash_attention = fn
+        try:
+            logits[name] = forward(params, toks, pos, small)[0]
+        finally:
+            attention.fa_ops.flash_attention = kernel_fn
+    a, b = logits.pop("kernel"), logits.pop("plain")
+    assert a.shape == (1, S, small.vocab_size) and a.dtype == torch.float32
+    assert bool(torch.isfinite(a).all())
+    err = (a - b).abs().max().item()
+    scale = b.abs().max().item()
+    # bf16 activations: one bf16 ulp of an attention output, carried
+    # through two layers, as in the model phase
+    assert err <= 2e-2 * scale, (err, scale)
+    argmax_kp = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+    del a, b
+
+    toks, pos = _prompt(small.vocab_size, S_prompt, 5, dev)
+    at = [0, S_prompt // 5, S_prompt // 2, S_prompt - 1]
+    scored = forward(params, toks, pos, small)[0][0, at]
+    bs = 16
+    nb = S_prompt // bs
+    pools = init_paged_pools(small, nb + 1, bs, device=dev)
+    bt = torch.arange(1, nb + 1, dtype=torch.int32, device=dev)[None]
+    packed = paged_mixed_step(
+        params, pools, bt, toks[0], pos[0],
+        torch.zeros(S_prompt, dtype=torch.int32, device=dev),
+        torch.tensor([at], dtype=torch.int32, device=dev), small)[0]
+    err2 = (scored - packed).abs().max().item()
+    scale2 = packed.abs().max().item()
+    assert err2 <= 2e-2 * scale2, (err2, scale2)
+    res = {"phase": "score_check", "layers": 2, "tokens": S,
+           "kernel_vs_plain_max_abs_err": err, "logit_scale": scale,
+           "argmax_equal": argmax_kp, "prompt": S_prompt, "positions": at,
+           "forward_vs_paged_max_abs_err": err2, "paged_logit_scale": scale2,
+           "forward_vs_paged_argmax_equal":
+           bool(torch.equal(scored.argmax(-1), packed.argmax(-1)))}
+    emit(res)
+    del params, pools
+    torch.cuda.empty_cache()
+    return res
+
+
+# (arch, S): S = 8192 crosses gemma2's and danube-1.8b's 4096 window and
+# gemma3's 1024; danube-3-4b's 8192 window needs S = 9216
+SCORE_RUNS = [("gemma2-9b", 8192), ("gemma3-4b", 8192),
+              ("h2o-danube-1.8b", 8192), ("h2o-danube-3-4b", 9216)]
+
+
+def score_phase(dev, smi: str, runs=SCORE_RUNS, smoke=False) -> list[dict]:
+    """``forward`` at full width and full depth (bf16, seeded random
+    weights), one sequence per config: a first forward builds up the
+    allocator and checks the output, a second is timed (host clock around a
+    forward that ends in synchronize).  gemma2-9b's is then traced."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import forward
+
+    results = []
+    for arch, S in runs:
+        cfg = get_config(arch, smoke=smoke)
+        t0 = time.monotonic()
+        params = _seeded_params(cfg, dev, 0)
+        n_params = sum(t.numel() for t in _leaves(params))
+        assert n_params == cfg.param_count(), (n_params, cfg.param_count())
+        toks, pos = _prompt(cfg.vocab_size, S, 6, dev)
+        torch.cuda.synchronize()
+        init_s = time.monotonic() - t0
+        logits, aux = forward(params, toks, pos, cfg)
+        assert logits.shape == (1, S, cfg.vocab_size), logits.shape
+        assert logits.dtype == torch.float32 and float(aux) == 0.0
+        assert bool(torch.isfinite(logits).all()), arch
+        del logits
+        torch.cuda.reset_peak_memory_stats()
+        ops.flash_attention.launches = 0
+        t0 = time.monotonic()
+        logits, _ = forward(params, toks, pos, cfg)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = ops.flash_attention.launches
+        assert launches == cfg.n_layers, (arch, launches, cfg.n_layers)
+        assert bool(torch.isfinite(logits).all()), arch
+        res = {"phase": "score", "arch": arch, "card": smi,
+               "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+               "params": n_params, "B": 1, "S": S, "dtype": cfg.dtype,
+               "k2_launches": launches, "init_s": init_s, "wall_s": wall,
+               "tokens_per_s": S / wall,
+               "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+        emit(res)
+        results.append(res)
+        del logits
+        if arch == "gemma2-9b":
+            score_trace_phase(cfg, params, toks, pos)
+        del params
+        torch.cuda.empty_cache()
+    return results
+
+
+def score_trace_phase(cfg, params, toks, pos) -> None:
+    """One score forward under torch.profiler: device time by group (K2,
+    dense products, other) and the device's idle share (informational)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import forward
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        logits, _ = forward(params, toks, pos, cfg)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    del logits
+    emit({"phase": "score_trace", "arch": cfg.name, "S": toks.shape[1],
+          **_device_time(prof, wall, {"K2": ("flash_attention",),
+                                      "gemm": GEMM_KEYS})})
+
+
+def _device_time(prof, wall, groups) -> dict:
+    """Device self time by kernel group and the busy / idle share of the
+    host wall time of a profiled run."""
     kernels = [(ev.self_device_time_total, ev.count, ev.key)
                for ev in prof.key_averages()
                if ev.device_type == torch.autograd.DeviceType.CUDA
                and ev.self_device_time_total > 0]
     kernels.sort(reverse=True)
     busy_ms = sum(k[0] for k in kernels) / 1e3
-    groups = {"K1": ("ragged_paged_attention",),
-              "gemm": ("gemm", "nvjet", "cutlass", "xmma")}
     share = {g: sum(us for us, _, key in kernels
                     if any(p in key.lower() for p in pats)) / 1e3
              for g, pats in groups.items()}
     share["other"] = busy_ms - sum(share.values())
-    emit({"phase": "trace", "ticks": eng.stats.ticks, "wall_ms": wall * 1e3,
-          "device_busy_ms": busy_ms if kernels else "not measured",
-          "device_idle_share": 1 - busy_ms / (wall * 1e3) if kernels
-          else "not measured",
-          "group_ms": share,
-          "top": [{"kernel": key[:90], "launches": n, "ms": us / 1e3}
-                  for us, n, key in kernels[:8]]})
-    del eng
-    torch.cuda.empty_cache()
+    return {"wall_ms": wall * 1e3,
+            "device_busy_ms": busy_ms if kernels else "not measured",
+            "device_idle_share": 1 - busy_ms / (wall * 1e3) if kernels
+            else "not measured",
+            "group_ms": share,
+            "top": [{"kernel": key[:90], "launches": n, "ms": us / 1e3}
+                    for us, n, key in kernels[:8]]}
 
 
 def _leaves(tree):
@@ -446,6 +746,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.configs.registry import get_config
     from repro_torch.kernels import build
 
     dev = torch.device("cuda", 0)
@@ -456,9 +757,19 @@ def main() -> int:
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "build_s": build.build()})
     cases = kernel_phase(dev)
+    flash = flash_kernel_phase(dev)
+    cfg = get_config("gemma2-9b")
+    score_check_phase(cfg, dev)
     main_run = serve_phase(dev, smi)
+    scores = score_phase(dev, smi)
     rep = next(c for c in cases if c["kv_dtype"] == "bfloat16"
                and c["window"] is None and c["softcap"] == 50.0)
+    # K2's representative case: a global layer of gemma2-9b's score forward
+    rep2 = next(c for c in flash if c["arch"] == "gemma2-9b"
+                and c["S"] == 8192 and c["dtype"] == "bfloat16"
+                and c["window"] is None and c["softcap"] == 50.0)
+    lib2 = next(c for c in flash if c["arch"] == "gemma2-9b"
+                and c["dtype"] == "bfloat16" and c["library_ms"] is not None)
     print(smi)
     emit({"kernels": [{
         "name": "ragged_paged_attention", "id": "K1", "route": "cuda",
@@ -470,7 +781,22 @@ def main() -> int:
         "ms": rep["kernel_ms"], "plain_ms": rep["plain_ms"],
         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
         "library_ms": None,
-        "shape": "T=512 H=16 K=8 D=256 bs=16, bf16 q and pool, softcap 50"}]})
+        "shape": "T=512 H=16 K=8 D=256 bs=16, bf16 q and pool, softcap 50"}, {
+        "name": "flash_attention", "id": "K2", "route": "cuda",
+        "source": K2_SRC, "replaces": K2_TPU,
+        "tpu": "kernels/flash_attention/kernel.py:flash_attention_fwd",
+        "port": K2_SRC, "checked": True,
+        "launches": scores[0]["k2_launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in flash),
+        "ms": rep2["kernel_ms"], "plain_ms": rep2["plain_ms"],
+        "bound_ms": rep2["bound_ms"], "bound_by": rep2["bound_by"],
+        "library_ms": rep2["library_ms"],
+        "library_note": "null: SDPA has no logit softcap; on the same "
+                        "shapes without softcap SDPA took "
+                        f"{lib2['library_ms']} ms and K2 "
+                        f"{lib2['kernel_ms']} ms",
+        "shape": "B=1 S=8192 H=16 K=8 D=256, bf16, causal, no window, "
+                 "softcap 50 (gemma2-9b's global layers)"}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

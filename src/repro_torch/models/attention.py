@@ -1,10 +1,16 @@
-"""GQA attention against the paged KV block pool (ragged mode).
+"""GQA attention: the full-sequence forward and the paged KV block pool.
 
-Port of the JAX package's ``models/attention.py`` paged path: the QKV
-projections and RoPE, the pool layout, quantize-on-write and the packed
-ragged write, then ragged paged attention through the K1 wrapper
-(``kernels/decode_attention/ops.py``) — the hand-written CUDA kernel for
-CUDA tensors, its plain version for CPU tensors.
+Port of the JAX package's ``models/attention.py``: the QKV projections and
+RoPE, then either
+
+- ``attention`` without a cache, causal self-attention over a whole
+  sequence through the K2 wrapper (``kernels/flash_attention/ops.py``), or
+- ``paged_attention``: the pool layout, quantize-on-write and the packed
+  ragged write, then ragged paged attention through the K1 wrapper
+  (``kernels/decode_attention/ops.py``).
+
+Each wrapper launches the hand-written CUDA kernel for CUDA tensors and runs
+its plain version for CPU tensors.
 
 The pool is updated IN PLACE (``index_put_``): this is the port's
 counterpart of the JAX engine donating the pool to its jitted step.  Every
@@ -18,6 +24,7 @@ import torch
 
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention import quant as da_quant
+from repro_torch.kernels.flash_attention import ops as fa_ops
 
 from .config import LayerSpec, ModelConfig
 from .layers import dense_init, dtype_of, rmsnorm, rmsnorm_init, rope
@@ -99,18 +106,39 @@ def _ragged_paged_write(pool: dict, k_new, v_new, positions, block_table,
 # ------------------------------------------------------------------- apply
 def _qkv(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
          cfg: ModelConfig, spec: LayerSpec):
-    """Projection + qk-norm + RoPE.  x (T, d), positions (T,) →
-    q (T,H,D), k/v (T,K,D)."""
-    T, d = x.shape
-    q = (x @ params["wq"].reshape(d, -1)).reshape(T, cfg.n_heads, -1)
-    k = (x @ params["wk"].reshape(d, -1)).reshape(T, cfg.n_kv_heads, -1)
-    v = (x @ params["wv"].reshape(d, -1)).reshape(T, cfg.n_kv_heads, -1)
+    """Projection + qk-norm + RoPE.  x (..., T, d), positions (..., T) →
+    q (..., T, H, D), k/v (..., T, K, D)."""
+    *lead, d = x.shape
+    q = (x @ params["wq"].reshape(d, -1)).reshape(*lead, cfg.n_heads, -1)
+    k = (x @ params["wk"].reshape(d, -1)).reshape(*lead, cfg.n_kv_heads, -1)
+    v = (x @ params["wv"].reshape(d, -1)).reshape(*lead, cfg.n_kv_heads, -1)
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q)
         k = rmsnorm(params["k_norm"], k)
     q = rope(q, positions, spec.rope_theta)
     k = rope(k, positions, spec.rope_theta)
     return q, k, v
+
+
+def attention(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
+              cfg: ModelConfig, spec: LayerSpec,
+              cache: dict | None = None) -> tuple[torch.Tensor, None]:
+    """Causal self-attention over whole sequences (train / scoring): x
+    (B, T, d), positions (B, T).  K2 ignores ``positions`` and attends over
+    0..T-1, as the JAX package's kernel does.  Returns (y (B, T, d), None).
+
+    The dense decode caches (``cache``) belong to the dense/SSM slice."""
+    if cache is not None:
+        raise NotImplementedError(
+            "attention over a dense decode cache joins with the dense/SSM "
+            "slice (ROADMAP P9); the port serves through the paged pool")
+    B, T, _ = x.shape
+    q, k, v = _qkv(params, x, positions, cfg=cfg, spec=spec)
+    out = fa_ops.flash_attention(q, k, v, positions=positions,
+                                 window=spec.window,
+                                 softcap=cfg.attn_logit_softcap,
+                                 scale=cfg.head_dim ** -0.5)
+    return out.reshape(B, T, -1) @ params["wo"].reshape(-1, cfg.d_model), None
 
 
 def paged_attention(params: dict, x: torch.Tensor, positions: torch.Tensor,

@@ -1,10 +1,14 @@
-"""Decoder LM over the segment/pattern layout — the paged serving step.
+"""Decoder LM over the segment/pattern layout: the full-sequence forward
+and the paged serving step.
 
 Port of the JAX package's ``models/lm.py`` for pure-attention token models
-(``supports_paged``).  The JAX package scans each segment over ``repeat``
-stacked parameter copies; the port keeps one flat list of layers in the
-same order (``layer_specs``): layer ``r·len(pattern) + i`` of a segment is
-pattern position ``i`` of copy ``r``.  For gemma2 (``Segment((local,
+(``supports_paged``).  ``forward`` scores whole sequences (attention through
+K2, the flash-attention kernel); ``paged_mixed_step`` runs one packed tick
+against the paged KV pool (attention through K1).  One block body
+(``_apply_block``) serves both.  The JAX package scans each segment over
+``repeat`` stacked parameter copies; the port keeps one flat list of layers
+in the same order (``layer_specs``): layer ``r·len(pattern) + i`` of a
+segment is pattern position ``i`` of copy ``r``.  For gemma2 (``Segment((local,
 global), 21)``) even layers are local (windowed) and odd layers global —
 ``params_from_numpy`` and ``pools_from_numpy`` unstack in exactly that
 order.
@@ -198,12 +202,16 @@ def _head(params, x, cfg: ModelConfig):
 
 
 def _apply_block(p, x, positions, *, cfg: ModelConfig, spec: LayerSpec,
-                 pool, block_table, row_ids):
-    """One attn_mlp layer on the packed row x (T, d)."""
+                 pool=None, block_table=None, row_ids=None):
+    """One attn_mlp layer: on whole sequences x (B, T, d) without a pool,
+    or on the packed row x (T, d) against ``pool`` (updated in place)."""
     h = rmsnorm(p["norm_attn"], x)
-    y = attn_mod.paged_attention(p["attn"], h, positions, cfg=cfg, spec=spec,
-                                 pool=pool, block_table=block_table,
-                                 row_ids=row_ids)
+    if pool is None:
+        y, _ = attn_mod.attention(p["attn"], h, positions, cfg=cfg, spec=spec)
+    else:
+        y = attn_mod.paged_attention(p["attn"], h, positions, cfg=cfg,
+                                     spec=spec, pool=pool,
+                                     block_table=block_table, row_ids=row_ids)
     if cfg.post_norm:
         y = rmsnorm(p["post_norm_attn"], y)
     x = x + y
@@ -211,6 +219,26 @@ def _apply_block(p, x, positions, *, cfg: ModelConfig, spec: LayerSpec,
     if cfg.post_norm:
         y = rmsnorm(p["post_norm_mlp"], y)
     return x + y
+
+
+def forward(params, inputs, positions, cfg: ModelConfig, *,
+            mode: str = "score"):
+    """Full-sequence forward (no caches): inputs (B, S) int32 tokens,
+    positions (B, S) int32 (contiguous 0..S-1: K2 assumes them).  Returns
+    (f32 logits (B, S, V), aux) with aux a zero f32 scalar (the MoE aux loss
+    of attn_moe layers, which join with the MoE slice).
+
+    ``mode="train"`` computes the same forward: the JAX package differs only
+    by rematerialising blocks for its backward, and the port has no backward
+    yet (the training slice)."""
+    _check_ported(cfg)
+    if mode not in ("score", "train"):
+        raise ValueError(f"mode must be 'score' or 'train', got {mode!r}")
+    x = _embed_inputs(params, inputs, cfg)                     # (B, S, d)
+    for spec, p in zip(layer_specs(cfg), params["layers"]):
+        x = _apply_block(p, x, positions, cfg=cfg, spec=spec)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _head(params, x, cfg), aux
 
 
 def paged_mixed_step(params, pools, block_tables, tokens, positions, row_ids,

@@ -50,7 +50,11 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 def test_engine_import_pulls_in_no_jax():
     code = ("import sys; import repro_torch.serving.engine, "
-            "repro_torch.kernels.decode_attention.ops; "
+            "repro_torch.kernels.decode_attention.ops, "
+            "repro_torch.kernels.flash_attention.ops, repro_torch.models, "
+            "repro_torch.configs.gemma3_4b, "
+            "repro_torch.configs.h2o_danube_1_8b, "
+            "repro_torch.configs.h2o_danube_3_4b; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
