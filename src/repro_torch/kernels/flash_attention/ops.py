@@ -28,7 +28,6 @@ from .ref import attention_ref
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_D = 256                          # ceil(D/16) <= 16 columns per thread
-_SMEM_LIMIT = 232_448                 # bytes of shared memory a CTA may use
 
 _lib_fn = None
 
@@ -74,9 +73,8 @@ def _check(q, k, v, window, softcap):
         raise ValueError(f"k/v {tuple(k.shape)} do not fit q "
                          f"{tuple(q.shape)}: same B, S and D, and H a "
                          f"multiple of K")
-    if not 0 < D <= _MAX_D or smem_bytes(D) > _SMEM_LIMIT:
-        raise ValueError(f"head_dim {D} outside 1..{_MAX_D} (needs "
-                         f"{smem_bytes(D)} B of shared memory per CTA)")
+    if not 0 < D <= _MAX_D:
+        raise ValueError(f"head_dim {D} outside 1..{_MAX_D}")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive or None, got {window}")
     if softcap is not None and softcap <= 0:
