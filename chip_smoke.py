@@ -28,21 +28,41 @@ on the first phase that fails (exit code != 0):
 3. flash_kernel — K2, the flash-attention kernel, against its plain version:
                   gemma2-9b's shapes (B=1, S=8192, H=16, K=8, D=256) in f32
                   and bf16 with window None / 4096 and softcap None / 50, one
-                  case at each other config's shapes and window, and a ragged
-                  S=8000; bf16 outputs held element by element to one
-                  rounding from the plain version's f32 values; times as for
-                  K1, plus one library call computing the same function
-                  (library_ms: scaled_dot_product_attention, causal or with
-                  a band mask, or compiled flex_attention where there is a
-                  softcap; the port never calls them).
-4. score_check  — gemma2-9b at full width cut to 2 layers: ``forward`` with
+                  case at each other config's shapes and window (zamba2-2.7b:
+                  D=160, H=K=32), and a ragged S=8000; bf16 outputs held
+                  element by element to one rounding from the plain version's
+                  f32 values; times as for K1, plus one library call
+                  computing the same function (library_ms:
+                  scaled_dot_product_attention, causal or with a band mask,
+                  or compiled flex_attention where there is a softcap; the
+                  port never calls them).
+4. ssd_kernel   — K3, the SSD chunked scan, against its plain version at
+                  mamba2-1.3b's shapes (H=64, P=64, N=128, chunk 256; S=4500,
+                  4 x 2048, and 17) and zamba2-2.7b's (H=80, N=64), in bf16
+                  and f32, with and without h0 and the D-term; y and h_final
+                  within 5e-4 + 1e-3 |plain| element by element; times as
+                  for K1 (no library call computes the scan).
+5. decode_kernel — K4, dense decode attention, against its plain version:
+                  zamba2-2.7b's shared attention (8 rows of 8192 slots,
+                  H=K=32, D=160, filled to 49..8192) in bf16 and f32, and
+                  gemma2-9b's local layer (a 4096-slot ring wrapped past its
+                  size, window 4096) and global layer (8192 slots), softcap
+                  50, at every cache dtype; a row with nothing visible;
+                  times as for K2 (library: SDPA with a mask of the
+                  invisible slots, or compiled flex_attention).
+6. score_check  — gemma2-9b at full width cut to 2 layers: ``forward`` with
                   K2 against the same forward with the plain attention on
                   2048 tokens, and ``forward``'s logits on a 512-token prompt
                   against ``paged_mixed_step`` prefilling it as one packed
                   chunk (K2 and K1 computing one attention).
-5. model        — one packed step of the same 2-layer model, with K1
+7. ssm_check    — mamba2-1.3b cut to 2 layers and zamba2-2.7b cut to one
+                  group (6 mamba + 1 shared attention) at full width: the
+                  last logits of ``forward`` over 1001 tokens against
+                  ``prefill`` over 1000 then ``decode_step`` (K3's state,
+                  the conv window and K4 carrying the context).
+8. model        — one packed step of the 2-layer gemma2-9b, with K1
                   against the same step with the plain attention.
-6. serve        — ``ServeEngine`` serving gemma2-9b (CONFIG: full width, all
+9. serve        — ``ServeEngine`` serving gemma2-9b (CONFIG: full width, all
                   42 layers, bf16, seeded random weights) 8 requests: one
                   4500-token prompt chunked over several ticks across the
                   4096 window, seven of 16-300 tokens (two share a 64-token
@@ -50,20 +70,31 @@ on the first phase that fails (exit code != 0):
                   speculative decoding (spec_k=2), whose greedy streams must
                   be identical, and with an int8 pool.  Asserts host_syncs ==
                   ticks and K1 launches == ticks x 42.
-7. trace        — the first serve run again under torch.profiler: device
+10. trace       — the first serve run again under torch.profiler: device
                   time by kernel and the device's idle share
                   (informational).
-8. score        — ``forward`` at full width and full depth, bf16, seeded
-                  random weights, B=1: gemma2-9b, gemma3-4b and
-                  h2o-danube-1.8b at S=8192, h2o-danube-3-4b at S=9216 (past
-                  its 8192 window); finite f32 logits of shape (1, S, V) and
-                  K2 launches == n_layers per forward; wall time, tokens/s,
-                  peak memory.
-9. score_trace  — one gemma2-9b score forward under torch.profiler
+11. serve_dense — ``ServeEngine(paged=False)`` serving mamba2-1.3b and
+                  zamba2-2.7b (full width and depth, bf16, seeded weights,
+                  8 slots of 8192) 8 requests: four of 2048 tokens (one
+                  batched prefill), 4500, 17, 300 and 1000, 32 greedy new
+                  tokens each.  Asserts host_syncs == decode_ticks +
+                  prefill_batches with 5 prefill batches, K3 launches ==
+                  mamba layers x prefill_batches, K2 and K4 launches ==
+                  shared-attention applications x prefill_batches and x
+                  decode_ticks; then each run again under torch.profiler
+                  (informational).
+12. score       — ``forward`` at full width and full depth, bf16, seeded
+                  random weights, B=1: gemma2-9b, gemma3-4b, h2o-danube-1.8b,
+                  mamba2-1.3b and zamba2-2.7b at S=8192, h2o-danube-3-4b at
+                  S=9216 (past its 8192 window); finite f32 logits of shape
+                  (1, S, V), K2 launches == attention layers and K3 launches
+                  == mamba layers per forward; wall time, tokens/s, peak
+                  memory.
+13. score_trace — one gemma2-9b score forward under torch.profiler
                   (informational).
 
 It prints one JSON line per phase, then the card's name and power limit as
-nvidia-smi gives them, then the kernels line, and last
+nvidia-smi gives them, then the kernels line (K1-K4), and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -502,7 +533,8 @@ def trace_phase(cfg, params, dev) -> None:
 # ============================================================ flash kernel
 # (arch, B, S, H, K, D, dtype, window, softcap): gemma2-9b's attention at
 # S = 8192 in both dtypes with and without its window and softcap, one case
-# at each other config's shapes and window, and a ragged S
+# at each other config's shapes and window (zamba2-2.7b's shared attention:
+# D = 160, MHA), and a ragged S
 FLASH_CASES = (
     [("gemma2-9b", 1, 8192, 16, 8, 256, dt, w, c)
      for dt in (torch.float32, torch.bfloat16)
@@ -510,6 +542,7 @@ FLASH_CASES = (
     + [("gemma3-4b", 1, 8192, 8, 4, 256, torch.bfloat16, 1024, None),
        ("h2o-danube-1.8b", 1, 8192, 32, 8, 80, torch.bfloat16, 4096, None),
        ("h2o-danube-3-4b", 1, 9216, 32, 8, 120, torch.bfloat16, 8192, None),
+       ("zamba2-2.7b", 1, 8192, 32, 32, 160, torch.bfloat16, None, None),
        ("gemma2-9b", 1, 8000, 16, 8, 256, torch.bfloat16, 4096, 50.0)])
 FLASH_BOUND = (
     "max(bytes / 3.35e12 B/s, flops / peak[dtype]); bytes = (q + out) "
@@ -542,8 +575,14 @@ def flash_work(B, S, H, K, D, window, item):
 
 @functools.cache
 def _compiled_flex():
+    import torch._dynamo
     from torch.nn.attention.flex_attention import flex_attention
 
+    # one compile per case's shapes (K2's and K4's), more than dynamo's
+    # default limit of recompiles per function
+    for name in ("recompile_limit", "cache_size_limit"):
+        if hasattr(torch._dynamo.config, name):
+            setattr(torch._dynamo.config, name, 64)
     return torch.compile(flex_attention, dynamic=False, fullgraph=True)
 
 
@@ -623,6 +662,451 @@ def flash_kernel_phase(dev, cases=FLASH_CASES, reps=(10, 3)) -> list[dict]:
     del flush
     torch.cuda.empty_cache()
     return out_cases
+
+
+# ============================================================= ssd kernel
+K3_TPU = "src/repro/kernels/ssd/kernel.py:80"
+K3_SRC = "src/repro_torch/kernels/csrc/ssd.cu"
+# (arch, B, S, H, P, N, chunk): mamba2-1.3b's layer on the serve phase's
+# 4500-token prompt (S % 256 != 0) and its batched 4 x 2048 prefill, a
+# 17-token prompt (Q = 17), and zamba2-2.7b's mamba layer
+SSD_SHAPES = [("mamba2-1.3b", 1, 4500, 64, 64, 128, 256),
+              ("mamba2-1.3b", 4, 2048, 64, 64, 128, 256),
+              ("mamba2-1.3b", 1, 17, 64, 64, 128, 256),
+              ("zamba2-2.7b", 1, 4500, 80, 64, 64, 256)]
+SSD_TOL = (5e-4, 1e-3)    # atol, rtol: the JAX suite's (tests/test_kernels.py)
+SSD_BOUND = (
+    "max(bytes / 3.35e12 B/s, flops / peak[x dtype]); bytes = x "
+    "B*S*H*P*itemsize + y B*S*H*P*4 + B and C 2*B*S*N*itemsize + dt B*S*H*4 + "
+    "A (and D) H*4 + h_final (and h0) B*H*P*N*4; flops, per batch row and "
+    "chunk of L steps: C.B^T once for all heads on the causal pairs, "
+    "2*N*L(L+1)/2, and per head 2*P*L(L+1)/2 (scores x x) + 4*L*P*N (the "
+    "inter-chunk term and the state carry); peak 989e12 (bf16 tensor cores) "
+    "or 67e12 (f32)")
+SSD_LIBRARY = "none: no single PyTorch call computes the SSD chunked scan"
+
+
+def ssd_work(B, S, H, P, N, Q, item, h0, D):
+    nbytes = (B * S * H * P * (item + 4) + 2 * B * S * N * item
+              + B * S * H * 4 + H * 4 * (2 if D else 1)
+              + B * H * P * N * 4 * (2 if h0 else 1))
+    flops = 0
+    for c0 in range(0, S, Q):
+        L = min(Q, S - c0)
+        pairs = L * (L + 1) // 2
+        flops += 2 * N * pairs + H * (2 * P * pairs + 4 * L * P * N)
+    return nbytes, B * flops
+
+
+def ssd_kernel_phase(dev, shapes=SSD_SHAPES, reps=(10, 3)) -> list[dict]:
+    """K3 against its plain version on the card: every shape in bf16 and
+    f32, with and without h0, with and without the D-term.  y and h_final
+    (f32 in both versions) are held element by element to the JAX suite's
+    SSD tolerance, |out - plain| <= 5e-4 + 1e-3 |plain| (ratio
+    ``err_over_tol`` <= 1), which is tighter than one bf16 rounding."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd import ops, ref
+
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
+    emit({"phase": "ssd_bound", "bound_ms": SSD_BOUND,
+          "library_ms": SSD_LIBRARY})
+    atol, rtol = SSD_TOL
+    cases = []
+    for i, (arch, B, S, H, P, N, chunk) in enumerate(shapes):
+        g = torch.Generator(device=dev).manual_seed(200 + i)
+        rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
+        x32, B32, C32 = rnd(B, S, H, P), rnd(B, S, N) / N ** 0.5, \
+            rnd(B, S, N) / N ** 0.5
+        dt = F.softplus(rnd(B, S, H))
+        A = -torch.exp(rnd(H) * 0.5)
+        D_ = rnd(H)
+        h0_ = rnd(B, H, P, N) * 0.5
+        for dtype in (torch.bfloat16, torch.float32):
+            x, Bm, Cm = (a.to(dtype) for a in (x32, B32, C32))
+            for with_h0 in (True, False):
+                for with_d in (False, True):
+                    h0 = h0_ if with_h0 else None
+                    D = D_ if with_d else None
+                    kernel = lambda: ops.ssd(x, dt, A, Bm, Cm, D, chunk=chunk,
+                                             h0=h0)
+                    plain = lambda: ref.ssd_chunked_ref(x, dt, A, Bm, Cm, D,
+                                                        chunk=chunk, h0=h0)
+                    (y, h), (yp, hp) = kernel(), plain()
+                    torch.cuda.synchronize()
+                    assert y.dtype == h.dtype == torch.float32
+                    assert y.shape == x.shape and h.shape == (B, H, P, N)
+                    err = max((y - yp).abs().max().item(),
+                              (h - hp).abs().max().item())
+                    over = max(((y - yp).abs() / (atol + rtol * yp.abs()))
+                               .max().item(),
+                               ((h - hp).abs() / (atol + rtol * hp.abs()))
+                               .max().item())
+                    case = {"arch": arch, "B": B, "S": S, "H": H, "P": P,
+                            "N": N, "chunk": chunk, "Q": min(chunk, S),
+                            "dtype": str(dtype).split(".")[1],
+                            "h0": with_h0, "D": with_d, "max_abs_err": err,
+                            "err_over_tol": over, "y_scale":
+                            yp.abs().max().item()}
+                    assert over <= 1.0, case
+                    del y, h, yp, hp
+                    nbytes, flops = ssd_work(B, S, H, P, N, min(chunk, S),
+                                             x.element_size(), with_h0,
+                                             with_d)
+                    t_bytes = nbytes / MEM_BW * 1e3
+                    t_ops = flops / PEAK[dtype] * 1e3
+                    case.update(kernel_ms=cuda_ms(kernel, reps[0], flush),
+                                plain_ms=cuda_ms(plain, reps[1], flush),
+                                bound_ms=max(t_bytes, t_ops),
+                                bound_by=("bytes" if t_bytes >= t_ops
+                                          else "operations"),
+                                bytes=nbytes, flops=flops, library_ms=None)
+                    cases.append(case)
+                    emit({"phase": "ssd_kernel", **case})
+    del flush
+    torch.cuda.empty_cache()
+    return cases
+
+
+# ========================================================== decode kernel
+K4_TPU = "src/repro/kernels/decode_attention/kernel.py:116"
+K4_SRC = "src/repro_torch/kernels/csrc/decode_attention.cu"
+# (arch, B, S, H, K, D, window, softcap, kind, kv dtypes): zamba2-2.7b's
+# shared attention over the serve phase's 8 slots of 8192, rows filled to
+# the serve traffic's lengths; gemma2-9b's local layer on a 4096-slot ring
+# (positions wrapped past it, window 4096) and its global layer on 8192
+# slots, each at every cache dtype
+FILLS = (8192, 4532, 2080, 2080, 1332, 332, 49, 7000)
+RING_LAST = (9000, 5000, 4200, 4096, 4095, 3000, 100, 20)
+DECODE_CASES = [
+    ("zamba2-2.7b", 8, 8192, 32, 32, 160, None, None, "partial",
+     ("bfloat16", "float32")),
+    ("gemma2-9b", 8, 4096, 16, 8, 256, 4096, 50.0, "ring",
+     ("float32", "bfloat16", "int8", "fp8_e4m3")),
+    ("gemma2-9b", 8, 8192, 16, 8, 256, None, 50.0, "partial",
+     ("float32", "bfloat16", "int8", "fp8_e4m3"))]
+DECODE_BOUND = (
+    "max(bytes / 3.35e12 B/s, flops / peak[q dtype]); bytes = the visible "
+    "slots' K and V rows, K*2*D*kv_itemsize each (+ 8*K of scales for "
+    "int8/fp8) + cache_pos B*S*4 + q and out 2*B*H*D*q_itemsize + q_pos; "
+    "flops = 4*D*H per visible (row, slot); peak 989e12 (bf16) or 67e12 "
+    "(f32)")
+DECODE_LIBRARY = (
+    "one PyTorch call on the same inputs, its masks built outside the timed "
+    "region; the port calls none of them: scaled_dot_product_attention with "
+    "K and V expanded to H heads and an additive (B, 1, 1, S) mask of -inf "
+    "on the slots that are not visible; flex_attention (torch.compile'd) "
+    "with the tanh softcap as score_mod and the visible slots as mask_mod "
+    "where there is a softcap; none for int8/fp8 caches (no call takes "
+    "them with their scales)")
+
+
+def decode_positions(B, S, kind):
+    """(cache_pos (B, S), q_pos (B,)) as numpy: rows filled in slot order
+    to FILLS[b] positions ("partial"), or a ring of S slots whose newest
+    position is RING_LAST[b] (slot = position % S)."""
+    slot = np.arange(S)[None, :]
+    if kind == "partial":
+        fill = np.asarray(FILLS[:B])[:, None]
+        return (np.where(slot < fill, slot, -1).astype(np.int32),
+                (fill[:, 0] - 1).astype(np.int32))
+    last = np.asarray(RING_LAST[:B])[:, None]
+    pos = last - ((last - slot) % S)
+    return np.where(pos >= 0, pos, -1).astype(np.int32), \
+        last[:, 0].astype(np.int32)
+
+
+def decode_work(pos, qpos, window, H, K, D, kv_item, q_item, quant):
+    vis = (pos >= 0) & (pos <= qpos[:, None])
+    if window:
+        vis &= (qpos[:, None] - pos) < window
+    n = int(vis.sum())
+    B, S = pos.shape
+    nbytes = (n * K * (2 * D * kv_item + (8 if quant else 0)) + B * S * 4
+              + 2 * B * H * D * q_item + B * 4)
+    return nbytes, 4 * D * H * n, vis
+
+
+def decode_library(q, k, v, vis, cap):
+    """K4's function on these inputs as one PyTorch call (see
+    ``DECODE_LIBRARY``), in (B, H, 1, D) layout, and the call's name."""
+    import torch.nn.functional as F
+
+    H_, K_ = q.shape[1], k.shape[2]
+    qt = q[:, :, None, :].contiguous()
+    if cap is None:
+        kt, vt = (x.repeat_interleave(H_ // K_, dim=2).transpose(1, 2)
+                  .contiguous() for x in (k, v))
+        bias = torch.zeros(vis.shape, dtype=q.dtype, device=q.device)
+        bias.masked_fill_(~vis, float("-inf"))
+        bias = bias[:, None, None, :].contiguous()
+        return (lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=bias)), "sdpa_mask"
+    from torch.nn.attention.flex_attention import create_block_mask
+
+    kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+
+    def visible(b, h, qi, kj):
+        return vis[b, kj]
+
+    def softcap(s, b, h, qi, kj):
+        return cap * torch.tanh(s / cap)
+
+    mask = create_block_mask(visible, vis.shape[0], None, 1, vis.shape[1],
+                             device=q.device)
+    flex = _compiled_flex()
+    return (lambda: flex(qt, kt, vt, score_mod=softcap, block_mask=mask,
+                         enable_gqa=True)), "flex_attention"
+
+
+def decode_kernel_phase(dev, cases=DECODE_CASES, reps=(20, 3)) -> list[dict]:
+    """K4 against its plain version on the card at each case's shapes and
+    cache dtypes; f32 outputs within the JAX suite's 2e-5, bf16 outputs
+    element by element within one rounding of the plain version's f32
+    value (as K1 and K2 are held); and a row with nothing visible, where
+    both give the average of the row's values."""
+    from repro_torch.kernels.decode_attention import ops, quant, ref
+
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
+    emit({"phase": "decode_bound", "bound_ms": DECODE_BOUND,
+          "library_ms": DECODE_LIBRARY})
+    out_cases = []
+    for i, (arch, B, S, H_, K_, D_, window, cap, kind, kv_dtypes) in \
+            enumerate(cases):
+        g = torch.Generator(device=dev).manual_seed(300 + i)
+        q32 = torch.randn((B, H_, D_), generator=g, device=dev)
+        k32, v32 = (torch.randn((B, S, K_, D_), generator=g, device=dev)
+                    for _ in range(2))
+        pos_np, qpos_np = decode_positions(B, S, kind)
+        pos, qpos = (torch.from_numpy(a).to(dev) for a in (pos_np, qpos_np))
+        for kv_dtype in kv_dtypes:
+            ks = vs = None
+            if kv_dtype == "float32":
+                q, k, v, tol = q32, k32, v32, 2e-5
+            else:
+                q, tol = q32.to(torch.bfloat16), 2e-2
+                if kv_dtype == "bfloat16":
+                    k, v = k32.to(torch.bfloat16), v32.to(torch.bfloat16)
+                else:
+                    k, ks = quant.quantize_kv(k32, kv_dtype)
+                    v, vs = quant.quantize_kv(v32, kv_dtype)
+            kw = dict(k_scale=ks, v_scale=vs, window=window, softcap=cap)
+            if ks is None:
+                plain = lambda q=q, k=k, v=v: ref.decode_attention_ref(
+                    q, k, v, qpos, pos, window=window, softcap=cap)
+            else:
+                plain = lambda q=q, k=k, v=v: ref.decode_attention_quant_ref(
+                    q, k, v, ks, vs, qpos, pos, window=window, softcap=cap)
+            nbytes, flops, vis = decode_work(pos_np, qpos_np, window, H_, K_,
+                                             D_, k.element_size(),
+                                             q.element_size(), ks is not None)
+            case, out = checked_case(
+                lambda q=q, k=k, v=v: ops.decode_attention(q, k, v, qpos, pos,
+                                                           **kw),
+                plain, tol, nbytes, flops, q.dtype, flush, reps,
+                plain32=(None if kv_dtype == "float32"
+                         else lambda: plain(q.float())),
+                arch=arch, B=B, S=S, H=H_, K=K_, D=D_, kind=kind,
+                kv_dtype=kv_dtype, q_dtype=str(q.dtype).split(".")[1],
+                window=window, softcap=cap, visible_slots=int(vis.sum()))
+            assert out.dtype == q.dtype and out.shape == q.shape
+            if ks is None:
+                lib, lib_name = decode_library(
+                    q, k, v, torch.from_numpy(vis).to(dev), cap)
+                lib_err = (lib()[:, :, 0].float()
+                           - out.float()).abs().max().item()
+                case.update(library=lib_name,
+                            library_ms=cuda_ms(lib, reps[0], flush),
+                            library_vs_kernel_max_abs_err=lib_err)
+                del lib
+            else:
+                case.update(library=None, library_ms=None)
+            out_cases.append(case)
+            emit({"phase": "decode_kernel", **case})
+        del q32, k32, v32
+    # nothing visible in row 0 (an empty cache); row 1 sees its first slot
+    q, k, v = (torch.randn(shape, device=dev) for shape in
+               ((2, 8, 64), (2, 300, 4, 64), (2, 300, 4, 64)))
+    pos = torch.full((2, 300), -1, dtype=torch.int32, device=dev)
+    pos[1, 0] = 0
+    qpos = torch.tensor([9, 0], dtype=torch.int32, device=dev)
+    got = ops.decode_attention(q, k, v, qpos, pos)
+    want = ref.decode_attention_ref(q, k, v, qpos, pos)
+    err = (got - want).abs().max().item()
+    assert err <= 2e-5, ("empty row", err)
+    emit({"phase": "decode_empty_row", "max_abs_err": err})
+    del flush
+    torch.cuda.empty_cache()
+    return out_cases
+
+
+# ================================================================ ssm check
+def ssm_check_phase(dev, S=1000) -> list[dict]:
+    """mamba2-1.3b at full width cut to 2 layers, and zamba2-2.7b cut to
+    one group (6 mamba layers + 1 shared-attention application): the last
+    logits of ``forward`` over S + 1 tokens (K3 without h0, K2) against
+    ``prefill`` over S tokens then ``decode_step`` on token S + 1 (K3's
+    h_final, the conv window and K4 carrying the state)."""
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.ssd import ops as sd
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import decode_step, forward, layer_specs, prefill
+
+    out = []
+    for arch, n_layers in (("mamba2-1.3b", 2), ("zamba2-2.7b", 6)):
+        cfg = get_config(arch).replace(n_layers=n_layers)
+        params = _seeded_params(cfg, dev, 8)
+        toks, pos = _prompt(cfg.vocab_size, S + 1, 9, dev)
+        whole = forward(params, toks, pos, cfg)[0][:, -1]
+        da.decode_attention.launches = sd.ssd.launches = 0
+        _, caches = prefill(params, toks[:, :S], pos[:, :S], cfg,
+                            max_len=2048)
+        stepped, _ = decode_step(params, caches, toks[:, S], pos[:, S:], cfg)
+        torch.cuda.synchronize()
+        kinds = [spec.kind for spec in layer_specs(cfg)]
+        assert sd.ssd.launches == kinds.count("mamba")
+        assert da.decode_attention.launches == kinds.count("shared_attn")
+        assert bool(torch.isfinite(stepped).all())
+        err = (whole - stepped).abs().max().item()
+        scale = whole.abs().max().item()
+        # bf16 activations: one rounding of an attention or scan output,
+        # carried through the layers, as in the score check
+        assert err <= 2e-2 * scale, (arch, err, scale)
+        res = {"phase": "ssm_check", "arch": arch, "layers": n_layers,
+               "prompt": S, "max_abs_err": err, "logit_scale": scale,
+               "argmax_equal": bool(torch.equal(whole.argmax(-1),
+                                                stepped.argmax(-1)))}
+        assert res["argmax_equal"], res
+        emit(res)
+        out.append(res)
+        del params, caches
+        torch.cuda.empty_cache()
+    return out
+
+
+# ============================================================ dense serve
+DENSE_PROMPTS = (2048, 2048, 2048, 2048, 4500, 17, 300, 1000)
+
+
+def dense_requests(vocab: int):
+    """Four 2048-token prompts (one batched prefill of 4), then 4500 (a
+    ragged last chunk), 17, 300 and 1000: five prefill batches in all, in
+    the first tick (the engine's scheduler admits up to 8 prefills a tick);
+    32 greedy new tokens each."""
+    from repro_torch.serving.scheduler import Request
+
+    rng = np.random.default_rng(7)
+    return [Request(request_id=f"d{i}", session_key=f"d{i}",
+                    prompt=rng.integers(0, vocab, n).astype(np.int32),
+                    max_new_tokens=32)
+            for i, n in enumerate(DENSE_PROMPTS)]
+
+
+def _kernel_counters():
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd import ops as sd
+
+    return {"K2": fa.flash_attention, "K3": sd.ssd, "K4": da.decode_attention}
+
+
+def serve_dense_once(cfg, params, dev, smi: str) -> dict:
+    from repro_torch.models import layer_specs
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.scheduler import Scheduler
+
+    eng = ServeEngine(cfg, params, n_slots=8, max_len=8192, paged=False,
+                      scheduler=Scheduler(prefill_budget=8), device=dev)
+    cache_bytes = sum(t.numel() * t.element_size() for c in eng.cm.caches
+                      for t in c.values())
+    done = []
+    eng.on_complete = done.append
+    reqs = dense_requests(cfg.vocab_size)
+    counters = _kernel_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.monotonic()
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    s = eng.stats
+    kinds = [spec.kind for spec in layer_specs(cfg)]
+    n_mamba, n_attn = kinds.count("mamba"), kinds.count("shared_attn")
+    assert len(done) == len(reqs) and all(r.error is None for r in done)
+    assert all(len(r.tokens) == 32 for r in done)
+    assert all(0 <= t < cfg.vocab_size for r in done for t in r.tokens)
+    assert all(np.isfinite(r.scores).all() for r in done)
+    assert s.host_syncs == s.decode_ticks + s.prefill_batches, s
+    assert s.prefill_batches == 5, s.prefill_batches
+    assert launches["K3"] == n_mamba * s.prefill_batches, launches
+    assert launches["K4"] == n_attn * s.decode_ticks, launches
+    assert launches["K2"] == n_attn * s.prefill_batches, launches
+    res = {"phase": "serve_dense", "arch": cfg.name, "card": smi,
+           "n_layers": cfg.n_layers, "mamba_layers": n_mamba,
+           "shared_attn_applications": n_attn, "cache_bytes": cache_bytes,
+           "prefill_batches": s.prefill_batches,
+           "decode_ticks": s.decode_ticks, "host_syncs": s.host_syncs,
+           "launches": launches, "tokens_out": s.tokens_out,
+           "prompt_tokens": s.prompt_tokens, "wall_s": wall,
+           "tokens_per_s": s.tokens_out / wall,
+           "ttft_p50_s": statistics.median(s.ttft_s),
+           "tpot_p50_s": statistics.median(s.tpot_s),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    emit(res)
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def serve_dense_trace(cfg, params, dev) -> None:
+    """The dense serve again under torch.profiler: device time by kernel
+    group and the device's idle share (informational)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.scheduler import Scheduler
+
+    eng = ServeEngine(cfg, params, n_slots=8, max_len=8192, paged=False,
+                      scheduler=Scheduler(prefill_budget=8), device=dev)
+    for r in dense_requests(cfg.vocab_size):
+        eng.submit(r)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    emit({"phase": "serve_dense_trace", "arch": cfg.name,
+          "ticks": eng.stats.ticks,
+          **_device_time(prof, wall, {"K2": ("flash_attention",),
+                                      "K3": ("ssd_kernel",),
+                                      "K4": ("decode_attention",),
+                                      "gemm": GEMM_KEYS})})
+    del eng
+    torch.cuda.empty_cache()
+
+
+def serve_dense_phase(dev, smi: str) -> dict:
+    """``ServeEngine(paged=False)`` on mamba2-1.3b and zamba2-2.7b at full
+    width and depth, bf16, seeded weights, 8 slots of 8192 positions."""
+    from repro_torch.configs.registry import get_config
+
+    runs = {}
+    for arch in ("mamba2-1.3b", "zamba2-2.7b"):
+        cfg = get_config(arch)
+        params = _seeded_params(cfg, dev, 0)
+        n_params = sum(t.numel() for t in _leaves(params))
+        assert n_params == cfg.param_count(), (n_params, cfg.param_count())
+        runs[arch] = serve_dense_once(cfg, params, dev, smi)
+        serve_dense_trace(cfg, params, dev)
+        del params
+        torch.cuda.empty_cache()
+    return runs
 
 
 # ================================================================== score
@@ -707,19 +1191,21 @@ def score_check_phase(cfg, dev, S=2048, S_prompt=512) -> dict:
 
 
 # (arch, S): S = 8192 crosses gemma2's and danube-1.8b's 4096 window and
-# gemma3's 1024; danube-3-4b's 8192 window needs S = 9216
+# gemma3's 1024; danube-3-4b's 8192 window needs S = 9216; mamba2-1.3b and
+# zamba2-2.7b scan 32 chunks of 256
 SCORE_RUNS = [("gemma2-9b", 8192), ("gemma3-4b", 8192),
-              ("h2o-danube-1.8b", 8192), ("h2o-danube-3-4b", 9216)]
+              ("h2o-danube-1.8b", 8192), ("h2o-danube-3-4b", 9216),
+              ("mamba2-1.3b", 8192), ("zamba2-2.7b", 8192)]
 
 
 def score_phase(dev, smi: str, runs=SCORE_RUNS, smoke=False) -> list[dict]:
     """``forward`` at full width and full depth (bf16, seeded random
     weights), one sequence per config: a first forward builds up the
     allocator and checks the output, a second is timed (host clock around a
-    forward that ends in synchronize).  gemma2-9b's is then traced."""
+    forward that ends in synchronize) and must launch K2 once per attention
+    layer and K3 once per mamba layer.  gemma2-9b's is then traced."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels.flash_attention import ops
-    from repro_torch.models import forward
+    from repro_torch.models import forward, layer_specs
 
     results = []
     for arch, S in runs:
@@ -737,18 +1223,24 @@ def score_phase(dev, smi: str, runs=SCORE_RUNS, smoke=False) -> list[dict]:
         assert bool(torch.isfinite(logits).all()), arch
         del logits
         torch.cuda.reset_peak_memory_stats()
-        ops.flash_attention.launches = 0
+        counters = _kernel_counters()
+        for fn in counters.values():
+            fn.launches = 0
         t0 = time.monotonic()
         logits, _ = forward(params, toks, pos, cfg)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-        launches = ops.flash_attention.launches
-        assert launches == cfg.n_layers, (arch, launches, cfg.n_layers)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        kinds = [spec.kind for spec in layer_specs(cfg)]
+        n_mamba = kinds.count("mamba")
+        assert launches == {"K2": len(kinds) - n_mamba, "K3": n_mamba,
+                            "K4": 0}, (arch, launches)
         assert bool(torch.isfinite(logits).all()), arch
         res = {"phase": "score", "arch": arch, "card": smi,
                "n_layers": cfg.n_layers, "d_model": cfg.d_model,
                "params": n_params, "B": 1, "S": S, "dtype": cfg.dtype,
-               "k2_launches": launches, "init_s": init_s, "wall_s": wall,
+               "k2_launches": launches["K2"], "k3_launches": launches["K3"],
+               "init_s": init_s, "wall_s": wall,
                "tokens_per_s": S / wall,
                "peak_mem_bytes": torch.cuda.max_memory_allocated()}
         emit(res)
@@ -836,9 +1328,13 @@ def main() -> int:
           "build_s": build.build()})
     cases = kernel_phase(dev)
     flash = flash_kernel_phase(dev)
+    ssd = ssd_kernel_phase(dev)
+    decode = decode_kernel_phase(dev)
     cfg = get_config("gemma2-9b")
     score_check_phase(cfg, dev)
+    ssm_check_phase(dev)
     main_run = serve_phase(dev, smi)
+    dense = serve_dense_phase(dev, smi)
     scores = score_phase(dev, smi)
     rep = next(c for c in cases if c["kv_dtype"] == "bfloat16"
                and c["window"] is None and c["softcap"] == 50.0)
@@ -846,6 +1342,14 @@ def main() -> int:
     rep2 = next(c for c in flash if c["arch"] == "gemma2-9b"
                 and c["S"] == 8192 and c["dtype"] == "bfloat16"
                 and c["window"] is None and c["softcap"] == 50.0)
+    # K3's representative case: a mamba2-1.3b layer prefilling the serve
+    # phase's 4500-token prompt from its (zero) cache state, as the main
+    # path calls it; K4's: zamba2-2.7b's shared attention over 8 slots
+    rep3 = next(c for c in ssd if c["arch"] == "mamba2-1.3b"
+                and c["S"] == 4500 and c["dtype"] == "bfloat16" and c["h0"]
+                and not c["D"])
+    rep4 = next(c for c in decode if c["arch"] == "zamba2-2.7b"
+                and c["kv_dtype"] == "bfloat16")
     print(smi)
     emit({"kernels": [{
         "name": "ragged_paged_attention", "id": "K1", "route": "cuda",
@@ -871,7 +1375,33 @@ def main() -> int:
                         "score_mod, causal block mask, enable_gqa; the port "
                         "never calls it",
         "shape": "B=1 S=8192 H=16 K=8 D=256, bf16, causal, no window, "
-                 "softcap 50 (gemma2-9b's global layers)"}]})
+                 "softcap 50 (gemma2-9b's global layers)"}, {
+        "name": "ssd", "id": "K3", "route": "cuda",
+        "source": K3_SRC, "replaces": K3_TPU,
+        "tpu": "kernels/ssd/kernel.py:ssd_fwd",
+        "port": K3_SRC, "checked": True,
+        "launches": dense["mamba2-1.3b"]["launches"]["K3"],
+        "max_abs_err": max(c["max_abs_err"] for c in ssd),
+        "ms": rep3["kernel_ms"], "plain_ms": rep3["plain_ms"],
+        "bound_ms": rep3["bound_ms"], "bound_by": rep3["bound_by"],
+        "library_ms": None,
+        "shape": "B=1 S=4500 H=64 P=64 N=128 chunk 256, bf16 x/B/C, f32 y "
+                 "and h_final, h0 given, no D (a mamba2-1.3b layer's "
+                 "prefill)"}, {
+        "name": "decode_attention", "id": "K4", "route": "cuda",
+        "source": K4_SRC, "replaces": K4_TPU,
+        "tpu": "kernels/decode_attention/kernel.py:decode_attention_fwd",
+        "port": K4_SRC, "checked": True,
+        "launches": dense["zamba2-2.7b"]["launches"]["K4"],
+        "max_abs_err": max(c["max_abs_err"] for c in decode),
+        "ms": rep4["kernel_ms"], "plain_ms": rep4["plain_ms"],
+        "bound_ms": rep4["bound_ms"], "bound_by": rep4["bound_by"],
+        "library_ms": rep4["library_ms"],
+        "library_note": "scaled_dot_product_attention with an additive "
+                        "mask of the invisible slots; the port never calls "
+                        "it",
+        "shape": "B=8 S=8192 H=K=32 D=160, bf16, rows filled to 49..8192 "
+                 "slots (zamba2-2.7b's shared attention)"}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,8 +1,9 @@
 """Architecture registry of the port.
 
-``ARCH_IDS`` lists only the configs the port runs end to end (the JAX
-package's four pure-attention token configs, in its registry's order); the
-others join in their own slices of the port.
+``ARCH_IDS`` lists only the configs the port runs end to end, in the JAX
+package's registry order: its four pure-attention token configs and the
+SSM and hybrid configs; the MoE and embeds configs join in their own slices
+of the port.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ _MODULES = {
     "gemma2-9b": "gemma2_9b",
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "h2o-danube-3-4b": "h2o_danube_3_4b",
+    "mamba2-1.3b": "mamba2_1_3b",
+    "zamba2-2.7b": "zamba2_2_7b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -31,8 +31,8 @@
 //   width, so any D and any row stride will do);
 // - a 16 x 16 thread grid: each thread owns 4 query rows (ty + 16 i) x 4 keys
 //   (tx + 16 j) of the score tile and the same 4 rows x ceil(D/16) output
-//   columns (tx + 16 j, guarded by c < D, so D = 80 or 120 needs no vector
-//   width) of the f32 accumulator, kept in registers; the row max and sum
+//   columns (tx + 16 j, guarded by c < D, so D = 80, 120 or 160 needs no
+//   vector width) of the f32 accumulator, kept in registers; the row max and sum
 //   reduce over the 16 lanes of a half-warp with shuffles;
 // - p is re-masked explicitly (p = 0 off the band): a row whose first
 //   computed block is wholly masked keeps l = 0 and acc = 0 there, where the
@@ -279,6 +279,7 @@ int dispatch_width(const void* q, const void* k, const void* v, void* out, int B
   if (need <= 4) return launch<T, 4>(FA_ARGS);
   if (need <= 5) return launch<T, 5>(FA_ARGS);
   if (need <= 8) return launch<T, 8>(FA_ARGS);
+  if (need <= 10) return launch<T, 10>(FA_ARGS);   // D = 160 (zamba2-2.7b)
   if (need <= 16) return launch<T, 16>(FA_ARGS);
   return static_cast<int>(cudaErrorInvalidValue);
 #undef FA_ARGS

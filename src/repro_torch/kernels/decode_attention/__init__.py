@@ -1,1 +1,2 @@
-"""Ragged paged attention over the quantizable KV block pool."""
+"""Decode attention: ragged paged attention over the quantizable KV block
+pool (K1) and one-token attention over dense per-slot caches (K4)."""

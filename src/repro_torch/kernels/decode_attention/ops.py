@@ -1,23 +1,28 @@
-"""Public wrappers of the ragged paged-attention kernel (K1).
+"""Public wrappers of the decode-attention kernels: K1 (ragged paged
+attention) and K4 (one-token decode attention over dense per-slot caches).
 
-``ragged_paged_attention`` keeps the JAX package's layout and signature
-(``kernels/decode_attention/ops.py``).  The tensor's device picks the path:
+``ragged_paged_attention`` and ``decode_attention`` keep the JAX package's
+layouts and signatures (``kernels/decode_attention/ops.py``).  The tensor's
+device picks the path:
 
 - a CPU tensor runs the plain PyTorch version (``ref.py``);
 - a CUDA tensor launches the hand-written CUDA C++ kernel
-  (``kernels/csrc/ragged_paged_attention.cu``, built at first use) or
-  raises — there is no fallback.
+  (``kernels/csrc/ragged_paged_attention.cu`` or
+  ``kernels/csrc/decode_attention.cu``, built at first use) or raises —
+  there is no fallback.
 
-Replaces the TPU kernel ``kernels/decode_attention/kernel.py::
-ragged_paged_attention_fwd`` (body ``_ragged_kernel``).  On the H100 it is
-bound by the bytes it streams: each request row's live K/V blocks (plus
-scales for int8/fp8 pools), which the kernel reads straight out of the
-shared pool through the block table, dequantizing in registers so only the
-narrow bytes cross device memory.  See the source note in the ``.cu`` file
-for the design and what later changes should do about the per-token re-reads.
+K1 replaces the TPU kernel ``kernels/decode_attention/kernel.py::
+ragged_paged_attention_fwd`` (body ``_ragged_kernel``), K4 its
+``decode_attention_fwd`` (body ``_kernel``).  On the H100 both are bound by
+the bytes they stream: K1 each request row's live K/V blocks, read straight
+out of the shared pool through the block table; K4 each row's visible
+cache slots.  Both dequantize int8/fp8 K/V in registers, so only the narrow
+bytes cross device memory.  See the source notes in the ``.cu`` files for
+the designs and what later changes should do about their limits.
 
-``ragged_paged_attention.launches`` counts kernel launches (never plain
-calls), so a run can show that its main path went through the kernel.
+``ragged_paged_attention.launches`` and ``decode_attention.launches`` count
+kernel launches (never plain calls), so a run can show that its main path
+went through the kernel.
 """
 from __future__ import annotations
 
@@ -26,15 +31,19 @@ import ctypes
 import torch
 
 from .. import build
-from .ref import ragged_paged_attention_quant_ref, ragged_paged_attention_ref
+from .ref import (decode_attention_quant_ref, decode_attention_ref,
+                  ragged_paged_attention_quant_ref, ragged_paged_attention_ref)
 
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
              torch.float8_e4m3fn: 3}
 _QUANT_CODES = (2, 3)
+_DENSE_WARPS = 8                      # K4: H/K query heads share a CTA's warps
+_MAX_D = 256                          # K4: 8 columns a lane
 _SMEM_LIMIT = 232_448                 # bytes of shared memory a CTA may use
 
 _lib_fn = None
+_dense_fn = None
 
 
 def _kernel():
@@ -168,3 +177,115 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, q_pos, *,
     return ragged_paged_attention(q, k_pool, v_pool, block_tables, rows,
                                   q_pos, k_scale=k_scale, v_scale=v_scale,
                                   window=window, softcap=softcap, scale=scale)
+
+
+# ================================================================ K4
+def _dense_kernel():
+    global _dense_fn
+    if _dense_fn is None:
+        fn = build.load("decode_attention").decode_attention
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [I, P, P, P, P, P, P, P, P, I, I, I, I, I, F, F, I, P]
+        fn.restype = I
+        _dense_fn = fn
+    return _dense_fn
+
+
+def _check_dense(q, k_cache, v_cache, q_pos, cache_pos, k_scale, v_scale,
+                 window, softcap):
+    named = {"q": q, "k_cache": k_cache, "v_cache": v_cache, "q_pos": q_pos,
+             "cache_pos": cache_pos}
+    if k_scale is not None:
+        named["k_scale"] = k_scale
+    if v_scale is not None:
+        named["v_scale"] = v_scale
+    for n, x in named.items():
+        if x.device != q.device:
+            raise ValueError(f"{n} is on {x.device}, q on {q.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{n} must be contiguous")
+    if q.dtype not in _Q_CODES:
+        raise TypeError(f"q dtype {q.dtype} not in {list(_Q_CODES)}")
+    if k_cache.dtype not in _KV_CODES or v_cache.dtype != k_cache.dtype:
+        raise TypeError(f"cache dtypes {k_cache.dtype}/{v_cache.dtype} must "
+                        f"match and be one of {list(_KV_CODES)}")
+    for n in ("q_pos", "cache_pos"):
+        if named[n].dtype != torch.int32:
+            raise TypeError(f"{n} must be int32, got {named[n].dtype}")
+    if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)}, caches "
+                         f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}: "
+                         f"want (B,H,D) and two (B,S,K,D)")
+    B, H, D = q.shape
+    Bc, S, K, Dk = k_cache.shape
+    if Bc != B or Dk != D or S == 0 or H % K:
+        raise ValueError(f"caches {tuple(k_cache.shape)} do not fit q "
+                         f"{tuple(q.shape)}: same B and D, S >= 1, H a "
+                         f"multiple of K")
+    if q_pos.shape != (B,) or cache_pos.shape != (B, S):
+        raise ValueError(f"q_pos must be ({B},) and cache_pos ({B}, {S})")
+    if _DENSE_WARPS % (H // K) or not 0 < D <= _MAX_D:
+        raise ValueError(f"H/K = {H // K} must divide {_DENSE_WARPS} and "
+                         f"head_dim {D} lie in 1..{_MAX_D}")
+    if D * k_cache.element_size() % 4:
+        raise ValueError(f"a row of head_dim {D} in {k_cache.dtype} is not a "
+                         f"whole number of 32-bit words")
+    quant = _KV_CODES[k_cache.dtype] in _QUANT_CODES
+    if quant != (k_scale is not None) or (k_scale is None) != (v_scale is None):
+        raise ValueError("int8/fp8 caches need k_scale and v_scale; float "
+                         "caches take none")
+    if quant:
+        for sc in (k_scale, v_scale):
+            if sc.dtype != torch.float32 or sc.shape != (B, S, K):
+                raise ValueError(f"scales must be float32 {(B, S, K)}, got "
+                                 f"{sc.dtype} {tuple(sc.shape)}")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive or None, got {window}")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"softcap must be positive or None, got {softcap}")
+
+
+def decode_attention(q, k_cache, v_cache, q_pos, cache_pos, *, k_scale=None,
+                     v_scale=None, window: int | None = None,
+                     softcap: float | None = None,
+                     scale: float | None = None):
+    """One-token decode attention.  q: (B,H,D) float32 or bfloat16; caches
+    (B,S,K,D) in float32, bfloat16, int8 or float8_e4m3fn; q_pos (B,) and
+    cache_pos (B,S) int32 (-1 = empty slot); ``k_scale``/``v_scale``
+    (B,S,K) float32 accompany int8/fp8 caches.  Returns (B,H,D) in q's
+    dtype."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not q.is_cuda:
+        if k_scale is None:
+            return decode_attention_ref(q, k_cache, v_cache, q_pos, cache_pos,
+                                        window=window, softcap=softcap,
+                                        scale=scale)
+        return decode_attention_quant_ref(
+            q, k_cache, v_cache, k_scale, v_scale, q_pos, cache_pos,
+            window=window, softcap=softcap, scale=scale)
+    _check_dense(q, k_cache, v_cache, q_pos, cache_pos, k_scale, v_scale,
+                 window, softcap)
+    B, H, D = q.shape
+    _, S, K, _ = k_cache.shape
+    qf = q.float().contiguous()
+    out = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _dense_kernel()(
+            _KV_CODES[k_cache.dtype], qf.data_ptr(), k_cache.data_ptr(),
+            v_cache.data_ptr(),
+            k_scale.data_ptr() if k_scale is not None else None,
+            v_scale.data_ptr() if v_scale is not None else None,
+            q_pos.data_ptr(), cache_pos.data_ptr(), out.data_ptr(), B, S, H,
+            K, D, float(scale),
+            float(softcap) if softcap is not None else 0.0,
+            int(window) if window is not None else 0, stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    decode_attention.launches += 1
+    return out.to(q.dtype)
+
+
+decode_attention.launches = 0

@@ -1,11 +1,12 @@
-"""Plain PyTorch version of the ragged paged-attention kernel (port of the
-JAX package's ``kernels/decode_attention/ref.py`` oracles).
+"""Plain PyTorch versions of the decode-attention kernels (port of the JAX
+package's ``kernels/decode_attention/ref.py`` oracles): the ragged paged
+attention of K1 and the dense one-token decode attention of K4.
 
-The CPU tests run it, and ``chip_smoke.py`` holds the CUDA kernel against it
-on the card; the served path on the card never calls it.  It gathers one
-request row at a time (not one densified cache per token), so it also runs
-at the serving shapes: the largest buffers are one row's (L, K, D) cache and
-its (tokens, K, G, L) scores.
+The CPU tests run them, and ``chip_smoke.py`` holds the CUDA kernels against
+them on the card; the served paths on the card never call them.  The ragged
+version gathers one request row at a time (not one densified cache per
+token), so it also runs at the serving shapes: the largest buffers are one
+row's (L, K, D) cache and its (tokens, K, G, L) scores.
 """
 from __future__ import annotations
 
@@ -14,6 +15,44 @@ import torch
 from .quant import dequantize_kv
 
 NEG_INF = -1e30
+
+
+def decode_attention_ref(q, k_cache, v_cache, q_pos, cache_pos, *,
+                         window: int | None = None,
+                         softcap: float | None = None,
+                         scale: float | None = None):
+    """One new token per row against its dense cache.  q: (B,H,D);
+    k_cache/v_cache: (B,S,K,D); cache_pos: (B,S) absolute position of each
+    slot (-1 empty); q_pos: (B,) the new token's position.  Slot s is
+    visible iff 0 <= cache_pos <= q_pos (and q_pos - cache_pos < window), so
+    ring buffers and partly filled rows need nothing else.  Scores in f32,
+    tanh softcap after the scale, f32 softmax (a row with nothing visible
+    averages its S values uniformly).  Returns (B,H,D) in q's dtype."""
+    B, H, D = q.shape
+    K = k_cache.shape[2]
+    scale = D ** -0.5 if scale is None else scale
+    qh = q.reshape(B, K, H // K, D).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qh, k_cache.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    mask = (cache_pos >= 0) & (cache_pos <= q_pos[:, None])
+    if window is not None:
+        mask &= (q_pos[:, None] - cache_pos) < window
+    s = torch.where(mask[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def decode_attention_quant_ref(q, k_cache, v_cache, k_scale, v_scale, q_pos,
+                               cache_pos, *, window: int | None = None,
+                               softcap: float | None = None,
+                               scale: float | None = None):
+    """Quantized-cache version: int8 / fp8 caches with (B,S,K) f32 scales
+    are dequantized, then the dense version runs."""
+    return decode_attention_ref(
+        q, dequantize_kv(k_cache, k_scale), dequantize_kv(v_cache, v_scale),
+        q_pos, cache_pos, window=window, softcap=softcap, scale=scale)
 
 
 def densify_pool(k_pool, v_pool, block_tables):

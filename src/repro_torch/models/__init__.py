@@ -1,11 +1,14 @@
 from .config import LayerSpec, ModelConfig, Segment
-from .lm import (forward, init_paged_pools, init_params, layer_specs,
-                 paged_mixed_step, params_from_numpy, pools_from_numpy,
-                 pools_to_numpy, supports_paged, supports_speculative)
+from .lm import (caches_from_numpy, caches_to_numpy, decode_step, forward,
+                 init_decode_caches, init_paged_pools, init_params,
+                 layer_specs, paged_mixed_step, params_from_numpy,
+                 pools_from_numpy, pools_to_numpy, prefill, supports_paged,
+                 supports_speculative)
 from .sampling import sample_with_scores, speculative_verify
 
-__all__ = ["LayerSpec", "ModelConfig", "Segment", "forward",
+__all__ = ["LayerSpec", "ModelConfig", "Segment", "caches_from_numpy",
+           "caches_to_numpy", "decode_step", "forward", "init_decode_caches",
            "init_paged_pools", "init_params", "layer_specs",
            "paged_mixed_step", "params_from_numpy", "pools_from_numpy",
-           "pools_to_numpy", "sample_with_scores", "speculative_verify",
-           "supports_paged", "supports_speculative"]
+           "pools_to_numpy", "prefill", "sample_with_scores",
+           "speculative_verify", "supports_paged", "supports_speculative"]

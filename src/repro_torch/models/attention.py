@@ -1,22 +1,32 @@
-"""GQA attention: the full-sequence forward and the paged KV block pool.
+"""GQA attention: the full-sequence forward, the dense per-slot decode
+caches and the paged KV block pool.
 
 Port of the JAX package's ``models/attention.py``: the QKV projections and
-RoPE, then either
+RoPE, then one of
 
-- ``attention`` without a cache, causal self-attention over a whole
-  sequence through the K2 wrapper (``kernels/flash_attention/ops.py``), or
+- ``attention`` without a cache: causal self-attention over a whole
+  sequence through the K2 wrapper (``kernels/flash_attention/ops.py``);
+- ``prefill_cache``: the same over a prompt (K2), which also builds the
+  layer's dense decode cache;
+- ``attention`` with a dense cache and one new token per row: write the
+  token's K/V, then attend over the cache through the K4 wrapper
+  (``kernels/decode_attention/ops.py::decode_attention``);
 - ``paged_attention``: the pool layout, quantize-on-write and the packed
   ragged write, then ragged paged attention through the K1 wrapper
-  (``kernels/decode_attention/ops.py``).
+  (``kernels/decode_attention/ops.py::ragged_paged_attention``).
 
 Each wrapper launches the hand-written CUDA kernel for CUDA tensors and runs
 its plain version for CPU tensors.
 
-The pool is updated IN PLACE (``index_put_``): this is the port's
-counterpart of the JAX engine donating the pool to its jitted step.  Every
-packed token's K/V is written before the layer's attention reads, so a
-chunk token sees its same-dispatch predecessors and a same-tick sibling's
-shared prefix blocks.
+Dense cache layout (as in the JAX package): ``{"k": (B, S_c, K, D), "v":
+(B, S_c, K, D), "pos": (B, S_c)}``, ``pos`` the absolute position in each
+slot (-1 = empty); windowed layers keep a ring of S_c = window slots.
+
+Caches and the pool are updated IN PLACE (``index_put_``): this is the
+port's counterpart of the JAX engine donating them to its jitted step, and
+it saves a copy of every cache per decode step.  Every packed token's K/V
+is written before the layer's attention reads, so a chunk token sees its
+same-dispatch predecessors and a same-tick sibling's shared prefix blocks.
 """
 from __future__ import annotations
 
@@ -31,19 +41,54 @@ from .layers import dense_init, dtype_of, rmsnorm, rmsnorm_init, rope
 
 
 # ------------------------------------------------------------------ params
-def attn_init(generator: torch.Generator, cfg: ModelConfig, device) -> dict:
-    d, H, K, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+def attn_init(generator: torch.Generator, cfg: ModelConfig, device, *,
+              d_in: int | None = None, d_out: int | None = None) -> dict:
+    """``d_in``/``d_out`` default to d_model; zamba2's shared block reads
+    concat(hidden, embeddings), 2·d_model wide."""
+    d_in, d_out = d_in or cfg.d_model, d_out or cfg.d_model
+    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = dtype_of(cfg)
     p = {
-        "wq": dense_init(generator, (d, H, D), dt, device),
-        "wk": dense_init(generator, (d, K, D), dt, device),
-        "wv": dense_init(generator, (d, K, D), dt, device),
-        "wo": dense_init(generator, (H, D, d), dt, device, in_axis=0),
+        "wq": dense_init(generator, (d_in, H, D), dt, device),
+        "wk": dense_init(generator, (d_in, K, D), dt, device),
+        "wv": dense_init(generator, (d_in, K, D), dt, device),
+        "wo": dense_init(generator, (H, D, d_out), dt, device, in_axis=0),
     }
     if cfg.qk_norm:
         p["q_norm"] = rmsnorm_init(D, device)
         p["k_norm"] = rmsnorm_init(D, device)
     return p
+
+
+# ------------------------------------------------------------------- cache
+def init_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int,
+               *, device) -> dict:
+    """One layer's dense decode cache: S_c = max_len slots, or a ring of
+    min(window, max_len) for a windowed layer; every slot empty (-1)."""
+    S_c = min(spec.window, max_len) if spec.window else max_len
+    shape = (batch, S_c, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
+            "v": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
+            "pos": torch.full((batch, S_c), -1, dtype=torch.int32,
+                              device=device)}
+
+
+def _cache_write(cache: dict, k_new, v_new, positions) -> None:
+    """Write T new entries per row at slots ``positions % S_c``, in place.
+
+    A prompt longer than a ring (T > S_c) would write some slots twice, and
+    which duplicate ``index_put_`` keeps is unspecified on CUDA; only the
+    last S_c positions are written, which leaves the ring as the JAX
+    package's in-order scatter does (the last write of each slot wins)."""
+    B, S_c = cache["pos"].shape
+    if positions.shape[1] > S_c:
+        k_new, v_new = k_new[:, -S_c:], v_new[:, -S_c:]
+        positions = positions[:, -S_c:]
+    slots = (positions % S_c).long()
+    bidx = torch.arange(B, device=slots.device)[:, None]
+    cache["k"][bidx, slots] = k_new.to(cache["k"].dtype)
+    cache["v"][bidx, slots] = v_new.to(cache["v"].dtype)
+    cache["pos"][bidx, slots] = positions.to(torch.int32)
 
 
 # ------------------------------------------------------------------ paging
@@ -122,23 +167,54 @@ def _qkv(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
 
 def attention(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
               cfg: ModelConfig, spec: LayerSpec,
-              cache: dict | None = None) -> tuple[torch.Tensor, None]:
-    """Causal self-attention over whole sequences (train / scoring): x
-    (B, T, d), positions (B, T).  K2 ignores ``positions`` and attends over
-    0..T-1, as the JAX package's kernel does.  Returns (y (B, T, d), None).
+              cache: dict | None = None) -> tuple[torch.Tensor, dict | None]:
+    """x (B, T, d), positions (B, T).  Returns (y (B, T, d), cache).
 
-    The dense decode caches (``cache``) belong to the dense/SSM slice."""
-    if cache is not None:
-        raise NotImplementedError(
-            "attention over a dense decode cache joins with the dense/SSM "
-            "slice (ROADMAP P9); the port serves through the paged pool")
+    Without a cache: causal self-attention over whole sequences (train /
+    scoring) through K2, which ignores ``positions`` and attends over
+    0..T-1, as the JAX package's kernel does.
+
+    With a dense cache (decode, T = 1): write this step's K/V into the cache
+    in place, then attend over it through K4.  The JAX package also accepts
+    T > 1 here, but no path of it passes more than one token (prefill goes
+    through ``prefill_cache``), so that raises."""
     B, T, _ = x.shape
+    q, k, v = _qkv(params, x, positions, cfg=cfg, spec=spec)
+    if cache is None:
+        out = fa_ops.flash_attention(q, k, v, positions=positions,
+                                     window=spec.window,
+                                     softcap=cfg.attn_logit_softcap,
+                                     scale=cfg.head_dim ** -0.5)
+    else:
+        if T != 1:
+            raise NotImplementedError(
+                f"attention over a dense cache with T = {T} > 1 new tokens "
+                f"is on no path of the JAX package (its prefill builds the "
+                f"cache with prefill_cache)")
+        _cache_write(cache, k, v, positions)
+        out = da_ops.decode_attention(
+            q[:, 0].contiguous(), cache["k"], cache["v"],
+            positions[:, 0].contiguous(), cache["pos"], window=spec.window,
+            softcap=cfg.attn_logit_softcap, scale=cfg.head_dim ** -0.5)
+    return out.reshape(B, T, -1) @ params["wo"].reshape(-1, cfg.d_model), cache
+
+
+def prefill_cache(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
+                  cfg: ModelConfig, spec: LayerSpec, max_len: int
+                  ) -> tuple[torch.Tensor, dict]:
+    """Attention over the prompt (K2: positions 0..S-1, which the dense
+    engine always passes) AND the layer's decode cache for ``max_len``
+    positions.  The JAX package attends with its XLA path here
+    (``_attend_chunked``), which computes the same function."""
+    B, S, _ = x.shape
     q, k, v = _qkv(params, x, positions, cfg=cfg, spec=spec)
     out = fa_ops.flash_attention(q, k, v, positions=positions,
                                  window=spec.window,
                                  softcap=cfg.attn_logit_softcap,
                                  scale=cfg.head_dim ** -0.5)
-    return out.reshape(B, T, -1) @ params["wo"].reshape(-1, cfg.d_model), None
+    cache = init_cache(cfg, spec, B, max_len, device=x.device)
+    _cache_write(cache, k, v, positions)
+    return out.reshape(B, S, -1) @ params["wo"].reshape(-1, cfg.d_model), cache
 
 
 def paged_attention(params: dict, x: torch.Tensor, positions: torch.Tensor,

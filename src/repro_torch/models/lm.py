@@ -1,22 +1,28 @@
-"""Decoder LM over the segment/pattern layout: the full-sequence forward
-and the paged serving step.
+"""Decoder LM over the segment/pattern layout: the full-sequence forward,
+the dense prefill / decode steps and the paged serving step.
 
-Port of the JAX package's ``models/lm.py`` for pure-attention token models
-(``supports_paged``).  ``forward`` scores whole sequences (attention through
-K2, the flash-attention kernel); ``paged_mixed_step`` runs one packed tick
+Port of the JAX package's ``models/lm.py`` for token models of ``attn_mlp``,
+``mamba`` and ``shared_attn`` layers (the pure-attention configs, mamba2 and
+zamba2).  ``forward`` scores whole sequences (attention through K2, the
+flash-attention kernel; the SSD scan through K3); ``prefill`` and
+``decode_step`` run the dense per-slot caches (prefill through K2 and K3,
+decode attention through K4); ``paged_mixed_step`` runs one packed tick
 against the paged KV pool (attention through K1).  One block body
-(``_apply_block``) serves both.  The JAX package scans each segment over
+(``_apply_block``) serves them all.  The JAX package scans each segment over
 ``repeat`` stacked parameter copies; the port keeps one flat list of layers
 in the same order (``layer_specs``): layer ``r·len(pattern) + i`` of a
 segment is pattern position ``i`` of copy ``r``.  For gemma2 (``Segment((local,
-global), 21)``) even layers are local (windowed) and odd layers global —
-``params_from_numpy`` and ``pools_from_numpy`` unstack in exactly that
-order.
+global), 21)``) even layers are local (windowed) and odd layers global; for
+zamba2 (``Segment((mamba,) * 6 + (shared_attn,), 9)``) every seventh layer
+applies the shared attention block.  ``params_from_numpy``,
+``pools_from_numpy`` and ``caches_from_numpy`` unstack in exactly that order.
 
 Params: ``{"embed": {"table"}, "final_norm": {"scale"}, "layers": [layer
-dict, ...]}`` (+ ``"head"`` for untied embeddings); each layer dict has the
-JAX leaf names and layouts.  Pools: a list with one dict per layer, updated
-in place by ``paged_mixed_step``.
+dict, ...]}`` (+ ``"head"`` for untied embeddings, + ``"shared_attn"`` for
+zamba2, whose layer dicts of the shared-attention applications are empty,
+as in the JAX package); each layer dict has the JAX leaf names and layouts.
+Pools and caches: a list with one dict per layer, updated in place by the
+step that uses them.
 """
 from __future__ import annotations
 
@@ -24,22 +30,27 @@ import numpy as np
 import torch
 
 from . import attention as attn_mod
+from . import mamba2 as mamba_mod
 from .config import LayerSpec, ModelConfig
 from .layers import (dtype_of, embed_init, embed_lookup, rmsnorm,
                      rmsnorm_init, softcap, unembed)
 from .mlp import mlp, mlp_init
 
+_PORTED_KINDS = {"attn_mlp", "mamba", "shared_attn"}
+
 
 def layer_specs(cfg: ModelConfig) -> list[LayerSpec]:
     """The flat layer order of the stack (segment, then copy, then pattern
-    position) — the order of ``params["layers"]`` and of the pools."""
+    position) — the order of ``params["layers"]``, the pools and the
+    caches."""
     return [spec for seg in cfg.layout() for _ in range(seg.repeat)
             for spec in seg.pattern]
 
 
 def supports_paged(cfg: ModelConfig) -> bool:
     """Paged KV serving needs token inputs (the prefix trie is keyed by
-    token blocks) and pure-attention layers."""
+    token blocks) and pure-attention layers (SSM/conv state is O(1) per
+    request and carries the whole history: it cannot be block-shared)."""
     return cfg.input_mode == "tokens" and all(
         s.kind in ("attn_mlp", "attn_moe")
         for seg in cfg.layout() for s in seg.pattern)
@@ -50,18 +61,28 @@ def supports_speculative(cfg: ModelConfig) -> bool:
     return supports_paged(cfg)
 
 
-def _check_ported(cfg: ModelConfig) -> None:
+def _check_ported(cfg: ModelConfig, *, paged: bool = False) -> None:
     kinds = {s.kind for s in layer_specs(cfg)}
-    if not supports_paged(cfg) or kinds != {"attn_mlp"}:
+    if cfg.input_mode != "tokens" or not kinds <= _PORTED_KINDS:
         raise NotImplementedError(
-            f"config {cfg.name}: the port runs token models of attn_mlp "
-            f"layers only; {sorted(kinds)} / input_mode={cfg.input_mode!r} "
-            f"join with the dense/SSM and MoE slices")
+            f"config {cfg.name}: the port runs token models of attn_mlp, "
+            f"mamba and shared_attn layers; {sorted(kinds)} / input_mode="
+            f"{cfg.input_mode!r}: attn_moe layers join with the MoE slice "
+            f"and input_mode='embeds' with the embeds slice (ROADMAP P9)")
+    if paged and not supports_paged(cfg):
+        raise ValueError(f"config {cfg.name} cannot use the paged KV pool: "
+                         f"its {sorted(kinds)} layers carry state that "
+                         f"blocks cannot share (serve it with paged=False)")
 
 
 # ====================================================================== init
-def _block_init(generator, cfg: ModelConfig, device) -> dict:
+def _block_init(generator, cfg: ModelConfig, spec: LayerSpec, device) -> dict:
     d = cfg.d_model
+    if spec.kind == "mamba":
+        return {"norm": rmsnorm_init(d, device),
+                "mamba": mamba_mod.mamba_init(generator, cfg, device)}
+    if spec.kind == "shared_attn":
+        return {}       # parameters live in params["shared_attn"]
     p = {"norm_attn": rmsnorm_init(d, device),
          "attn": attn_mod.attn_init(generator, cfg, device),
          "norm_mlp": rmsnorm_init(d, device)}
@@ -72,25 +93,38 @@ def _block_init(generator, cfg: ModelConfig, device) -> dict:
     return p
 
 
+def _shared_attn_init(generator, cfg: ModelConfig, device) -> dict:
+    """zamba2's one shared transformer block: it reads concat(hidden,
+    embeddings), 2·d wide, and writes d."""
+    d2 = 2 * cfg.d_model
+    return {"norm_attn": rmsnorm_init(d2, device),
+            "attn": attn_mod.attn_init(generator, cfg, device, d_in=d2),
+            "norm_mlp": rmsnorm_init(d2, device),
+            "mlp": mlp_init(generator, cfg, device, d_in=d2)}
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 device="cuda") -> dict:
     """Seeded random weights, made directly on ``device``.  Same
     distributions as the JAX initialisers (N(0,1) embedding table, dense
-    weights N(0, 1/fan_in), zero norm scales); the draws differ, since the
-    two frameworks' generators differ."""
+    weights N(0, 1/fan_in), zero norm scales, A_log = dt_bias = 0, D = 1);
+    the draws differ, since the two frameworks' generators differ."""
     _check_ported(cfg)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     dt = dtype_of(cfg)
+    specs = layer_specs(cfg)
     params = {
         "embed": embed_init(generator, cfg.vocab_size, cfg.d_model, dt, device),
         "final_norm": rmsnorm_init(cfg.d_model, device),
-        "layers": [_block_init(generator, cfg, device)
-                   for _ in layer_specs(cfg)],
+        "layers": [_block_init(generator, cfg, spec, device)
+                   for spec in specs],
     }
     if not cfg.tie_embeddings:
         params["head"] = embed_init(generator, cfg.vocab_size, cfg.d_model,
                                     dt, device)
+    if any(s.kind == "shared_attn" for s in specs):
+        params["shared_attn"] = _shared_attn_init(generator, cfg, device)
     return params
 
 
@@ -137,6 +171,22 @@ def _unstack(segments, cfg: ModelConfig, fn) -> list:
     return out
 
 
+def _restack(layers: list[dict], cfg: ModelConfig):
+    """The inverse of ``_unstack`` to numpy: tuple per segment of tuple per
+    pattern position of dicts of stacked numpy leaves (see ``_to_numpy``)."""
+    out, li = [], 0
+    for seg in cfg.layout():
+        n = len(seg.pattern)
+        per_pos = []
+        for i in range(n):
+            copies = [layers[li + r * n + i] for r in range(seg.repeat)]
+            per_pos.append({k: np.stack([_to_numpy(c[k]) for c in copies])
+                            for k in copies[0]})
+        out.append(tuple(per_pos))
+        li += seg.n_layers
+    return tuple(out)
+
+
 def params_from_numpy(tree, cfg: ModelConfig, device="cuda") -> dict:
     """The port's params from a JAX ``init_params`` tree after
     ``jax.tree.map(np.asarray, ...)``, unstacking each segment's ``repeat``
@@ -146,8 +196,9 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda") -> dict:
     params = {"embed": _map(tree["embed"], conv),
               "final_norm": _map(tree["final_norm"], conv),
               "layers": _unstack(tree["segments"], cfg, conv)}
-    if "head" in tree:
-        params["head"] = _map(tree["head"], conv)
+    for key in ("head", "shared_attn"):
+        if key in tree:
+            params[key] = _map(tree[key], conv)
     return params
 
 
@@ -163,17 +214,21 @@ def pools_to_numpy(pools: list[dict], cfg: ModelConfig):
     per segment of tuple per pattern position of dicts of stacked numpy
     leaves).  bfloat16 / fp8 leaves come back as raw bits (see
     ``_to_numpy``)."""
-    out, li = [], 0
-    for seg in cfg.layout():
-        n = len(seg.pattern)
-        per_pos = []
-        for i in range(n):
-            layers = [pools[li + r * n + i] for r in range(seg.repeat)]
-            per_pos.append({k: np.stack([_to_numpy(p[k]) for p in layers])
-                            for k in layers[0]})
-        out.append(tuple(per_pos))
-        li += seg.n_layers
-    return tuple(out)
+    return _restack(pools, cfg)
+
+
+def caches_from_numpy(tree, cfg: ModelConfig, device="cuda") -> list[dict]:
+    """The port's per-layer dense caches from a JAX ``init_decode_caches``
+    (or ``prefill`` / ``decode_step``) tree: one ``{"k", "v", "pos"}`` per
+    attention layer and per shared-attention application, one ``{"conv",
+    "ssm"}`` per mamba layer, in ``layer_specs`` order."""
+    return _unstack(tree, cfg, lambda a: _to_torch(a, device))
+
+
+def caches_to_numpy(caches: list[dict], cfg: ModelConfig):
+    """The inverse of ``caches_from_numpy``: the JAX cache tree layout, with
+    stacked numpy leaves (bfloat16 as raw bits)."""
+    return _restack(caches, cfg)
 
 
 def init_paged_pools(cfg: ModelConfig, num_blocks: int, block_size: int,
@@ -182,10 +237,23 @@ def init_paged_pools(cfg: ModelConfig, num_blocks: int, block_size: int,
     """The global KV block pool: one dict per layer (``layer_specs`` order)
     of (num_blocks, block_size, K, D) leaves, plus scale leaves for int8 /
     fp8 pools (``kv_dtype`` defaults to ``cfg.kv_dtype``)."""
-    _check_ported(cfg)
+    _check_ported(cfg, paged=True)
     return [attn_mod.init_paged_pool(cfg, num_blocks, block_size,
                                      kv_dtype=kv_dtype, device=device)
             for _ in layer_specs(cfg)]
+
+
+def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int, *,
+                       device="cuda") -> list[dict]:
+    """Dense decode caches, one dict per layer (``layer_specs`` order):
+    attention layers and shared-attention applications get (batch, S_c,
+    K, D) K/V and (batch, S_c) positions, all empty; mamba layers a zero
+    conv window and f32 SSM state."""
+    _check_ported(cfg)
+    return [mamba_mod.mamba_cache_init(cfg, batch, device=device)
+            if spec.kind == "mamba"
+            else attn_mod.init_cache(cfg, spec, batch, max_len, device=device)
+            for spec in layer_specs(cfg)]
 
 
 # ==================================================================== blocks
@@ -201,24 +269,59 @@ def _head(params, x, cfg: ModelConfig):
     return softcap(unembed(table, x), cfg.final_logit_softcap)
 
 
+def _attend(p, h, positions, *, cfg, spec, mode, cache, max_len):
+    """The attention of an attn_mlp or shared_attn layer in ``mode``:
+    (y, the layer's cache)."""
+    if mode == "prefill":
+        return attn_mod.prefill_cache(p, h, positions, cfg=cfg, spec=spec,
+                                      max_len=max_len)
+    return attn_mod.attention(p, h, positions, cfg=cfg, spec=spec,
+                              cache=cache)
+
+
 def _apply_block(p, x, positions, *, cfg: ModelConfig, spec: LayerSpec,
-                 pool=None, block_table=None, row_ids=None):
-    """One attn_mlp layer: on whole sequences x (B, T, d) without a pool,
-    or on the packed row x (T, d) against ``pool`` (updated in place)."""
+                 mode: str = "score", cache=None, shared=None, embeds0=None,
+                 max_len: int | None = None, pool=None, block_table=None,
+                 row_ids=None):
+    """One layer.  Returns (x, the layer's new cache or None).
+
+    ``mode`` is "score" (whole sequences x (B, T, d), no cache), "prefill"
+    (builds the layer's dense cache for ``max_len`` positions; a mamba layer
+    starts from ``cache``'s state), "decode" (one token per row against
+    ``cache``), or "paged" (the packed row x (T, d) against ``pool``,
+    updated in place; attn_mlp layers only).  ``shared`` holds zamba2's
+    shared-attention parameters, ``embeds0`` the stack's input embeddings
+    that its block reads beside the hidden state."""
+    if spec.kind == "mamba":
+        y, new_cache = mamba_mod.mamba_block(p["mamba"], rmsnorm(p["norm"], x),
+                                             cfg=cfg, cache=cache)
+        return x + y, new_cache
+
+    if spec.kind == "shared_attn":
+        u = torch.cat([x, embeds0], dim=-1)
+        y, new_cache = _attend(shared["attn"], rmsnorm(shared["norm_attn"], u),
+                               positions, cfg=cfg, spec=spec, mode=mode,
+                               cache=cache, max_len=max_len)
+        x = x + y
+        v = torch.cat([x, embeds0], dim=-1)
+        return x + mlp(shared["mlp"], rmsnorm(shared["norm_mlp"], v)), new_cache
+
     h = rmsnorm(p["norm_attn"], x)
-    if pool is None:
-        y, _ = attn_mod.attention(p["attn"], h, positions, cfg=cfg, spec=spec)
-    else:
+    if mode == "paged":
         y = attn_mod.paged_attention(p["attn"], h, positions, cfg=cfg,
                                      spec=spec, pool=pool,
                                      block_table=block_table, row_ids=row_ids)
+        new_cache = None
+    else:
+        y, new_cache = _attend(p["attn"], h, positions, cfg=cfg, spec=spec,
+                               mode=mode, cache=cache, max_len=max_len)
     if cfg.post_norm:
         y = rmsnorm(p["post_norm_attn"], y)
     x = x + y
     y = mlp(p["mlp"], rmsnorm(p["norm_mlp"], x))
     if cfg.post_norm:
         y = rmsnorm(p["post_norm_mlp"], y)
-    return x + y
+    return x + y, new_cache
 
 
 def forward(params, inputs, positions, cfg: ModelConfig, *,
@@ -235,10 +338,52 @@ def forward(params, inputs, positions, cfg: ModelConfig, *,
     if mode not in ("score", "train"):
         raise ValueError(f"mode must be 'score' or 'train', got {mode!r}")
     x = _embed_inputs(params, inputs, cfg)                     # (B, S, d)
+    embeds0 = x
     for spec, p in zip(layer_specs(cfg), params["layers"]):
-        x = _apply_block(p, x, positions, cfg=cfg, spec=spec)
+        x, _ = _apply_block(p, x, positions, cfg=cfg, spec=spec,
+                            shared=params.get("shared_attn"), embeds0=embeds0)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _head(params, x, cfg), aux
+
+
+def prefill(params, inputs, positions, cfg: ModelConfig, *, max_len: int):
+    """Run the prompt and build the dense decode caches: inputs (B, S)
+    int32 tokens, positions (B, S) int32 (0..S-1, as the dense engine
+    passes them).  Returns (f32 last-token logits (B, V), caches: one dict
+    per layer, each for ``max_len`` positions)."""
+    _check_ported(cfg)
+    x = _embed_inputs(params, inputs, cfg)
+    embeds0 = x
+    caches = []
+    for spec, p in zip(layer_specs(cfg), params["layers"]):
+        start = (mamba_mod.mamba_cache_init(cfg, x.shape[0], device=x.device)
+                 if spec.kind == "mamba" else None)
+        x, nc = _apply_block(p, x, positions, cfg=cfg, spec=spec,
+                             mode="prefill", cache=start,
+                             shared=params.get("shared_attn"),
+                             embeds0=embeds0, max_len=max_len)
+        caches.append(nc)
+    return _head(params, x[:, -1:, :], cfg)[:, 0, :], caches
+
+
+def decode_step(params, caches, inputs, positions, cfg: ModelConfig):
+    """One decode step: inputs (B,) or (B, 1) int32 tokens, positions
+    (B, 1) int32.  Returns (f32 logits (B, V), caches).  ``caches`` (one
+    dict per layer, from ``prefill`` or ``init_decode_caches``) is updated
+    in place, where the JAX package returns new trees."""
+    if inputs.dim() == 1:
+        inputs = inputs[:, None]
+    x = _embed_inputs(params, inputs, cfg)
+    embeds0 = x
+    for spec, p, cache in zip(layer_specs(cfg), params["layers"], caches):
+        x, nc = _apply_block(p, x, positions, cfg=cfg, spec=spec,
+                             mode="decode", cache=cache,
+                             shared=params.get("shared_attn"),
+                             embeds0=embeds0)
+        if spec.kind == "mamba":
+            for k, leaf in nc.items():
+                cache[k].copy_(leaf)
+    return _head(params, x, cfg)[:, 0, :], caches
 
 
 def paged_mixed_step(params, pools, block_tables, tokens, positions, row_ids,
@@ -254,8 +399,9 @@ def paged_mixed_step(params, pools, block_tables, tokens, positions, row_ids,
     place (all packed K/V is written before the layer's attention reads)."""
     x = _embed_inputs(params, tokens, cfg)                    # (T, d)
     for spec, p, pool in zip(layer_specs(cfg), params["layers"], pools):
-        x = _apply_block(p, x, positions, cfg=cfg, spec=spec, pool=pool,
-                         block_table=block_tables, row_ids=row_ids)
+        x, _ = _apply_block(p, x, positions, cfg=cfg, spec=spec, mode="paged",
+                            pool=pool, block_table=block_tables,
+                            row_ids=row_ids)
     if sample_idx.dim() == 1:
         return _head(params, x[sample_idx.long()], cfg)
     # (R, J): one head product per fed position j, each of R rows, so a

@@ -9,12 +9,16 @@ from .config import ModelConfig
 from .layers import dense_init, dtype_of
 
 
-def mlp_init(generator: torch.Generator, cfg: ModelConfig, device) -> dict:
-    d, f, dt = cfg.d_model, cfg.d_ff, dtype_of(cfg)
+def mlp_init(generator: torch.Generator, cfg: ModelConfig, device, *,
+             d_in: int | None = None, d_out: int | None = None) -> dict:
+    """``d_in``/``d_out`` default to d_model; zamba2's shared block reads
+    concat(hidden, embeddings), 2·d_model wide."""
+    d_in, d_out = d_in or cfg.d_model, d_out or cfg.d_model
+    f, dt = cfg.d_ff, dtype_of(cfg)
     return {
-        "w_gate": dense_init(generator, (d, f), dt, device),
-        "w_up": dense_init(generator, (d, f), dt, device),
-        "w_down": dense_init(generator, (f, d), dt, device),
+        "w_gate": dense_init(generator, (d_in, f), dt, device),
+        "w_up": dense_init(generator, (d_in, f), dt, device),
+        "w_down": dense_init(generator, (f, d_out), dt, device),
     }
 
 

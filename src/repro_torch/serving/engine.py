@@ -1,14 +1,17 @@
-"""The serving engine in paged mode: the unified token-budget tick.
+"""The serving engine: the paged unified token-budget tick and the dense
+slot tick.
 
-Port of the JAX package's ``serving/engine.py`` for pure-attention token
-models.  Every tick is ONE mixed step: the scheduler admits work against a
-per-tick TOKEN budget (each live decode row costs one token, waiting
-prefills are split into chunks that fill the remainder, speculative draft
-lanes take what is left), the host packs the admitted tokens into one
-fixed-shape ragged batch of ``token_budget`` lanes, and
-``models.paged_mixed_step`` runs the model — K1, the ragged paged-attention
-kernel, at every layer — followed by ``models.speculative_verify`` on the
-gathered boundary logits.
+Port of the JAX package's ``serving/engine.py`` for token models of
+attention, Mamba-2 and shared-attention layers.
+
+**Paged mode** (pure-attention configs, the default for them): every tick
+is ONE mixed step.  The scheduler admits work against a per-tick TOKEN
+budget (each live decode row costs one token, waiting prefills are split
+into chunks that fill the remainder, speculative draft lanes take what is
+left), the host packs the admitted tokens into one fixed-shape ragged batch
+of ``token_budget`` lanes, and ``models.paged_mixed_step`` runs the model —
+K1, the ragged paged-attention kernel, at every layer — followed by
+``models.speculative_verify`` on the gathered boundary logits.
 
 - **One device→host sync per tick**: tokens, accept counts and scores come
   back in ONE ``.cpu()`` in ``_to_host``; ``stats.host_syncs ==
@@ -20,9 +23,18 @@ gathered boundary logits.
   the block-table operand always (n_slots, max_blocks), ready for a CUDA
   graph capture of the step (a later change; eager today).
 
-Speculative decoding (``spec_k > 0``), prefix reuse with same-tick sharing,
-deadlines and the request lifecycle follow the reference exactly, so the
-greedy streams and every counter match the JAX engine's.
+**Dense mode** (``paged=False``; the default for the SSM and hybrid
+configs): each tick first admits waiting requests in contiguous groups of
+equal prompt length, each group ONE batched ``models.prefill`` (K2 and K3)
+whose caches are copied into the group's slots, then decodes every slot in
+ONE ``models.decode_step`` (K4 for attention, the plain SSM step for mamba
+layers) masked to the live ones: an inactive slot keeps its last token.
+Every dispatch is followed by one host pull, so ``stats.host_syncs ==
+stats.decode_ticks + stats.prefill_batches``.
+
+Speculative decoding (``spec_k > 0``, paged only), prefix reuse with
+same-tick sharing, deadlines and the request lifecycle follow the reference
+exactly, so the greedy streams and every counter match the JAX engine's.
 
 Entry points run on the card: ``device`` defaults to ``"cuda"`` and the
 engine raises when there is none; tests pass ``device="cpu"``.
@@ -36,14 +48,17 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.kernels.decode_attention.quant import resolve_kv_dtype
-from repro_torch.models import (paged_mixed_step, speculative_verify,
-                                supports_paged, supports_speculative)
+from repro_torch.kernels.decode_attention.quant import (is_quantized,
+                                                        resolve_kv_dtype)
+from repro_torch.models import (decode_step, layer_specs, paged_mixed_step,
+                                prefill, sample_with_scores,
+                                speculative_verify, supports_paged,
+                                supports_speculative)
 from repro_torch.models.config import ModelConfig
 
 from .draft import DraftSource, default_draft_source
 from .faults import ReplicaCrashed
-from .kvcache import PagedCacheManager
+from .kvcache import CacheManager, PagedCacheManager
 from .scheduler import Request, Scheduler
 
 
@@ -52,7 +67,7 @@ class EngineStats:
     ticks: int = 0                 # dispatched steps
     tokens_out: int = 0
     prefills: int = 0
-    prefill_batches: int = 0       # dense engines only (always 0 here)
+    prefill_batches: int = 0       # dense: batched prefill dispatches
     prefill_chunks: int = 0        # prompt chunks packed into mixed steps
     decode_ticks: int = 0          # ticks that carried >= 1 decode row
     host_syncs: int = 0            # device→host transfers
@@ -102,16 +117,26 @@ class ServeEngine:
                  spill_pool=None,
                  preempt: bool = False,
                  mesh=None, device="cuda") -> None:
-        if paged is False or not supports_paged(cfg):
-            raise _later(f"the dense/SSM engine (config {cfg.name}, "
-                         f"paged={paged})", "dense/SSM")
-        if preempt or spill_pool is not None:
+        if "attn_moe" in {s.kind for s in layer_specs(cfg)}:
+            raise _later(f"MoE layers (config {cfg.name})", "MoE")
+        if cfg.input_mode != "tokens":
+            raise _later(f"input_mode={cfg.input_mode!r} (config "
+                         f"{cfg.name})", "embeds")
+        self.paged = supports_paged(cfg) if paged is None else paged
+        if self.paged and not supports_paged(cfg):
+            raise ValueError(f"config {cfg.name} cannot use the paged cache")
+        if mesh is not None:
+            if not self.paged:
+                raise ValueError(
+                    "mesh slices shard the paged block pool; the dense cache "
+                    "path only runs single-device (pass paged=True or a "
+                    "config with supports_paged)")
+            raise _later("mesh slices", "mesh")
+        if spill_pool is not None or (preempt and self.paged):
             raise _later("preemption into a SpillPool", "preemption")
         if devstore is not None or kv_key is not None:
             raise _later("the DeviceStore bridge (devstore / kv_key)",
                          "DeviceStore")
-        if mesh is not None:
-            raise _later("mesh slices", "mesh")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ServeEngine runs on the card (device='cuda') "
@@ -126,22 +151,36 @@ class ServeEngine:
         self.spec_k = int(spec_k)
         if self.spec_k < 0:
             raise ValueError(f"spec_k={spec_k} must be >= 0")
-        if self.spec_k and not supports_speculative(cfg):
-            raise ValueError(f"config {cfg.name} cannot decode speculatively")
+        if self.spec_k and (not self.paged or not supports_speculative(cfg)):
+            raise ValueError(
+                f"config {cfg.name} cannot decode speculatively: multi-token "
+                f"verify rows and KV rollback need the paged path "
+                f"(supports_speculative)")
         self.draft_source = (draft_source if draft_source is not None
                              else (default_draft_source() if self.spec_k
                                    else None))
-        self.cm = PagedCacheManager(
-            cfg, n_slots, max_len, block_size=block_size,
-            num_blocks=num_blocks, prefix_cache=prefix_cache,
-            kv_dtype=resolve_kv_dtype(kv_dtype), device=self.device)
-        self.token_budget = (token_budget if token_budget is not None
-                             else max(32, 2 * n_slots))
-        if self.token_budget < n_slots:
-            raise ValueError(
-                f"token_budget={self.token_budget} < n_slots={n_slots}: "
-                f"every live decode row costs one token per tick, so a "
-                f"smaller budget would starve decodes")
+        if self.paged:
+            self.cm: Any = PagedCacheManager(
+                cfg, n_slots, max_len, block_size=block_size,
+                num_blocks=num_blocks, prefix_cache=prefix_cache,
+                kv_dtype=resolve_kv_dtype(kv_dtype), device=self.device)
+            self.token_budget = (token_budget if token_budget is not None
+                                 else max(32, 2 * n_slots))
+            if self.token_budget < n_slots:
+                raise ValueError(
+                    f"token_budget={self.token_budget} < n_slots={n_slots}: "
+                    f"every live decode row costs one token per tick, so a "
+                    f"smaller budget would starve decodes")
+        else:
+            if is_quantized(kv_dtype):
+                raise ValueError(
+                    f"kv_dtype={kv_dtype!r} quantizes paged KV blocks; the "
+                    f"dense slot cache has no block pool to quantize")
+            self.cm = CacheManager(cfg, n_slots, max_len, device=self.device)
+            self.token_budget = None
+        if preempt:
+            raise ValueError("preemption spills paged KV blocks; the dense "
+                             "path has no per-request blocks to spill")
         self.scheduler = scheduler or Scheduler(n_replicas=1)
         self.replica_id = replica_id
         self.temperature = temperature
@@ -150,8 +189,13 @@ class ServeEngine:
         self.live: dict[int, Request] = {}         # slot → decoding request
         self.prefilling: dict[int, Request] = {}   # slot → mid-prompt request
         self.crashed = False        # set when the replica is marked down
-        # host-side last emitted token per slot: the tick packs on host
-        self._last_host = np.zeros((n_slots,), np.int64)
+        if self.paged:
+            # host-side last emitted token per slot: the tick packs on host
+            self._last_host = np.zeros((n_slots,), np.int64)
+        else:
+            # the dense tick feeds the last tokens back on the device
+            self._last_tokens = torch.zeros((n_slots,), dtype=torch.int32,
+                                            device=self.device)
         # one fresh sampling seed per dispatch, offset by replica
         self._seed_base = (seed_offset if seed_offset is not None
                            else replica_id) * 1_000_003
@@ -179,6 +223,8 @@ class ServeEngine:
         S = len(self._norm_prompt(req.prompt))
         if S > self.cm.max_len:
             return f"prompt of {S} tokens exceeds max_len={self.cm.max_len}"
+        if not self.paged:
+            return None
         S_eff = S - req.replay_offset
         if self.cm.written_max(S_eff, req.max_new_tokens) > self.cm.max_len:
             return (f"prompt of {S} tokens + {req.max_new_tokens} new "
@@ -283,6 +329,9 @@ class ServeEngine:
             self.live[slot] = req
 
     def _release_slot(self, slot: int, req: Request) -> None:
+        if not self.paged:
+            self.cm.release(slot)
+            return
         gen = (req.tokens[req.replay_offset:] if req.replay_offset
                else req.tokens)
         self.cm.finish(slot, gen)
@@ -298,6 +347,95 @@ class ServeEngine:
             req.issued_s = time.monotonic()
             self.stats.queue_wait_s.setdefault(req.slo, []).append(
                 req.issued_s - req.arrived_s)
+
+    # ===================================================== dense admission
+    def _admit_dense(self) -> None:
+        """Admit queue heads into free slots: contiguous runs of equal
+        prompt length form one group each (no padding, so ring caches and
+        SSM state stay exact; contiguity keeps admission order), and each
+        group is ONE batched prefill dispatch and ONE host pull."""
+        for req in self.scheduler.pop_expired(self.replica_id):
+            self._deadline_error(req, "queued")
+        free = self.cm.n_slots - self.cm.n_active
+        reqs = self.scheduler.admit(self.replica_id, free)
+        if not reqs:
+            return
+        for req in reqs:
+            self._record_issue(req)
+        groups: list[tuple[tuple, list[tuple[Request, np.ndarray]]]] = []
+        for req in reqs:
+            p = self._norm_prompt(req.prompt)
+            if groups and groups[-1][0] == p.shape:
+                groups[-1][1].append((req, p))
+            else:
+                groups.append((p.shape, [(req, p)]))
+        dev = self.device
+        for shape, group in groups:
+            S = shape[0]
+            prompts = torch.from_numpy(np.stack([p for _, p in group])).to(dev)
+            pos = torch.arange(S, dtype=torch.int32, device=dev).repeat(
+                len(group), 1)
+            logits, group_caches = prefill(self.params, prompts, pos,
+                                           self.cfg, max_len=self.cm.max_len)
+            toks, scores = sample_with_scores(logits, self._next_seed(),
+                                              self.temperature)
+            host_toks, host_scores = self._to_host((toks, scores))
+            self.stats.prefill_batches += 1           # one sync per group
+            now = time.monotonic()
+            for row, (req, p) in enumerate(group):
+                slot = self.cm.acquire(req.request_id)
+                assert slot is not None
+                self.cm.insert_prefill(slot, group_caches, S, row)
+                self.stats.prompt_tokens += S
+                self.stats.prefill_tokens += S
+                self._finish_admission(req, slot, int(host_toks[row]), now,
+                                       host_scores[row])
+
+    def _finish_admission(self, req: Request, slot: int, tok: int,
+                          now: float, score) -> None:
+        self._last_tokens[slot] = tok
+        self._emit_first_token(req, slot, tok, now, score)
+
+    # --------------------------------------------------- dense decode tick
+    def _tick_dense(self) -> int:
+        """Admit, then decode every slot in one dispatch masked to the live
+        ones (an inactive slot keeps its last token), then one host pull."""
+        self._admit_dense()
+        if not self.live:
+            self.stats.ticks += 1
+            return 0
+        t0 = time.monotonic()
+        dev = self.device
+        positions = torch.from_numpy(self.cm.positions()[:, None]).to(dev)
+        active = torch.from_numpy(self.cm.active_mask()).to(dev)
+        logits, _ = decode_step(self.params, self.cm.caches,
+                                self._last_tokens, positions, self.cfg)
+        sampled, step_scores = sample_with_scores(logits, self._next_seed(),
+                                                  self.temperature)
+        new_toks = torch.where(active, sampled, self._last_tokens)
+        self._last_tokens = new_toks
+        # the ONE sync of this tick: tokens + scores in one pull
+        host_toks, host_scores = self._to_host((new_toks, step_scores))
+        self.cm.advance()
+        dt = time.monotonic() - t0
+        done = []
+        n_emitted = 0
+        for slot, req in list(self.live.items()):
+            req.tokens.append(int(host_toks[slot]))
+            req.scores.append(float(host_scores[slot, 0]))
+            req.entropies.append(float(host_scores[slot, 1]))
+            n_emitted += 1
+            self.stats.tpot_s.append(dt)
+            if len(req.tokens) >= req.max_new_tokens:
+                done.append(slot)
+        for slot in done:
+            req = self.live.pop(slot)
+            self._release_slot(slot, req)
+            self._complete(req)
+        self.stats.ticks += 1
+        self.stats.decode_ticks += 1
+        self.stats.tokens_out += n_emitted
+        return n_emitted
 
     # ================================================== unified paged tick
     def _pack_chunk(self, slot: int, toks: np.ndarray, pos: np.ndarray,
@@ -513,11 +651,15 @@ class ServeEngine:
         return n_emitted
 
     def tick(self) -> int:
-        """One engine step: one unified mixed dispatch."""
+        """One engine step.  Paged: one unified mixed dispatch (decode rows
+        + prefill chunks).  Dense: admit prefills, then decode all live
+        slots."""
         if self.crashed:
             raise ReplicaCrashed(f"replica {self.replica_id} is marked down")
         self._sweep_deadlines()
-        return self._tick_mixed()
+        if self.paged:
+            return self._tick_mixed()
+        return self._tick_dense()
 
     # --------------------------------------- spill (failover + preemption)
     def spill(self, slot: int) -> Any:

@@ -1,20 +1,28 @@
-"""Paged KV blocks with trie-based prefix reuse (port of the JAX package's
-``serving/kvcache.py`` paged half).
+"""KV-cache managers for continuous batching: dense slots and paged blocks
+(port of the JAX package's ``serving/kvcache.py``).
 
-Every layer holds (num_blocks, block_size, K, D) K/V tensors on the device
-(``models.init_paged_pools``), and a request's cache is a *block table* —
-the physical blocks that back its logical positions [0, ctx).  The engine's
-step updates the pool in place, so the pool simply lives on the device; the
-JAX package's ``DeviceStore`` bridge (``devstore`` / ``kv_key``, ``publish``
-re-installing the donated tree) joins with the port's DeviceStore slice,
-and ``publish`` is a no-op until then.
+Dense manager (``CacheManager``): the engine owns one set of per-layer
+caches with batch dimension n_slots (``models.init_decode_caches``).  Each
+slot is leased to a live request; a (batched) prefill produces caches whose
+row is copied into the slot in place, on the device (the JAX package splices
+it with a jitted dynamic_update_slice).  Slot positions live on the host.
+This is the path of the configs whose decode state cannot be paged (SSM /
+conv state carries the whole history in O(1) per request).
 
-The host-side accounting is the reference's, line for line: a per-replica
-prefix trie over prompt token blocks (``core.trie.PathTrie``), block-aligned
-sharing by refcount (copy-on-write never copies), chunk-granularity trie
-commit for same-tick sharing, commit-time dedup, LRU eviction of
-unreferenced cached blocks, and block 0 reserved as the null block that
-masked lanes scribble on.
+Paged manager (``PagedCacheManager``): every layer holds (num_blocks,
+block_size, K, D) K/V tensors on the device (``models.init_paged_pools``),
+and a request's cache is a *block table* — the physical blocks that back its
+logical positions [0, ctx).  The engine's step updates the pool in place, so
+the pool simply lives on the device; the JAX package's ``DeviceStore`` bridge
+(``devstore`` / ``kv_key``, ``publish`` re-installing the donated tree) joins
+with the port's DeviceStore slice, and ``publish`` is a no-op until then.
+
+The paged host-side accounting is the reference's, line for line: a
+per-replica prefix trie over prompt token blocks (``core.trie.PathTrie``),
+block-aligned sharing by refcount (copy-on-write never copies),
+chunk-granularity trie commit for same-tick sharing, commit-time dedup, LRU
+eviction of unreferenced cached blocks, and block 0 reserved as the null
+block that masked lanes scribble on.
 """
 from __future__ import annotations
 
@@ -25,8 +33,63 @@ from typing import Sequence
 import numpy as np
 
 from repro_torch.core.trie import PathTrie
-from repro_torch.models import init_paged_pools
+from repro_torch.models import init_decode_caches, init_paged_pools
 from repro_torch.models.config import ModelConfig
+
+
+@dataclass
+class SlotState:
+    request_id: str | None = None
+    pos: int = 0            # next absolute position to decode
+    active: bool = False
+
+
+class CacheManager:
+    """Dense per-slot caches: slot leases and host-side positions."""
+
+    def __init__(self, cfg: ModelConfig, n_slots: int, max_len: int, *,
+                 device) -> None:
+        self.cfg, self.n_slots, self.max_len = cfg, n_slots, max_len
+        self.caches = init_decode_caches(cfg, n_slots, max_len, device=device)
+        self.slots = [SlotState() for _ in range(n_slots)]
+
+    def acquire(self, request_id: str) -> int | None:
+        for i, s in enumerate(self.slots):
+            if not s.active:
+                self.slots[i] = SlotState(request_id=request_id, active=True)
+                return i
+        return None
+
+    def release(self, slot: int) -> None:
+        self.slots[slot] = SlotState()
+
+    def insert_prefill(self, slot: int, src_caches: list[dict],
+                       prompt_len: int, row: int = 0) -> None:
+        """Copy row ``row`` of a (possibly batched) prefill's caches into
+        ``slot``, in place; batched admission copies one row per admitted
+        request.  A source leaf smaller than the slot's (a conv window of a
+        prompt shorter than it) fills the leading corner, as the JAX
+        package's dynamic_update_slice does."""
+        for dst, src in zip(self.caches, src_caches):
+            for k, leaf in dst.items():
+                one = src[k][row]
+                leaf[slot][tuple(slice(0, n) for n in one.shape)].copy_(one)
+        self.slots[slot].pos = prompt_len
+
+    def active_mask(self) -> np.ndarray:
+        return np.asarray([s.active for s in self.slots], dtype=bool)
+
+    def positions(self) -> np.ndarray:
+        return np.asarray([s.pos for s in self.slots], dtype=np.int32)
+
+    def advance(self) -> None:
+        for s in self.slots:
+            if s.active:
+                s.pos += 1
+
+    @property
+    def n_active(self) -> int:
+        return sum(s.active for s in self.slots)
 
 
 @dataclass

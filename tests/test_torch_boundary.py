@@ -52,9 +52,12 @@ def test_engine_import_pulls_in_no_jax():
     code = ("import sys; import repro_torch.serving.engine, "
             "repro_torch.kernels.decode_attention.ops, "
             "repro_torch.kernels.flash_attention.ops, repro_torch.models, "
+            "repro_torch.kernels.ssd.ops, repro_torch.models.mamba2, "
             "repro_torch.configs.gemma3_4b, "
             "repro_torch.configs.h2o_danube_1_8b, "
-            "repro_torch.configs.h2o_danube_3_4b; "
+            "repro_torch.configs.h2o_danube_3_4b, "
+            "repro_torch.configs.mamba2_1_3b, "
+            "repro_torch.configs.zamba2_2_7b; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -67,7 +70,8 @@ def test_entry_points_default_to_the_card():
     """With no ``device`` argument the engine and the initialisers ask for
     cuda; where there is none they raise rather than run on the CPU."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.models import init_paged_pools, init_params
+    from repro_torch.models import (init_decode_caches, init_paged_pools,
+                                    init_params)
     from repro_torch.serving.engine import ServeEngine
 
     if torch.cuda.is_available():
@@ -76,6 +80,13 @@ def test_entry_points_default_to_the_card():
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(RuntimeError, match="cuda|CUDA"):
         ServeEngine(cfg, params)
+    ssm = get_config("mamba2-1.3b", smoke=True)
+    ssm_params = init_params(ssm, torch.Generator().manual_seed(0),
+                             device="cpu")
+    with pytest.raises(RuntimeError, match="cuda|CUDA"):
+        ServeEngine(ssm, ssm_params)
+    with pytest.raises((RuntimeError, AssertionError)):
+        init_decode_caches(ssm, 2, 8)
     with pytest.raises((RuntimeError, AssertionError)):
         init_paged_pools(cfg, 4, 4)
     with pytest.raises((RuntimeError, AssertionError)):

@@ -97,7 +97,7 @@ def test_gemma2_layout_and_param_count_match_reference(smoke):
          for s in ref.layout()]
     assert ours.param_count() == ref.param_count()
     assert ARCH_IDS == ("gemma3-4b", "gemma2-9b", "h2o-danube-1.8b",
-                        "h2o-danube-3-4b")
+                        "h2o-danube-3-4b", "mamba2-1.3b", "zamba2-2.7b")
     # flat layer order: copy r, pattern position i -> layer 2r + i, so the
     # window sits on the even (local) layers only
     windows = [s.window for s in P.layer_specs(ours)]
@@ -430,11 +430,18 @@ def test_two_chunk_mixed_step_reproduces_prefill_then_decode():
 
 
 def test_unported_layer_kinds_raise():
+    """MoE layers and embeds inputs wait for their slices; a config with
+    Mamba-2 layers has no paged pool."""
     moe = PCFG.replace(n_experts=4, top_k=2)
     with pytest.raises(NotImplementedError, match="attn_mlp"):
         P.init_paged_pools(moe, 4, 4, device="cpu")
-    with pytest.raises(NotImplementedError):
-        P.init_params(PCFG.replace(family="ssm"), device="cpu")
+    with pytest.raises(NotImplementedError, match="MoE slice"):
+        P.init_params(moe, device="cpu")
+    with pytest.raises(NotImplementedError, match="embeds slice"):
+        P.init_params(PCFG.replace(input_mode="embeds"), device="cpu")
+    with pytest.raises(ValueError, match="paged"):
+        P.init_paged_pools(get_config("mamba2-1.3b", smoke=True), 4, 4,
+                           device="cpu")
 
 
 def test_qk_norm_and_untied_head_match_jax():

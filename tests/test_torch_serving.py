@@ -243,7 +243,7 @@ def test_deferred_features_raise_not_implemented(model):
     name, jcfg, pcfg, jp, pp = model
     for kw in (dict(preempt=True), dict(spill_pool=object()),
                dict(devstore=object()), dict(kv_key="/kv/x"),
-               dict(mesh=object()), dict(paged=False)):
+               dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="slice"):
             ServeEngine(pcfg, pp, device="cpu", **kw)
     eng = ServeEngine(pcfg, pp, n_slots=2, max_len=32, device="cpu")
