@@ -25,11 +25,15 @@ on the first phase that fails (exit code != 0):
                   events, median, cold L2), and the bound (bytes and
                   operations the work needs at least, over the card's
                   published peaks).
-3. flash_kernel — K2, the flash-attention kernel, against its plain version:
-                  gemma2-9b's shapes (B=1, S=8192, H=16, K=8, D=256) in f32
+3. flash_kernel — K2, the flash-attention kernel: first what the compiler
+                  made of it (ptxas registers, shared memory and spills of
+                  each instantiation; HGMMA instructions in its SASS), then
+                  against its plain version: gemma2-9b's shapes (B=1,
+                  S=8192, H=16, K=8, D=256) in f32
                   and bf16 with window None / 4096 and softcap None / 50, one
                   case at each other config's shapes and window (zamba2-2.7b:
-                  D=160, H=K=32), and a ragged S=8000; bf16 outputs held
+                  D=160, H=K=32), a ragged S=8000, and zamba2-2.7b's dense
+                  prefill shapes (4 x 2048, 17, 300); bf16 outputs held
                   element by element to one rounding from the plain version's
                   f32 values; times as for K1, plus one library call
                   computing the same function (library_ms:
@@ -534,7 +538,8 @@ def trace_phase(cfg, params, dev) -> None:
 # (arch, B, S, H, K, D, dtype, window, softcap): gemma2-9b's attention at
 # S = 8192 in both dtypes with and without its window and softcap, one case
 # at each other config's shapes and window (zamba2-2.7b's shared attention:
-# D = 160, MHA), and a ragged S
+# D = 160, MHA), a ragged S, and the shapes zamba2-2.7b's dense prefill
+# sends in serve_dense (4 x 2048 batched, and 17 and 300 tokens)
 FLASH_CASES = (
     [("gemma2-9b", 1, 8192, 16, 8, 256, dt, w, c)
      for dt in (torch.float32, torch.bfloat16)
@@ -543,7 +548,9 @@ FLASH_CASES = (
        ("h2o-danube-1.8b", 1, 8192, 32, 8, 80, torch.bfloat16, 4096, None),
        ("h2o-danube-3-4b", 1, 9216, 32, 8, 120, torch.bfloat16, 8192, None),
        ("zamba2-2.7b", 1, 8192, 32, 32, 160, torch.bfloat16, None, None),
-       ("gemma2-9b", 1, 8000, 16, 8, 256, torch.bfloat16, 4096, 50.0)])
+       ("gemma2-9b", 1, 8000, 16, 8, 256, torch.bfloat16, 4096, 50.0)]
+    + [("zamba2-2.7b", B, S, 32, 32, 160, torch.bfloat16, None, None)
+       for B, S in ((4, 2048), (1, 17), (1, 300))])
 FLASH_BOUND = (
     "max(bytes / 3.35e12 B/s, flops / peak[dtype]); bytes = (q + out) "
     "B*S*H*D + (k + v) B*S*K*D, times the itemsize; flops = 4*D*H per "
@@ -624,10 +631,39 @@ def library_call(q, k, v, window, cap):
                          enable_gqa=True)), "flex_attention"
 
 
+def _kernel_label(mangled: str) -> str:
+    """``tc::flash_attention_wgmma<4, 256>`` for a mangled K2 kernel name."""
+    import re
+
+    m = re.search(r"(simt|tc)\d+(flash_attention_[a-z]+)I((?:Li\d+E)+)",
+                  mangled)
+    if m is None:
+        return mangled
+    args = ", ".join(re.findall(r"Li(\d+)E", m.group(3)))
+    return f"{m.group(1)}::{m.group(2)}<{args}>"
+
+
+def flash_build_report() -> dict:
+    """What the compiler made of K2: ``ptxas -v``'s registers, static
+    shared memory and spills for each instantiation (tc<NC, PN>: the bf16
+    tensor-core kernel at padded head_dim 64·NC and P·V width PN;
+    simt<NJ>: the f32 kernel),
+    and the count of HGMMA (wgmma) instructions in each kernel's SASS."""
+    from repro_torch.kernels import build
+
+    hgmma = build.sass_count("flash_attention", "HGMMA")
+    return {"phase": "flash_build",
+            "ptxas": [dict(r, kernel=_kernel_label(r["kernel"]))
+                      for r in build.ptxas_report("flash_attention")],
+            "hgmma": ({_kernel_label(k): n for k, n in hgmma.items()}
+                      if hgmma is not None else "not measured")}
+
+
 def flash_kernel_phase(dev, cases=FLASH_CASES, reps=(10, 3)) -> list[dict]:
     """K2 against its plain version on the card at each case's shapes."""
     from repro_torch.kernels.flash_attention import ops, ref
 
+    emit(flash_build_report())
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
     emit({"phase": "flash_bound", "bound_ms": FLASH_BOUND,
           "library_ms": FLASH_LIBRARY})
@@ -654,7 +690,8 @@ def flash_kernel_phase(dev, cases=FLASH_CASES, reps=(10, 3)) -> list[dict]:
         lib_err = (lib().transpose(1, 2).float()
                    - out.float()).abs().max().item()
         case.update(library=lib_name, library_ms=cuda_ms(lib, reps[0], flush),
-                    library_vs_kernel_max_abs_err=lib_err)
+                    library_vs_kernel_max_abs_err=lib_err,
+                    plan=ops.launch_plan(D_, dt)._asdict())
         del lib
         out_cases.append(case)
         emit({"phase": "flash_kernel", **case})

@@ -4,15 +4,19 @@ Each source under ``csrc/`` compiles with ``nvcc`` into its own shared
 library with a plain C interface, loaded through ``ctypes`` (no PyTorch
 headers, so a build takes seconds).  Builds happen at first use, from the
 sources in the checkout, into ``build/`` next to this file (git-ignored);
-the library's file name carries a hash of its source and flags, so an
-edited source rebuilds and an unchanged one is reused.  ``build`` starts one
-``nvcc`` per missing library, all at once.
+the library's file name carries a hash of its source, of every header under
+``csrc/`` and of the flags, so an edited source or header rebuilds and an
+unchanged one is reused.  ``build`` starts one ``nvcc`` per missing library,
+all at once, and keeps the compiler's report (``-Xptxas -v``: registers,
+shared memory and spills of each kernel) beside the library, where
+``ptxas_report`` reads it.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -23,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("ragged_paged_attention", "flash_attention", "ssd",
            "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -40,9 +44,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: tuple[str, ...] = SOURCES) -> float:
@@ -68,6 +74,7 @@ def build(names: tuple[str, ...] = SOURCES) -> float:
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
@@ -82,3 +89,52 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def ptxas_report(name: str) -> list[dict]:
+    """What ``ptxas -v`` said of each kernel of source ``name`` (built
+    first if needed): the mangled kernel name, registers a thread, shared
+    memory bytes, and spill stores and loads in bytes."""
+    build((name,))
+    log = _lib_path(name).with_suffix(".log").read_text()
+    kernels, current = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = {"kernel": m.group(1)}
+            kernels.append(current)
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            current["spill_store_bytes"] = int(m.group(1))
+            current["spill_load_bytes"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            current["smem_bytes"] = int(s.group(1)) if s else 0
+    return kernels
+
+
+def sass_count(name: str, opcode: str) -> dict[str, int] | None:
+    """How many ``opcode`` instructions each kernel of source ``name`` has
+    in its SASS, by ``cuobjdump``; None where the toolkit has none."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    build((name,))
+    sass = subprocess.run([tool, "-sass", str(_lib_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    counts: dict[str, int] = {}
+    current = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = m.group(1)
+            counts[current] = 0
+        elif current is not None and re.search(rf"\b{opcode}\b", line):
+            counts[current] += 1
+    return counts

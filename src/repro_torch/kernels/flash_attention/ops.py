@@ -11,8 +11,12 @@
 Replaces the TPU kernel ``kernels/flash_attention/kernel.py::
 flash_attention_fwd`` (body ``_kernel``).  On the H100 it is bound by
 operations (4·D·H flops per visible query-key pair); see the source note in
-the ``.cu`` file for the design.  Forward only: the JAX package has no
-backward for this kernel either, so an input that requires grad raises.
+the ``.cu`` file for the design.  The dtype alone picks the CUDA kernel:
+bf16 runs both products on the tensor cores (wgmma, TMA, head_dim a
+multiple of 8 up to 256), f32 runs f32 FMAs (head_dim 1..256).
+``launch_plan`` computes, in Python, the tiling and shared memory the C
+entry point is given.  Forward only: the JAX package has no backward for
+this kernel either, so an input that requires grad raises.
 
 ``flash_attention.launches`` counts kernel launches (never plain calls), so
 a run can show that its main path went through the kernel.
@@ -20,6 +24,7 @@ a run can show that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -27,7 +32,8 @@ from .. import build
 from .ref import attention_ref
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_D = 256                          # ceil(D/16) <= 16 columns per thread
+_MAX_D = 256
+SMEM_LIMIT = 232_448        # bytes of shared memory a CTA may opt into (H100)
 
 _lib_fn = None
 
@@ -37,16 +43,49 @@ def _kernel():
     if _lib_fn is None:
         fn = build.load("flash_attention").flash_attention
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [I, P, P, P, P, I, I, I, I, I, F, F, I, P]
+        fn.argtypes = [I, P, P, P, P, I, I, I, I, I, F, F, I, I, I, I, P]
         fn.restype = I
         _lib_fn = fn
     return _lib_fn
 
 
-def smem_bytes(D: int) -> int:
-    """Dynamic shared memory of one CTA at head_dim D: the f32 q tile (64,
+class Plan(NamedTuple):
+    """How one call is tiled on the card."""
+    dp: int            # head_dim the kernel computes with (bf16: padded)
+    tile_rows: int     # query rows per CTA
+    stages: int        # K/V tiles in flight (bf16 ring; 1 for f32)
+    smem_bytes: int    # dynamic shared memory of one CTA
+
+
+def launch_plan(D: int, dtype: torch.dtype) -> Plan:
+    """The launch plan of the CUDA kernel for head_dim D.
+
+    bf16 (tensor cores): D must be a multiple of 8 (TMA's 16-byte strides)
+    up to 256; the head_dim is padded to dp, a multiple of 64 (TMA fills the
+    padding with zeros); a CTA holds 128 query rows in dp/64 swizzled boxes
+    of 16 KB, and a ring of as many stages (at most 4) of a 64-key K and V
+    tile (16 KB per box of 64 columns) as fit, plus 1 KB to align the boxes
+    and 8 bytes per barrier (three per stage and one for q).
+
+    f32 (FMAs): any D in 1..256; one 64-row CTA holds the f32 q tile (64,
     D+1), the K^T / V tile (D, 65) and the probabilities (64, 65)."""
-    return 4 * (64 * (D + 1) + D * 65 + 64 * 65)
+    if dtype == torch.bfloat16:
+        if D % 8 or not 0 < D <= _MAX_D:
+            raise ValueError(
+                f"head_dim {D}: the bf16 kernel takes a multiple of 8 up to "
+                f"{_MAX_D} (TMA needs 16-byte row strides)")
+        nc = -(-D // 64)                # boxes of 64 columns
+        q_box, kv_box = 128 * 128, 2 * 64 * 128
+
+        def total(stages):
+            return (1024 + nc * (q_box + stages * kv_box)
+                    + 8 * (3 * stages + 1))
+
+        stages = max(s for s in range(1, 5) if total(s) <= SMEM_LIMIT)
+        return Plan(64 * nc, 128, stages, total(stages))
+    if not 0 < D <= _MAX_D:
+        raise ValueError(f"head_dim {D} outside 1..{_MAX_D}")
+    return Plan(D, 64, 1, 4 * (64 * (D + 1) + D * 65 + 64 * 65))
 
 
 def _check(q, k, v, window, softcap):
@@ -96,17 +135,24 @@ def flash_attention(q, k, v, *, positions=None, window: int | None = None,
         return attention_ref(q, k, v, window=window, softcap=softcap,
                              scale=scale)
     B, S, H, D = q.shape
+    plan = launch_plan(D, q.dtype)
     out = torch.empty_like(q)
+    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16
+                                         for x in (q, k, v)):
+        raise ValueError("the bf16 kernel's TMA loads want q, k and v "
+                         "16-byte aligned")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _kernel()(
             _CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), B, S, H, k.shape[2], D, float(scale),
             float(softcap) if softcap is not None else 0.0,
-            int(window) if window is not None else 0, stream)
+            int(window) if window is not None else 0, plan.dp, plan.stages,
+            plan.smem_bytes, stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
-                           f"{err}")
+        what = ("a TMA tensor map could not be encoded" if err == 1000
+                else f"CUDA error {err}")
+        raise RuntimeError(f"flash_attention kernel launch failed: {what}")
     flash_attention.launches += 1
     return out
 

@@ -138,7 +138,92 @@ def test_cpu_tensors_never_count_as_kernel_launches():
     assert ops.flash_attention.launches == before == 0
 
 
+PLAN_DIMS = (16, 32, 64, 80, 120, 128, 160, 256)
+
+
 def test_shared_memory_fits_every_ported_head_dim():
-    for D in (16, 32, 64, 80, 120, 128, 256):   # the H100's opt-in limit
-        assert ops.smem_bytes(D) <= 232_448     # per CTA, in bytes
-    assert ops.smem_bytes(256) == 148_992
+    def smem(D, dt):
+        return ops.launch_plan(D, dt).smem_bytes
+
+    for D in PLAN_DIMS:                         # the H100's opt-in limit
+        for dt in (torch.bfloat16, torch.float32):
+            assert smem(D, dt) <= 232_448       # per CTA, in bytes
+    # bf16: 1 KB of alignment, four 16 KB boxes of q, two stages of four
+    # 16 KB K+V boxes, 7 barriers; f32: the FMA kernel's f32 tiles
+    assert smem(256, torch.bfloat16) == 1024 + 4 * 16384 * 3 + 7 * 8 == 197_688
+    assert smem(256, torch.float32) == 148_992
+
+
+@pytest.mark.parametrize("D", PLAN_DIMS)
+def test_launch_plan_pads_head_dim_and_fills_shared_memory(D):
+    plan = ops.launch_plan(D, torch.bfloat16)
+    nc = -(-D // 64)
+    assert plan.dp == 64 * nc >= D and plan.tile_rows == 128
+    assert plan.smem_bytes == (1024 + nc * 16384 * (1 + plan.stages)
+                               + 8 * (3 * plan.stages + 1)) <= 232_448
+    # as many stages as fit, at most 4, and never fewer than 2 (a load in
+    # flight while the other stage is read)
+    more = plan.smem_bytes + nc * 16384 + 3 * 8
+    assert 2 <= plan.stages <= 4 and (plan.stages == 4 or more > 232_448)
+    assert {256: 2, 160: 3}.get(D, 4) == plan.stages
+    f32 = ops.launch_plan(D, torch.float32)
+    assert (f32.dp, f32.tile_rows, f32.stages) == (D, 64, 1)
+
+
+def test_card_path_head_dim_rule():
+    for D in (8, 72, 96, 248):
+        assert ops.launch_plan(D, torch.bfloat16).dp % 64 == 0
+    for D in (4, 20, 100, 124, 250):             # not multiples of 8
+        with pytest.raises(ValueError, match="multiple of 8"):
+            ops.launch_plan(D, torch.bfloat16)
+    for D in (0, 264):
+        for dt in (torch.bfloat16, torch.float32):
+            with pytest.raises(ValueError, match="head_dim"):
+                ops.launch_plan(D, dt)
+    for D in (1, 20, 100, 250):                  # f32 keeps 1..256
+        assert ops.launch_plan(D, torch.float32).dp == D
+    # the CPU path runs the plain version for any head_dim the wrapper takes
+    _, (q, k, v) = _inputs(7, 1, 12, 2, 1, 20, "bfloat16")
+    out = ops.flash_attention(q, k, v)
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+
+
+# (arch, D, softcap): one chunk of 64 queries at the end of a 2048-token
+# causal sequence, at gemma2-9b's and zamba2-2.7b's head widths
+SPLIT_CASES = [("gemma2-9b", 256, 50.0), ("zamba2-2.7b", 160, None)]
+
+
+@pytest.mark.parametrize("arch,D,cap", SPLIT_CASES)
+def test_split_p_keeps_pv_at_f32_precision(arch, D, cap):
+    """The bf16 kernel feeds P to the tensor cores as p_hi = bf16(p) plus
+    p_lo = bf16(p - p_hi).  Emulated here in f64 on bf16 inputs: the split
+    P·V stays within 2^-17 Σ p|v| / l of the f32 P·V, and its bf16 output
+    within one rounding of the f32 value (chip_smoke's rule); one bf16
+    rounding of p breaks that rule."""
+    S, C = 2048, 64
+    rng = np.random.default_rng(D)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .bfloat16().double() for shape in ((C, D), (S, D), (S, D)))
+    s = (q @ k.T).float() * D ** -0.5
+    if cap is not None:
+        s = cap * torch.tanh(s / cap)
+    qpos = torch.arange(S - C, S)[:, None]
+    s = torch.where(torch.arange(S)[None] <= qpos, s,
+                    torch.full_like(s, -float("inf")))
+    p = torch.exp(s - s.max(-1, keepdim=True).values)        # f32
+    l = p.double().sum(-1, keepdim=True)
+    exact = p.double() @ v / l
+    hi = p.bfloat16()
+    lo = (p - hi.float()).bfloat16()
+    split = (hi.double() + lo.double()) @ v / l
+    single = hi.double() @ v / l
+    bound = 2.0 ** -17 * (p.double() @ v.abs()) / l
+    assert bool(((split - exact).abs() <= bound).all())
+    assert not bool(((single - exact).abs() <= bound).all())
+
+    def over(x):      # chip_smoke.checked_case's err_over_rounding_bound
+        rounded = x.float().bfloat16().double()
+        return ((rounded - exact).abs()
+                / (exact.abs() * 2.0 ** -8 + 2e-5)).max().item()
+
+    assert over(split) <= 1.0 < over(single)
