@@ -21,10 +21,13 @@ on the first phase that fails (exit code != 0):
                   bit-invariance to -1 table widening, and k=0 verify rows
                   bit-matching one-token decode; then bf16 pools at the
                   h2o-danube widths (H=32, K=8, D=80 and D=120), each at its
-                  config's window.  Times: kernel and plain version (CUDA
-                  events, median, cold L2), and the bound (bytes and
+                  config's window; then the serve phase's decode tick (8
+                  decode rows, one at 4,532 positions, padded to 512 lanes)
+                  with bf16 and int8 pools.  Times: kernel and plain version
+                  (CUDA events, median, cold L2), and the bound (bytes and
                   operations the work needs at least, over the card's
-                  published peaks).
+                  published peaks); each case's span count and workspace
+                  bytes.
 3. flash_kernel — K2, the flash-attention kernel: first what the compiler
                   made of it (ptxas registers, shared memory and spills of
                   each instantiation; HGMMA instructions in its SASS), then
@@ -51,9 +54,12 @@ on the first phase that fails (exit code != 0):
                   H=K=32, D=160, filled to 49..8192) in bf16 and f32, and
                   gemma2-9b's local layer (a 4096-slot ring wrapped past its
                   size, window 4096) and global layer (8192 slots), softcap
-                  50, at every cache dtype; a row with nothing visible;
-                  times as for K2 (library: SDPA with a mask of the
-                  invisible slots, or compiled flex_attention).
+                  50, at every cache dtype; llama4-maverick's widths (H=40,
+                  K=8, D=128: G=5) in bf16 and int8 and h2o-danube-1.8b's
+                  (H=32, K=8, D=80: G=4) on a 4096 ring; a row with nothing
+                  visible; times as for K2 (library: SDPA with a mask of the
+                  invisible slots, or compiled flex_attention), and each
+                  case's span count and workspace bytes.
 6. score_check  — gemma2-9b at full width cut to 2 layers: ``forward`` with
                   K2 against the same forward with the plain attention on
                   2048 tokens, and ``forward``'s logits on a 512-token prompt
@@ -126,6 +132,9 @@ BOUND_FORMULA = (
     "blocks visible to some token x bs*K*(2*D*kv_itemsize + 8 if scaled) + "
     "2*T*H*D*q_itemsize + 4*(R*nb + 2*T); flops = 4*D*H per visible (token, "
     "position); peak 989e12 (bf16 tensor cores) or 67e12 (f32)")
+# K1's kernels by name in a profiler trace: the span kernels and the combine
+K1_KERNELS = ("ragged_span_kernel", "ragged_wide_kernel",
+              "ragged_combine_kernel")
 LIBRARY_NOTE = ("none: no single PyTorch call attends each packed token over "
                 "its own request's blocks of a paged pool")
 
@@ -208,17 +217,22 @@ KERNEL_ROWS = [(5200, 1), (4097, 1), (2000, 1), (700, 1), (64, 1),   # decode
                (4500, 300), (120, 120),                       # prefill chunks
                (3000, 3), (800, 2)]                           # verify rows
 H, KV, D, BS, T = 16, 8, 256, 16, 512
+# the serve phase's decode tick: its 8 rows' contexts after their prompts
+# and 32 new tokens (one row past the 4096 window), one token each, padded
+# to the tick's T = 512 lanes
+DECODE_TICK_ROWS = [(4532, 1), (196, 1), (332, 1), (152, 1), (48, 1),
+                    (109, 1), (332, 1), (63, 1)]
 # K1 at the h2o-danube widths (head_dim 80 and 120), bf16 pool, the
 # config's own window: (arch, H, K, D, window)
 K1_WIDTHS = [("h2o-danube-1.8b", 32, 8, 80, 4096),
              ("h2o-danube-3-4b", 32, 8, 120, 8192)]
 
 
-def kernel_inputs(dev, rng, h=H, kv=KV, d=D):
-    n_blocks = [-(-c // BS) for c, _ in KERNEL_ROWS]
+def kernel_inputs(dev, rng, h=H, kv=KV, d=D, reqs=KERNEL_ROWS):
+    n_blocks = [-(-c // BS) for c, _ in reqs]
     N = 1 + sum(n_blocks) + 2
     nb = max(n_blocks)
-    bt = np.full((len(KERNEL_ROWS), nb), -1, np.int32)
+    bt = np.full((len(reqs), nb), -1, np.int32)
     perm = rng.permutation(np.arange(1, N))
     i = 0
     for r, n in enumerate(n_blocks):
@@ -227,7 +241,7 @@ def kernel_inputs(dev, rng, h=H, kv=KV, d=D):
     rows = np.full(T, -1, np.int32)
     pos = np.full(T, -1, np.int32)
     n = 0
-    for r, (ctx, fed) in enumerate(KERNEL_ROWS):
+    for r, (ctx, fed) in enumerate(reqs):
         rows[n:n + fed] = r
         pos[n:n + fed] = np.arange(ctx - fed, ctx)
         n += fed
@@ -261,6 +275,16 @@ def work(bt, rows, pos, window, kv_item, q_item, quant, h=H, kv=KV, d=D):
     nbytes = (len(needed) * per_block + 2 * T * h * d * q_item
               + bt.size * 4 + 2 * len(pos) * 4)
     return nbytes, visible * h * 4 * d
+
+
+def k1_spans(T_, kv, g, d, nb) -> dict:
+    """K1's span axis and workspace at these shapes (the span plan of
+    ``ref.py``, which mirrors ``split_kv.cuh``)."""
+    from repro_torch.kernels.decode_attention import ref
+
+    n = ref.n_spans(nb, ref.K1_SPAN_BLOCKS)
+    return {"span_blocks": ref.K1_SPAN_BLOCKS, "n_span": n,
+            "workspace_bytes": 4 * ref.workspace_elems(T_, kv, n, g, d)}
 
 
 def kernel_phase(dev) -> list[dict]:
@@ -308,7 +332,8 @@ def kernel_phase(dev) -> list[dict]:
                              else lambda: plain(q.float())),
                     kv_dtype=kv_dtype,
                     q_dtype=str(q.dtype).split(".")[1], window=window,
-                    softcap=cap, library_ms=None)
+                    softcap=cap, library_ms=None,
+                    **k1_spans(T, KV, H // KV, D, bt.shape[1]))
                 assert bool((out[n_valid:] == 0).all()), "pad lanes not zero"
                 cases.append(case)
                 emit({"phase": "kernel", **case})
@@ -352,11 +377,52 @@ def kernel_phase(dev) -> list[dict]:
                 args[0].float(), *args[1:], window=window),
             kv_dtype="bfloat16",
             q_dtype="bfloat16", arch=arch, H=h, K=kv, D=d, window=window,
-            softcap=None, library_ms=None)
+            softcap=None, library_ms=None, **k1_spans(T, kv, h // kv, d,
+                                                      bt.shape[1]))
         assert bool((out[n_valid:] == 0).all()), "pad lanes not zero"
         cases.append(case)
         emit({"phase": "kernel", **case})
+    cases += decode_tick_cases(dev, flush)
     return cases
+
+
+def decode_tick_cases(dev, flush) -> list[dict]:
+    """K1 at the serve phase's decode tick (``DECODE_TICK_ROWS``: 8 decode
+    rows padded to 512 lanes, gemma2-9b's widths, window 4096, softcap 50),
+    bf16 and int8 pools, against the plain version."""
+    from repro_torch.kernels.decode_attention import ops, quant, ref
+
+    q32, k32, v32, bt, rows, pos, n_valid, bt_np, rows_np, pos_np = \
+        kernel_inputs(dev, np.random.default_rng(4), reqs=DECODE_TICK_ROWS)
+    q = q32.to(torch.bfloat16)
+    out_cases = []
+    for kv_dtype in ("bfloat16", "int8"):
+        if kv_dtype == "bfloat16":
+            kp, vp, ks, vs = k32.to(torch.bfloat16), v32.to(torch.bfloat16), \
+                None, None
+        else:
+            kp, ks = quant.quantize_kv(k32, kv_dtype)
+            vp, vs = quant.quantize_kv(v32, kv_dtype)
+        kw = dict(k_scale=ks, v_scale=vs, window=4096, softcap=50.0)
+        if ks is None:
+            plain = lambda q=q: ref.ragged_paged_attention_ref(
+                q, kp, vp, bt, rows, pos, window=4096, softcap=50.0)
+        else:
+            plain = lambda q=q: ref.ragged_paged_attention_quant_ref(
+                q, kp, vp, ks, vs, bt, rows, pos, window=4096, softcap=50.0)
+        case, out = checked_case(
+            lambda: ops.ragged_paged_attention(q, kp, vp, bt, rows, pos, **kw),
+            plain, 2e-2, *work(bt_np, rows_np, pos_np, 4096,
+                               kp.element_size(), 2, ks is not None),
+            torch.bfloat16, flush, (25, 5),
+            plain32=lambda: plain(q.float()), kv_dtype=kv_dtype,
+            q_dtype="bfloat16", tick="decode", rows=len(DECODE_TICK_ROWS),
+            window=4096, softcap=50.0, library_ms=None,
+            **k1_spans(T, KV, H // KV, D, bt.shape[1]))
+        assert bool((out[n_valid:] == 0).all()), "pad lanes not zero"
+        out_cases.append(case)
+        emit({"phase": "kernel", **case})
+    return out_cases
 
 
 # ================================================================== model
@@ -528,7 +594,7 @@ def trace_phase(cfg, params, dev) -> None:
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     emit({"phase": "trace", "ticks": eng.stats.ticks,
-          **_device_time(prof, wall, {"K1": ("ragged_paged_attention",),
+          **_device_time(prof, wall, {"K1": K1_KERNELS,
                                       "gemm": GEMM_KEYS})})
     del eng
     torch.cuda.empty_cache()
@@ -808,11 +874,15 @@ def ssd_kernel_phase(dev, shapes=SSD_SHAPES, reps=(10, 3)) -> list[dict]:
 # ========================================================== decode kernel
 K4_TPU = "src/repro/kernels/decode_attention/kernel.py:116"
 K4_SRC = "src/repro_torch/kernels/csrc/decode_attention.cu"
+K4_KERNELS = ("decode_span_kernel", "decode_combine_kernel")
 # (arch, B, S, H, K, D, window, softcap, kind, kv dtypes): zamba2-2.7b's
 # shared attention over the serve phase's 8 slots of 8192, rows filled to
 # the serve traffic's lengths; gemma2-9b's local layer on a 4096-slot ring
 # (positions wrapped past it, window 4096) and its global layer on 8192
-# slots, each at every cache dtype
+# slots, each at every cache dtype; llama4-maverick's widths (H 40, K 8,
+# D 128: G = 5) and h2o-danube-1.8b's (H 32, K 8, D 80: G = 4, its 4096
+# window on a 4096-slot ring), the GQA groups that do not divide 8 or that
+# no other case has
 FILLS = (8192, 4532, 2080, 2080, 1332, 332, 49, 7000)
 RING_LAST = (9000, 5000, 4200, 4096, 4095, 3000, 100, 20)
 DECODE_CASES = [
@@ -821,7 +891,11 @@ DECODE_CASES = [
     ("gemma2-9b", 8, 4096, 16, 8, 256, 4096, 50.0, "ring",
      ("float32", "bfloat16", "int8", "fp8_e4m3")),
     ("gemma2-9b", 8, 8192, 16, 8, 256, None, 50.0, "partial",
-     ("float32", "bfloat16", "int8", "fp8_e4m3"))]
+     ("float32", "bfloat16", "int8", "fp8_e4m3")),
+    ("llama4-maverick-400b-a17b", 8, 8192, 40, 8, 128, None, None, "partial",
+     ("bfloat16", "int8")),
+    ("h2o-danube-1.8b", 8, 4096, 32, 8, 80, 4096, None, "ring",
+     ("bfloat16",))]
 DECODE_BOUND = (
     "max(bytes / 3.35e12 B/s, flops / peak[q dtype]); bytes = the visible "
     "slots' K and V rows, K*2*D*kv_itemsize each (+ 8*K of scales for "
@@ -851,6 +925,16 @@ def decode_positions(B, S, kind):
     pos = last - ((last - slot) % S)
     return np.where(pos >= 0, pos, -1).astype(np.int32), \
         last[:, 0].astype(np.int32)
+
+
+def decode_spans(B, S, H, K, D) -> dict:
+    """K4's span axis and workspace at these shapes (the span plan of
+    ``ref.py``, which mirrors ``split_kv.cuh``)."""
+    from repro_torch.kernels.decode_attention import ref
+
+    n = ref.n_spans(S, ref.K4_SPAN_SLOTS)
+    return {"span": ref.K4_SPAN_SLOTS, "n_span": n,
+            "workspace_bytes": 4 * ref.workspace_elems(B, K, n, H // K, D)}
 
 
 def decode_work(pos, qpos, window, H, K, D, kv_item, q_item, quant):
@@ -945,7 +1029,8 @@ def decode_kernel_phase(dev, cases=DECODE_CASES, reps=(20, 3)) -> list[dict]:
                          else lambda: plain(q.float())),
                 arch=arch, B=B, S=S, H=H_, K=K_, D=D_, kind=kind,
                 kv_dtype=kv_dtype, q_dtype=str(q.dtype).split(".")[1],
-                window=window, softcap=cap, visible_slots=int(vis.sum()))
+                window=window, softcap=cap, visible_slots=int(vis.sum()),
+                **decode_spans(B, S, H_, K_, D_))
             assert out.dtype == q.dtype and out.shape == q.shape
             if ks is None:
                 lib, lib_name = decode_library(
@@ -1122,7 +1207,7 @@ def serve_dense_trace(cfg, params, dev) -> None:
           "ticks": eng.stats.ticks,
           **_device_time(prof, wall, {"K2": ("flash_attention",),
                                       "K3": ("ssd_kernel",),
-                                      "K4": ("decode_attention",),
+                                      "K4": K4_KERNELS,
                                       "gemm": GEMM_KEYS})})
     del eng
     torch.cuda.empty_cache()

@@ -17,12 +17,18 @@ ragged_paged_attention_fwd`` (body ``_ragged_kernel``), K4 its
 the bytes they stream: K1 each request row's live K/V blocks, read straight
 out of the shared pool through the block table; K4 each row's visible
 cache slots.  Both dequantize int8/fp8 K/V in registers, so only the narrow
-bytes cross device memory.  See the source notes in the ``.cu`` files for
-the designs and what later changes should do about their limits.
+bytes cross device memory.  Both split the key axis across CTAs into fixed
+spans (K4: ``K4_SPAN_SLOTS`` slots, K1: ``K1_SPAN_BLOCKS`` table blocks),
+write one f32 partial per span into a workspace, and merge the spans in
+order in a second kernel (``kernels/csrc/split_kv.cuh``).  The wrappers
+allocate that workspace with ``torch.empty`` and keep it for later calls on
+the same device (it only grows), so a steady-state tick allocates nothing.
+See the source notes in the ``.cu`` files for the designs.
 
 ``ragged_paged_attention.launches`` and ``decode_attention.launches`` count
-kernel launches (never plain calls), so a run can show that its main path
-went through the kernel.
+wrapper calls that launched their kernels (the span kernel and the combine
+count once together; plain calls never count), so a run can show that its
+main path went through the kernel.
 """
 from __future__ import annotations
 
@@ -31,19 +37,33 @@ import ctypes
 import torch
 
 from .. import build
-from .ref import (decode_attention_quant_ref, decode_attention_ref,
-                  ragged_paged_attention_quant_ref, ragged_paged_attention_ref)
+from .ref import (K1_SPAN_BLOCKS, K4_SPAN_SLOTS, decode_attention_quant_ref,
+                  decode_attention_ref, n_spans,
+                  ragged_paged_attention_quant_ref, ragged_paged_attention_ref,
+                  workspace_elems)
 
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
              torch.float8_e4m3fn: 3}
 _QUANT_CODES = (2, 3)
-_DENSE_WARPS = 8                      # K4: H/K query heads share a CTA's warps
-_MAX_D = 256                          # K4: 8 columns a lane
+_MAX_D = 256                          # register-resident rows (split_kv.cuh)
 _SMEM_LIMIT = 232_448                 # bytes of shared memory a CTA may use
 
 _lib_fn = None
 _dense_fn = None
+_workspaces: dict[torch.device, torch.Tensor] = {}
+
+
+def _workspace(device: torch.device, n: int) -> torch.Tensor:
+    """A float32 buffer of at least ``n`` elements on ``device``, kept for
+    later calls (it only grows).  The kernels run in stream order, so the
+    calls of one stream may share it."""
+    buf = _workspaces.get(device)
+    if buf is None or buf.numel() < n:
+        _workspaces.pop(device, None)
+        buf = torch.empty(n, dtype=torch.float32, device=device)
+        _workspaces[device] = buf
+    return buf
 
 
 def _kernel():
@@ -51,8 +71,8 @@ def _kernel():
     if _lib_fn is None:
         fn = build.load("ragged_paged_attention").ragged_paged_attention
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [I, I, P, P, P, P, P, P, P, P, P,
-                       I, I, I, I, I, I, I, F, F, I, P]
+        fn.argtypes = [I, I, P, P, P, P, P, P, P, P, P, P,
+                       I, I, I, I, I, I, I, I, F, F, I, P]
         fn.restype = I
         _lib_fn = fn
     return _lib_fn
@@ -107,10 +127,13 @@ def _check(q, k_pool, v_pool, block_tables, row_ids, token_pos, k_scale,
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be positive or None, got {softcap}")
     G = H // K
-    smem = 4 * (2 * G * D + 2 * bs * D + G * bs + 3 * G)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"(G={G}, bs={bs}, D={D}) needs {smem} B of shared "
-                         f"memory per CTA, over the {_SMEM_LIMIT} B limit")
+    if D > _MAX_D or D * k_pool.element_size() % 4:
+        # rows the registers do not hold take the staged path
+        smem = 4 * (2 * G * D + 2 * bs * D + G * bs + 3 * G)
+        if smem > _SMEM_LIMIT:
+            raise ValueError(f"(G={G}, bs={bs}, D={D}) needs {smem} B of "
+                             f"shared memory per CTA, over the {_SMEM_LIMIT} "
+                             f"B limit")
 
 
 def ragged_paged_attention(q, k_pool, v_pool, block_tables, row_ids,
@@ -142,7 +165,10 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, row_ids,
            v_scale, window, softcap)
     T, H, D = q.shape
     N, bs, K, _ = k_pool.shape
+    R, nb = block_tables.shape
     out = torch.empty_like(q)
+    ws = _workspace(q.device, workspace_elems(
+        T, K, n_spans(nb, K1_SPAN_BLOCKS), H // K, D))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _kernel()(
@@ -151,8 +177,8 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, row_ids,
             k_scale.data_ptr() if k_scale is not None else None,
             v_scale.data_ptr() if v_scale is not None else None,
             block_tables.data_ptr(), row_ids.data_ptr(), token_pos.data_ptr(),
-            out.data_ptr(), T, H, K, D, block_tables.shape[0],
-            block_tables.shape[1], bs, float(scale),
+            ws.data_ptr(), out.data_ptr(), T, H, K, D, R, nb, bs,
+            K1_SPAN_BLOCKS, float(scale),
             float(softcap) if softcap is not None else 0.0,
             int(window) if window is not None else 0, stream)
     if err != 0:
@@ -185,7 +211,8 @@ def _dense_kernel():
     if _dense_fn is None:
         fn = build.load("decode_attention").decode_attention
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [I, P, P, P, P, P, P, P, P, I, I, I, I, I, F, F, I, P]
+        fn.argtypes = [I, I, P, P, P, P, P, P, P, P, P,
+                       I, I, I, I, I, I, F, F, I, P]
         fn.restype = I
         _dense_fn = fn
     return _dense_fn
@@ -224,9 +251,8 @@ def _check_dense(q, k_cache, v_cache, q_pos, cache_pos, k_scale, v_scale,
                          f"multiple of K")
     if q_pos.shape != (B,) or cache_pos.shape != (B, S):
         raise ValueError(f"q_pos must be ({B},) and cache_pos ({B}, {S})")
-    if _DENSE_WARPS % (H // K) or not 0 < D <= _MAX_D:
-        raise ValueError(f"H/K = {H // K} must divide {_DENSE_WARPS} and "
-                         f"head_dim {D} lie in 1..{_MAX_D}")
+    if not 0 < D <= _MAX_D:
+        raise ValueError(f"head_dim {D} must lie in 1..{_MAX_D}")
     if D * k_cache.element_size() % 4:
         raise ValueError(f"a row of head_dim {D} in {k_cache.dtype} is not a "
                          f"whole number of 32-bit words")
@@ -268,24 +294,25 @@ def decode_attention(q, k_cache, v_cache, q_pos, cache_pos, *, k_scale=None,
                  window, softcap)
     B, H, D = q.shape
     _, S, K, _ = k_cache.shape
-    qf = q.float().contiguous()
-    out = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    ws = _workspace(q.device, workspace_elems(
+        B, K, n_spans(S, K4_SPAN_SLOTS), H // K, D))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _dense_kernel()(
-            _KV_CODES[k_cache.dtype], qf.data_ptr(), k_cache.data_ptr(),
-            v_cache.data_ptr(),
+            _Q_CODES[q.dtype], _KV_CODES[k_cache.dtype], q.data_ptr(),
+            k_cache.data_ptr(), v_cache.data_ptr(),
             k_scale.data_ptr() if k_scale is not None else None,
             v_scale.data_ptr() if v_scale is not None else None,
-            q_pos.data_ptr(), cache_pos.data_ptr(), out.data_ptr(), B, S, H,
-            K, D, float(scale),
+            q_pos.data_ptr(), cache_pos.data_ptr(), ws.data_ptr(),
+            out.data_ptr(), B, S, H, K, D, K4_SPAN_SLOTS, float(scale),
             float(softcap) if softcap is not None else 0.0,
             int(window) if window is not None else 0, stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")
     decode_attention.launches += 1
-    return out.to(q.dtype)
+    return out
 
 
 decode_attention.launches = 0

@@ -7,6 +7,13 @@ them on the card; the served paths on the card never call them.  The ragged
 version gathers one request row at a time (not one densified cache per
 token), so it also runs at the serving shapes: the largest buffers are one
 row's (L, K, D) cache and its (tokens, K, G, L) scores.
+
+The split-KV helpers at the end mirror ``kernels/csrc/split_kv.cuh`` step
+for step: the span plan (which spans a query has and which keys each holds),
+the partial (m, l, acc) of one span, and the ordered combine; and, built on
+them, plain emulations of the two split kernels
+(``decode_attention_split``, ``ragged_paged_attention_split``) that the
+tests hold against the plain versions above and the JAX package's refs.
 """
 from __future__ import annotations
 
@@ -136,3 +143,162 @@ def ragged_paged_attention_quant_ref(q, k_pool, v_pool, k_scale, v_scale,
     return ragged_paged_attention_ref(q, kd, vd, block_tables, row_ids,
                                       token_pos, window=window,
                                       softcap=softcap, scale=scale)
+
+
+# ============================================================ split KV
+K4_SPAN_SLOTS = 256       # C4: K4 cuts a row's S slots into spans of these
+K1_SPAN_BLOCKS = 32       # C1: K1 cuts a row's table blocks into spans
+
+
+def n_spans(n_keys: int, span: int) -> int:
+    """The grid's span axis: ceil(n_keys / span), from the shapes alone."""
+    return -(-n_keys // span)
+
+
+def workspace_elems(units: int, K: int, n_span: int, G: int, D: int) -> int:
+    """f32 elements of the partials' workspace: acc (units, K, n_span, G, D)
+    then m and l (units, K, n_span, G) each."""
+    return units * K * n_span * G * (D + 2)
+
+
+def paged_span_plan(qp: int, live: int, nb: int, bs: int,
+                    window: int | None, span: int) -> list:
+    """K1's spans of one token: for each of the n_spans(nb, span) spans,
+    the table blocks [j_lo, j_hi) it walks, or None when it writes an empty
+    partial.  The ranges depend only on the position, the window and the
+    row's live-block count, so -1 columns added to a table add only None
+    entries."""
+    plan = []
+    for s in range(n_spans(nb, span)):
+        j_lo, j_hi = s * span, min((s + 1) * span, nb)
+        if qp >= 0:
+            j_hi = min(j_hi, qp // bs + 1, live)
+            if window is not None and qp - window + 1 > 0:
+                j_lo = max(j_lo, (qp - window + 1) // bs)
+        plan.append((j_lo, j_hi) if qp >= 0 and j_lo < j_hi else None)
+    return plan
+
+
+def span_partial(q, k, v, visible, *, scale, softcap):
+    """The partial of one span: q (..., G, D), k/v (..., n, D) f32 rows of
+    the span's keys, visible (..., n) bool.  Returns m, l (..., G) and acc
+    (..., G, D) in f32: the scores' max over the visible keys, the sum of
+    exp(s - m) over them and the exp-weighted sum of their V rows; an empty
+    partial (m = NEG_INF, l = 0, acc = 0) where no key is visible."""
+    s = torch.einsum("...gd,...nd->...gn", q.float(), k.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    vis = visible[..., None, :]
+    s = torch.where(vis, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)
+    # explicit re-mask: a wholly masked span would otherwise emit exp(0) = 1
+    p = torch.where(vis, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    acc = torch.einsum("...gn,...nd->...gd", p, v.float())
+    m = torch.where(l > 0, m, torch.full_like(m, NEG_INF))
+    return m, l, acc
+
+
+def combine_spans(m, l, acc):
+    """The ordered combine over the leading span axis: m, l (n_span, ...),
+    acc (n_span, ..., D).  Spans with l == 0 are skipped, so they cannot
+    change a bit; mm = max m_s, c_s = exp(m_s - mm), l = sum c_s l_s,
+    acc = sum c_s acc_s, summed in span order.  Returns (acc, l); l == 0
+    where no span holds a visible key."""
+    full = l > 0
+    mm = torch.where(full, m, torch.full_like(m, NEG_INF)).amax(dim=0)
+    l_out = torch.zeros_like(mm)
+    acc_out = torch.zeros_like(acc[0])
+    for s in range(m.shape[0]):
+        c = torch.where(full[s], torch.exp(m[s] - mm), torch.zeros_like(mm))
+        l_out = l_out + c * l[s]
+        acc_out = acc_out + c[..., None] * acc[s]
+    return acc_out, l_out
+
+
+def decode_attention_split(q, k_cache, v_cache, q_pos, cache_pos, *,
+                           k_scale=None, v_scale=None,
+                           window: int | None = None,
+                           softcap: float | None = None,
+                           scale: float | None = None,
+                           span: int = K4_SPAN_SLOTS):
+    """K4 as the split kernel computes it: spans of ``span`` slots cut by
+    slot index, one partial per (row, kv-head, span), the ordered combine;
+    a row with nothing visible averages its S values uniformly.  Returns
+    (B,H,D) in q's dtype."""
+    B, H, D = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    G = H // K
+    scale = D ** -0.5 if scale is None else scale
+    k = k_cache.float() if k_scale is None else dequantize_kv(k_cache, k_scale)
+    v = v_cache.float() if v_scale is None else dequantize_kv(v_cache, v_scale)
+    vis = (cache_pos >= 0) & (cache_pos <= q_pos[:, None])
+    if window is not None:
+        vis &= (q_pos[:, None] - cache_pos) < window
+    n = n_spans(S, span)
+    pad = n * span - S
+    kp = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+    vp = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    visp = torch.nn.functional.pad(vis, (0, pad))
+    # (n, B, K, span, D) rows and (n, B, K, span) visibility per span
+    kp = kp.reshape(B, n, span, K, D).permute(1, 0, 3, 2, 4)
+    vp = vp.reshape(B, n, span, K, D).permute(1, 0, 3, 2, 4)
+    visp = visp.reshape(B, n, 1, span).permute(1, 0, 2, 3).expand(
+        n, B, K, span)
+    qh = q.reshape(1, B, K, G, D).float()
+    m, l, acc = span_partial(qh, kp, vp, visp, scale=scale, softcap=softcap)
+    acc, l = combine_spans(m, l, acc)
+    empty = l == 0
+    uniform = v.mean(dim=1)[:, :, None, :].expand(B, K, G, D)
+    out = torch.where(empty[..., None], uniform,
+                      acc / torch.where(empty, torch.ones_like(l), l)[..., None])
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def ragged_paged_attention_split(q, k_pool, v_pool, block_tables, row_ids,
+                                 token_pos, *, k_scale=None, v_scale=None,
+                                 window: int | None = None,
+                                 softcap: float | None = None,
+                                 scale: float | None = None,
+                                 span: int = K1_SPAN_BLOCKS):
+    """K1 as the split kernel computes it: each token's span plan
+    (``paged_span_plan``), one partial per (token, kv-head, span), the
+    ordered combine; pad lanes (row_ids or token_pos < 0) and tokens with
+    nothing visible are exact zeros.  Returns (T,H,D) in q's dtype."""
+    T, H, D = q.shape
+    N, bs, K, _ = k_pool.shape
+    G = H // K
+    R, nb = block_tables.shape
+    scale = D ** -0.5 if scale is None else scale
+    k = k_pool.float() if k_scale is None else dequantize_kv(k_pool, k_scale)
+    v = v_pool.float() if v_scale is None else dequantize_kv(v_pool, v_scale)
+    n = n_spans(nb, span)
+    out = torch.zeros((T, H, D), dtype=torch.float32, device=q.device)
+    for t in range(T):
+        rid, qp = int(row_ids[t]), int(token_pos[t])
+        if rid < 0 or qp < 0:
+            continue
+        bt = block_tables[min(rid, R - 1)]
+        live = int((bt >= 0).sum())
+        m = torch.full((n, K, G), NEG_INF)
+        l = torch.zeros((n, K, G))
+        acc = torch.zeros((n, K, G, D))
+        qh = q[t].reshape(K, G, D).float()
+        for s, blocks in enumerate(paged_span_plan(qp, live, nb, bs, window,
+                                                   span)):
+            if blocks is None:
+                continue
+            pos = torch.arange(blocks[0] * bs, blocks[1] * bs)
+            slot = bt[pos // bs].clamp(min=0).long() * bs + pos % bs
+            rows_k = k.reshape(N * bs, K, D)[slot].permute(1, 0, 2)
+            rows_v = v.reshape(N * bs, K, D)[slot].permute(1, 0, 2)
+            vis = pos <= qp
+            if window is not None:
+                vis &= (qp - pos) < window
+            m[s], l[s], acc[s] = span_partial(
+                qh, rows_k, rows_v, vis.expand(K, -1), scale=scale,
+                softcap=softcap)
+        a, ll = combine_spans(m, l, acc)
+        out[t] = (a / torch.where(ll == 0, torch.ones_like(ll),
+                                  ll)[..., None]).reshape(H, D)
+    return out.to(q.dtype)
