@@ -11,15 +11,22 @@ on the first phase that fails (exit code != 0):
 
 1. env          — the card (nvidia-smi name and power limit), torch and
                   CUDA versions, the kernels' build time.
-2. kernel       — K1, the ragged paged-attention kernel, against its plain
-                  PyTorch version on the card at gemma2-9b's attention shapes
-                  (H=16, K=8, D=256, block 16, 512 packed lanes mixing decode
-                  rows with contexts past the 4096 window, prefill chunks,
-                  speculative verify rows and pad lanes), at pool dtypes
-                  float32, bfloat16, int8 and fp8_e4m3, window None / 4096,
-                  softcap None / 50; plus exact-zero pad lanes,
-                  bit-invariance to -1 table widening, and k=0 verify rows
-                  bit-matching one-token decode; then bf16 pools at the
+2. kernel       — K1, the ragged paged-attention kernel: first what the
+                  compiler made of its tensor-core kernel (ptxas registers,
+                  stack, spills; mma.sync count in SASS), then against its
+                  plain PyTorch version on the card at gemma2-9b's attention
+                  shapes (H=16, K=8, D=256, block 16, 512 packed lanes mixing
+                  decode rows with contexts past the 4096 window, prefill
+                  chunks, speculative verify rows and pad lanes), at pool
+                  dtypes float32, bfloat16, int8 and fp8_e4m3, window None /
+                  4096, softcap None / 50, each case with the route the
+                  library took (a bf16 q over a bf16, int8 or fp8 pool must
+                  take the tensor cores) and its segment count; plus
+                  exact-zero pad lanes, bit-invariance to -1 table widening,
+                  k=0 verify rows bit-matching one-token decode, and every
+                  lane bit-equal under three other packings of the same
+                  lanes (rows reordered, chunks cut at other offsets, verify
+                  runs taken apart); then bf16 pools at the
                   h2o-danube widths (H=32, K=8, D=80 and D=120), each at its
                   config's window; then the serve phase's decode tick (8
                   decode rows, one at 4,532 positions, padded to 512 lanes)
@@ -132,8 +139,10 @@ BOUND_FORMULA = (
     "blocks visible to some token x bs*K*(2*D*kv_itemsize + 8 if scaled) + "
     "2*T*H*D*q_itemsize + 4*(R*nb + 2*T); flops = 4*D*H per visible (token, "
     "position); peak 989e12 (bf16 tensor cores) or 67e12 (f32)")
-# K1's kernels by name in a profiler trace: the span kernels and the combine
-K1_KERNELS = ("ragged_span_kernel", "ragged_wide_kernel",
+# K1's kernels by name in a profiler trace: the tensor-core kernel and its
+# plan, the span kernels and the combine
+K1_KERNELS = ("ragged_tc_kernel", "ragged_tc_plan_kernel",
+              "ragged_span_kernel", "ragged_wide_kernel",
               "ragged_combine_kernel")
 LIBRARY_NOTE = ("none: no single PyTorch call attends each packed token over "
                 "its own request's blocks of a paged pool")
@@ -287,6 +296,119 @@ def k1_spans(T_, kv, g, d, nb) -> dict:
             "workspace_bytes": 4 * ref.workspace_elems(T_, kv, n, g, d)}
 
 
+def k1_route(q, kp, bt, rows, pos, window) -> dict:
+    """Which K1 kernel the compiled library takes for these tensors, and,
+    on the tensor-core route, how many segments the plan makes of the
+    packing (``ref.ragged_segment_plan``, which mirrors the plan kernel).
+    A bf16 q over a bf16, int8 or fp8 pool must take the tensor cores."""
+    from repro_torch.kernels.decode_attention import ops, ref
+
+    route = ops.ragged_paged_attention_route(q, kp)
+    if q.dtype == torch.bfloat16 and kp.dtype != torch.float32:
+        assert route == "tensor_core", (q.dtype, kp.dtype, route)
+    segs = (len(ref.ragged_segment_plan(
+        bt.cpu(), rows.cpu(), pos.cpu(), G=q.shape[1] // kp.shape[2],
+        bs=kp.shape[1], window=window)) if route == "tensor_core" else None)
+    return {"route": route, "segments": segs}
+
+
+def repackings(rows_np, n_valid) -> list[tuple[str, list[int]]]:
+    """Three other packings of the T = 512 mixed case's valid lanes, each
+    as the list of original lanes at its new lanes (-1: a pad lane), padded
+    to T: (1) the rows in another order with a pad lane after each; (2)
+    the two prefill chunks cut at lane offsets that are not multiples of a
+    segment, their pieces interleaved with the other rows; (3) the verify
+    rows' runs taken apart into one-lane entries, as decode lanes would
+    come, placed between other rows."""
+    runs: dict[int, list[int]] = {}
+    for t in range(n_valid):
+        runs.setdefault(int(rows_np[t]), []).append(t)
+    rows = list(runs)
+    by_len = sorted(rows, key=lambda r: -len(runs[r]))
+    chunk_a, chunk_b = by_len[0], by_len[1]
+    short = [r for r in rows if 1 < len(runs[r]) < len(runs[chunk_b])]
+    singles = [r for r in rows if len(runs[r]) == 1]
+    pad = lambda order: order + [-1] * (T - len(order))
+    one = []
+    for r in rows[::-1][1::2] + rows[::-1][0::2]:
+        one += runs[r] + [-1]
+    a, b = runs[chunk_a], runs[chunk_b]
+    two = (a[:37] + runs[singles[0]] + b[:13] + a[37:101] + runs[short[0]]
+           + a[101:170] + b[13:50] + runs[singles[1]] + a[170:] + b[50:])
+    two += [t for r in rows if r not in (chunk_a, chunk_b, singles[0],
+                                         singles[1], short[0])
+            for t in runs[r]]
+    three = []
+    for r in rows:
+        if r in short:
+            continue
+        three += runs[r]
+    for i, r in enumerate(short):
+        for j, t in enumerate(runs[r]):
+            three.insert(1 + 40 * i + 97 * j, t)
+    for order in (one, two, three):
+        assert sorted(t for t in order if t >= 0) == list(range(n_valid))
+    return [("rows_reordered", pad(one)), ("chunks_split", pad(two)),
+            ("runs_taken_apart", pad(three))]
+
+
+def repack_contract(q, kp, vp, bt, rows, pos, n_valid, rows_np, kw) -> dict:
+    """K1's output, lane for lane, under the three ``repackings`` of the
+    mixed case: each lane's bits must not depend on the lanes beside it,
+    where its segment starts, or its index.  Returns each packing's segment
+    count."""
+    from repro_torch.kernels.decode_attention import ops, ref
+
+    base = ops.ragged_paged_attention(q, kp, vp, bt, rows, pos, **kw)
+    dev = q.device
+    segments = {}
+    for name, order in repackings(rows_np, n_valid):
+        idx = torch.tensor([max(t, 0) for t in order], device=dev)
+        live = torch.tensor([t >= 0 for t in order], device=dev)
+        q2 = torch.where(live[:, None, None], q[idx], torch.zeros_like(q[idx]))
+        neg = torch.full_like(rows[idx], -1)
+        r2 = torch.where(live, rows[idx], neg).contiguous()
+        p2 = torch.where(live, pos[idx], neg).contiguous()
+        out = ops.ragged_paged_attention(q2.contiguous(), kp, vp, bt, r2, p2,
+                                         **kw)
+        assert torch.equal(out[live], base[idx[live]]), \
+            f"{name}: a lane's output depends on its packing"
+        assert bool((out[~live] == 0).all()), f"{name}: pad lanes not zero"
+        segments[name] = len(ref.ragged_segment_plan(
+            bt.cpu(), r2.cpu(), p2.cpu(), G=q.shape[1] // kp.shape[2],
+            bs=kp.shape[1], window=kw["window"]))
+    segments["original"] = len(ref.ragged_segment_plan(
+        bt.cpu(), rows.cpu(), pos.cpu(), G=q.shape[1] // kp.shape[2],
+        bs=kp.shape[1], window=kw["window"]))
+    return segments
+
+
+def k1_build_report() -> dict:
+    """What the compiler made of K1's tensor-core kernel: ``ptxas -v``'s
+    registers, static shared memory and spills for each instantiation
+    (pool type, largest head_dim), and its mma.sync (HMMA) count in SASS."""
+    import re
+
+    from repro_torch.kernels import build
+
+    kinds = {"13__nv_bfloat16": "bf16", "a": "int8", "13__nv_fp8_e4m3": "fp8"}
+
+    def label(mangled: str) -> str:
+        m = re.search(r"ragged_tc_kernelI(\w+?)Lb[01]ELi(\d+)E", mangled)
+        if m is None:
+            return mangled
+        return f"tc::ragged_tc_kernel<{kinds.get(m.group(1), m.group(1))}, " \
+               f"{m.group(2)}>"
+
+    hmma = build.sass_count("ragged_paged_attention", "HMMA")
+    return {"phase": "k1_build",
+            "ptxas": [dict(r, kernel=label(r["kernel"]))
+                      for r in build.ptxas_report("ragged_paged_attention")
+                      if "ragged_tc" in r["kernel"]],
+            "hmma": ({label(k): n for k, n in hmma.items() if "ragged_tc" in k}
+                     if hmma is not None else "not measured")}
+
+
 def kernel_phase(dev) -> list[dict]:
     from repro_torch.kernels.decode_attention import ops, quant, ref
 
@@ -294,6 +416,7 @@ def kernel_phase(dev) -> list[dict]:
     q32, k32, v32, bt, rows, pos, n_valid, bt_np, rows_np, pos_np = \
         kernel_inputs(dev, rng)
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
+    emit(k1_build_report())
     emit({"phase": "kernel_bound", "bound_ms": BOUND_FORMULA,
           "library_ms": LIBRARY_NOTE})
     cases = []
@@ -333,7 +456,8 @@ def kernel_phase(dev) -> list[dict]:
                     kv_dtype=kv_dtype,
                     q_dtype=str(q.dtype).split(".")[1], window=window,
                     softcap=cap, library_ms=None,
-                    **k1_spans(T, KV, H // KV, D, bt.shape[1]))
+                    **k1_spans(T, KV, H // KV, D, bt.shape[1]),
+                    **k1_route(q, kp, bt, rows, pos, window))
                 assert bool((out[n_valid:] == 0).all()), "pad lanes not zero"
                 cases.append(case)
                 emit({"phase": "kernel", **case})
@@ -360,9 +484,13 @@ def kernel_phase(dev) -> list[dict]:
         for b, lane in enumerate(lanes):
             assert torch.equal(packed[lane], decode[b]), "k=0 row != decode"
         assert bool((packed[[0, 2, 5, 7, 8]] == 0).all())
+        segments = repack_contract(q, kp, vp, bt, rows, pos, n_valid,
+                                   rows_np, kw)
         emit({"phase": "kernel_contracts", "kv_dtype": kv_dtype,
+              "route": ops.ragged_paged_attention_route(q, kp),
               "pad_lanes_zero": True, "widening_bit_invariant": True,
-              "k0_verify_equals_decode": True})
+              "k0_verify_equals_decode": True,
+              "repacking_bit_invariant": True, "segments": segments})
     for arch, h, kv, d, window in K1_WIDTHS:
         q, kp, vp, bt, rows, pos, n_valid, bt_np, rows_np, pos_np = \
             kernel_inputs(dev, np.random.default_rng(3), h, kv, d)
@@ -377,8 +505,9 @@ def kernel_phase(dev) -> list[dict]:
                 args[0].float(), *args[1:], window=window),
             kv_dtype="bfloat16",
             q_dtype="bfloat16", arch=arch, H=h, K=kv, D=d, window=window,
-            softcap=None, library_ms=None, **k1_spans(T, kv, h // kv, d,
-                                                      bt.shape[1]))
+            softcap=None, library_ms=None,
+            **k1_spans(T, kv, h // kv, d, bt.shape[1]),
+            **k1_route(args[0], args[1], bt, rows, pos, window))
         assert bool((out[n_valid:] == 0).all()), "pad lanes not zero"
         cases.append(case)
         emit({"phase": "kernel", **case})
@@ -418,7 +547,8 @@ def decode_tick_cases(dev, flush) -> list[dict]:
             plain32=lambda: plain(q.float()), kv_dtype=kv_dtype,
             q_dtype="bfloat16", tick="decode", rows=len(DECODE_TICK_ROWS),
             window=4096, softcap=50.0, library_ms=None,
-            **k1_spans(T, KV, H // KV, D, bt.shape[1]))
+            **k1_spans(T, KV, H // KV, D, bt.shape[1]),
+            **k1_route(q, kp, bt, rows, pos, 4096))
         assert bool((out[n_valid:] == 0).all()), "pad lanes not zero"
         out_cases.append(case)
         emit({"phase": "kernel", **case})

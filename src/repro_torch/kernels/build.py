@@ -94,7 +94,7 @@ def load(name: str) -> ctypes.CDLL:
 def ptxas_report(name: str) -> list[dict]:
     """What ``ptxas -v`` said of each kernel of source ``name`` (built
     first if needed): the mangled kernel name, registers a thread, shared
-    memory bytes, and spill stores and loads in bytes."""
+    memory bytes, its stack frame, and spill stores and loads in bytes."""
     build((name,))
     log = _lib_path(name).with_suffix(".log").read_text()
     kernels, current = [], None
@@ -106,11 +106,12 @@ def ptxas_report(name: str) -> list[dict]:
             continue
         if current is None:
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m:
-            current["spill_store_bytes"] = int(m.group(1))
-            current["spill_load_bytes"] = int(m.group(2))
+            current["stack_frame_bytes"] = int(m.group(1))
+            current["spill_store_bytes"] = int(m.group(2))
+            current["spill_load_bytes"] = int(m.group(3))
         m = re.search(r"Used (\d+) registers", line)
         if m:
             current["registers"] = int(m.group(1))

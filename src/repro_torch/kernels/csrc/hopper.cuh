@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels: the
 // mbarrier, TMA (cp.async.bulk.tensor) and wgmma instructions as inline PTX,
-// plus the shared-memory matrix descriptors that wgmma reads.  Header only;
-// included by the kernels that put their products on the tensor cores.
+// plus the shared-memory matrix descriptors that wgmma reads; and the
+// warp-level ones (cp.async, ldmatrix, mma.sync m16n8k16) for kernels whose
+// tiles are gathered row by row.  Header only; included by the kernels that
+// put their products on the tensor cores.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap (types only: nothing here links libcuda)
@@ -389,6 +391,65 @@ __device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a,
         "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(accumulate));
+}
+
+// ------------------------------------------------ warp-level tensor cores
+// cp.async of BYTES (16, 8 or 4) from global to shared memory; with
+// ``pred`` false nothing is read and the BYTES are zero-filled.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool pred) {
+  const int n = pred ? BYTES : 0;
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(n) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "n"(BYTES), "r"(n)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of this thread's cp.async groups are in flight
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// four 8 x 8 b16 matrices; lanes 8i..8i+7 give the row addresses of
+// matrix i, and r[i] holds this lane's pair of it (row lane/4, columns
+// 2(lane%4), +1; with ``trans`` the pair runs down a column instead)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)) : "memory");
+}
+
+// d(16 x 8, f32) += a(16 x 16, bf16, row) b(16 x 8, bf16, col).  Lane l
+// holds d rows l/4 (d[0], d[1]) and l/4 + 8 (d[2], d[3]) at columns
+// 2(l%4), +1; a as ldmatrix_x4 gives it on (rows 0-7, k 0-7), (rows 8-15,
+// k 0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15); b0 / b1 the k halves.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 }  // namespace hopper

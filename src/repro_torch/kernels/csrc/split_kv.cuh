@@ -1,7 +1,9 @@
 // Split-KV attention for one query token per unit, shared by K4
 // (decode_attention.cu: dense per-slot caches) and K1
 // (ragged_paged_attention.cu: a paged pool through block tables), for
-// Hopper (sm_90a).
+// Hopper (sm_90a).  K1's tensor-core kernel (bf16 q) has its own inner loop
+// but writes the same per-token partials of the same spans, merged by the
+// same combine; the span loop below is K1's for f32 q.
 //
 // The mechanism, written once:
 //

@@ -13,22 +13,27 @@ device picks the path:
 
 K1 replaces the TPU kernel ``kernels/decode_attention/kernel.py::
 ragged_paged_attention_fwd`` (body ``_ragged_kernel``), K4 its
-``decode_attention_fwd`` (body ``_kernel``).  On the H100 both are bound by
-the bytes they stream: K1 each request row's live K/V blocks, read straight
-out of the shared pool through the block table; K4 each row's visible
-cache slots.  Both dequantize int8/fp8 K/V in registers, so only the narrow
-bytes cross device memory.  Both split the key axis across CTAs into fixed
-spans (K4: ``K4_SPAN_SLOTS`` slots, K1: ``K1_SPAN_BLOCKS`` table blocks),
-write one f32 partial per span into a workspace, and merge the spans in
-order in a second kernel (``kernels/csrc/split_kv.cuh``).  The wrappers
-allocate that workspace with ``torch.empty`` and keep it for later calls on
-the same device (it only grows), so a steady-state tick allocates nothing.
-See the source notes in the ``.cu`` files for the designs.
+``decode_attention_fwd`` (body ``_kernel``).  K4 is bound by the bytes of
+each row's visible cache slots, and dequantizes int8/fp8 K/V in registers.
+K1 takes one of three kernels by dtypes and head shape alone
+(``ragged_paged_attention_route``): a bf16 q over a bf16, int8 or fp8 pool
+goes to the tensor cores, where the lanes of one request row's run share
+each K/V tile (segments of at most 64 / G lanes, key tiles anchored at
+absolute positions), and every lane's bits stay independent of how the
+tick was packed; f32 keeps the span kernel's FMAs.  Both split the key axis
+across CTAs into fixed spans (K4: ``K4_SPAN_SLOTS`` slots, K1:
+``K1_SPAN_BLOCKS`` table blocks), write one f32 partial per token and span
+into a workspace, and merge the spans in order in a second kernel
+(``kernels/csrc/split_kv.cuh``).  The wrappers allocate that workspace, and
+K1's segment plan, with ``torch.empty`` and keep them for later calls on
+the same device (they only grow), so a steady-state tick allocates nothing
+and needs no host sync.  See the source notes in the ``.cu`` files for the
+designs.
 
 ``ragged_paged_attention.launches`` and ``decode_attention.launches`` count
-wrapper calls that launched their kernels (the span kernel and the combine
-count once together; plain calls never count), so a run can show that its
-main path went through the kernel.
+wrapper calls that launched their kernels (K1's plan, span and combine
+kernels count once together; plain calls never count), so a run can show
+that its main path went through the kernel.
 """
 from __future__ import annotations
 
@@ -47,35 +52,58 @@ _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
              torch.float8_e4m3fn: 3}
 _QUANT_CODES = (2, 3)
 _MAX_D = 256                          # register-resident rows (split_kv.cuh)
+_TC_ROWS = 64                         # query rows of a K1 segment (tc::ROWS)
 _SMEM_LIMIT = 232_448                 # bytes of shared memory a CTA may use
 
+K1_ROUTES = ("tensor_core", "span", "wide")
+
 _lib_fn = None
+_route_fn = None
 _dense_fn = None
-_workspaces: dict[torch.device, torch.Tensor] = {}
+_workspaces: dict[tuple[torch.device, torch.dtype], torch.Tensor] = {}
 
 
-def _workspace(device: torch.device, n: int) -> torch.Tensor:
-    """A float32 buffer of at least ``n`` elements on ``device``, kept for
-    later calls (it only grows).  The kernels run in stream order, so the
-    calls of one stream may share it."""
-    buf = _workspaces.get(device)
+def _workspace(device: torch.device, n: int,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A buffer of at least ``n`` elements of ``dtype`` on ``device``, kept
+    for later calls (it only grows).  The kernels run in stream order, so
+    the calls of one stream may share it."""
+    buf = _workspaces.get((device, dtype))
     if buf is None or buf.numel() < n:
-        _workspaces.pop(device, None)
-        buf = torch.empty(n, dtype=torch.float32, device=device)
-        _workspaces[device] = buf
+        _workspaces.pop((device, dtype), None)
+        buf = torch.empty(n, dtype=dtype, device=device)
+        _workspaces[(device, dtype)] = buf
     return buf
 
 
 def _kernel():
-    global _lib_fn
+    global _lib_fn, _route_fn
     if _lib_fn is None:
-        fn = build.load("ragged_paged_attention").ragged_paged_attention
+        lib = build.load("ragged_paged_attention")
+        fn = lib.ragged_paged_attention
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [I, I, P, P, P, P, P, P, P, P, P, P,
+        fn.argtypes = [I, I, P, P, P, P, P, P, P, P, P, P, P,
                        I, I, I, I, I, I, I, I, F, F, I, P]
         fn.restype = I
+        _route_fn = lib.ragged_paged_attention_route
+        _route_fn.argtypes = [I, I, I, I, I]
+        _route_fn.restype = I
         _lib_fn = fn
     return _lib_fn
+
+
+def ragged_paged_attention_route(q, k_pool) -> str:
+    """Which of K1's kernels a CUDA call with these q and pool tensors
+    launches, as the compiled library decides it (by dtypes and head shape
+    alone, never by the packing): "tensor_core" (bf16 q over a bf16, int8
+    or fp8 pool, head_dim a multiple of 8 up to 256, G <= 64), "span" or
+    "wide".  Builds the library if needed."""
+    _kernel()
+    code = _route_fn(_Q_CODES[q.dtype], _KV_CODES[k_pool.dtype], q.shape[1],
+                     k_pool.shape[2], q.shape[2])
+    if code < 0:
+        raise ValueError(f"no K1 route for q {q.dtype}, pool {k_pool.dtype}")
+    return K1_ROUTES[code]
 
 
 def _check(q, k_pool, v_pool, block_tables, row_ids, token_pos, k_scale,
@@ -127,7 +155,13 @@ def _check(q, k_pool, v_pool, block_tables, row_ids, token_pos, k_scale,
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be positive or None, got {softcap}")
     G = H // K
-    if D > _MAX_D or D * k_pool.element_size() % 4:
+    if (q.dtype == torch.bfloat16 and k_pool.dtype != torch.float32
+            and D % 8 == 0 and D <= _MAX_D and G <= _TC_ROWS):
+        # the tensor-core path copies 16-byte pieces of q and the pools
+        for n in ("q", "k_pool", "v_pool"):
+            if named[n].data_ptr() % 16:
+                raise ValueError(f"{n} must be 16-byte aligned")
+    elif D > _MAX_D or D * k_pool.element_size() % 4:
         # rows the registers do not hold take the staged path
         smem = 4 * (2 * G * D + 2 * bs * D + G * bs + 3 * G)
         if smem > _SMEM_LIMIT:
@@ -169,6 +203,7 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, row_ids,
     out = torch.empty_like(q)
     ws = _workspace(q.device, workspace_elems(
         T, K, n_spans(nb, K1_SPAN_BLOCKS), H // K, D))
+    plan = _workspace(q.device, 2 + 2 * T, torch.int32)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _kernel()(
@@ -177,7 +212,8 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, row_ids,
             k_scale.data_ptr() if k_scale is not None else None,
             v_scale.data_ptr() if v_scale is not None else None,
             block_tables.data_ptr(), row_ids.data_ptr(), token_pos.data_ptr(),
-            ws.data_ptr(), out.data_ptr(), T, H, K, D, R, nb, bs,
+            ws.data_ptr(), plan.data_ptr(), out.data_ptr(), T, H, K, D, R,
+            nb, bs,
             K1_SPAN_BLOCKS, float(scale),
             float(softcap) if softcap is not None else 0.0,
             int(window) if window is not None else 0, stream)

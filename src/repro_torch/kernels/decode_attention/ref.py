@@ -302,3 +302,197 @@ def ragged_paged_attention_split(q, k_pool, v_pool, block_tables, row_ids,
         out[t] = (a / torch.where(ll == 0, torch.ones_like(ll),
                                   ll)[..., None]).reshape(H, D)
     return out.to(q.dtype)
+
+
+# ============================================= K1's tensor-core path (bf16 q)
+K1_TC_ROWS = 64          # query rows (lane x head) of a segment: tc::ROWS
+
+
+def k1_segment_lanes(G: int) -> int:
+    """BL: the most lanes a segment holds, ``K1_TC_ROWS // G``."""
+    return K1_TC_ROWS // G
+
+
+def k1_key_tile(D: int) -> int:
+    """KT: keys a tile, tiles starting at multiples of it
+    (``tc::key_tile``)."""
+    return 64 if D <= 128 else 32
+
+
+def _follows(row_ids, token_pos, t: int, bl: int) -> bool:
+    p = int(token_pos[t])
+    return (t > 0 and p % bl != 0 and int(row_ids[t - 1]) == int(row_ids[t])
+            and int(token_pos[t - 1]) == p - 1)
+
+
+def ragged_segment_plan(block_tables, row_ids, token_pos, *, G: int,
+                        bs: int, window: int | None = None,
+                        span: int = K1_SPAN_BLOCKS) -> list[dict]:
+    """K1's segments as ``ragged_tc_plan_kernel`` finds them, in lane order
+    (the kernel claims them in any order).  A valid lane leads a segment
+    unless lane t - 1 has the same row and the previous position and its
+    own position is not a multiple of BL (``k1_segment_lanes(G)``); the
+    leader takes the lanes that follow it, so a segment is one row's run of
+    consecutive positions within one BL-aligned block.  Pad lanes (row or
+    position < 0) are in none.
+
+    Each segment: ``first`` lane, ``n`` lanes, ``row``, ``pos0`` (its first
+    position), the row's ``live`` block count and, per span, the union
+    ``(lo, hi)`` of its lanes' visible positions there or None (an empty
+    partial), as ``ragged_tc_kernel`` computes it.  The ranges depend only
+    on the positions, the window and ``live``, so -1 columns added to a
+    table add only None entries."""
+    T = len(row_ids)
+    R, nb = block_tables.shape
+    bl = k1_segment_lanes(G)
+    segs = []
+    for t in range(T):
+        r, p = int(row_ids[t]), int(token_pos[t])
+        if r < 0 or p < 0 or _follows(row_ids, token_pos, t, bl):
+            continue
+        n = 1
+        while t + n < T and _follows(row_ids, token_pos, t + n, bl):
+            n += 1
+        live = int((block_tables[min(r, R - 1)] >= 0).sum())
+        ranges = []
+        for s in range(n_spans(nb, span)):
+            j0, j1 = s * span, min((s + 1) * span, nb)
+            lo, hi = j0 * bs, min(j1 * bs, p + n)
+            if window is not None:
+                lo = max(lo, p - window + 1)
+            if lo < hi:
+                hi = min(hi, j1 * bs, live * bs)
+            ranges.append((lo, hi) if lo < hi else None)
+        segs.append(dict(first=t, n=n, row=r, pos0=p, live=live,
+                         ranges=ranges))
+    return segs
+
+
+def _ordered_dot(a, b):
+    """a (..., M, Dp) . b (..., KT, Dp) -> (..., M, KT), summed over the
+    last axis one element at a time in order, so trailing zero columns add
+    exact zeros."""
+    s = torch.zeros(a.shape[:-1] + (b.shape[-2],), dtype=torch.float32)
+    for d in range(a.shape[-1]):
+        s = s + a[..., :, d, None] * b[..., None, :, d]
+    return s
+
+
+def _ordered_pv(acc, p, v):
+    """acc + p (..., M, KT) @ v (..., KT, D), key by key in order."""
+    for k in range(p.shape[-1]):
+        acc = acc + p[..., :, k, None] * v[..., None, k, :]
+    return acc
+
+
+def tile_update(m, l, acc, s, visible, v, v_scale=None):
+    """One key tile's online-softmax step of ``ragged_tc_kernel`` for rows
+    (..., M): running max m and sum l (..., M), acc (..., M, D); the tile's
+    scores s (..., M, KT) (scaled, capped; K's scale already applied),
+    ``visible`` (..., M, KT) each row's own mask, v (..., KT, D) the stored
+    values (int8 / fp8 codes as they are) and ``v_scale`` (..., KT) or
+    None.  V's scale is folded into p, and p times it is split into bf16
+    hi + lo for P·V, as the kernel does.  A row that sees no key of the
+    tile keeps (m, l, acc) bit for bit: its max stays m, so alpha is
+    exactly 1 (never exp(NEG_INF - NEG_INF)), and its p is exactly 0."""
+    s = torch.where(visible, s, torch.full_like(s, NEG_INF))
+    mn = torch.maximum(m, s.amax(dim=-1))
+    alpha = torch.where(mn == m, torch.ones_like(m), torch.exp(m - mn))
+    p = torch.where(visible, torch.exp(s - mn[..., None]),
+                    torch.zeros_like(s))
+    l = l * alpha + p.sum(dim=-1)
+    pv = p if v_scale is None else p * v_scale[..., None, :]
+    hi = pv.to(torch.bfloat16).float()
+    lo = (pv - hi).to(torch.bfloat16).float()
+    acc = acc * alpha[..., None]
+    for k0 in range(0, s.shape[-1], 16):       # the kernel's k16 steps
+        ks = slice(k0, k0 + 16)
+        acc = _ordered_pv(acc, hi[..., ks], v[..., ks, :])
+        acc = _ordered_pv(acc, lo[..., ks], v[..., ks, :])
+    return mn, l, acc
+
+
+def ragged_paged_attention_tiled(q, k_pool, v_pool, block_tables, row_ids,
+                                 token_pos, *, k_scale=None, v_scale=None,
+                                 window: int | None = None,
+                                 softcap: float | None = None,
+                                 scale: float | None = None,
+                                 span: int = K1_SPAN_BLOCKS,
+                                 key_tile: int | None = None,
+                                 pad_d: bool = True):
+    """K1 as ``ragged_tc_kernel`` computes it: the segments of
+    ``ragged_segment_plan``; per (segment, kv-head, span) the segment's
+    n x G query rows (lane-major, then head) walk the span's key tiles of
+    ``key_tile`` positions (``k1_key_tile(D)``), which start at multiples
+    of it, over the union of the lanes' ranges; each row keeps its own mask
+    and online softmax (``tile_update``); K's scale multiplies the score
+    after the dot, V's is folded into p; then the ordered combine of the
+    spans (``combine_spans``).  q and K are zero-padded along D to a
+    multiple of 16 as the kernel pads them (``pad_d``).  Pad lanes and
+    lanes with nothing visible are exact zeros.  Returns (T,H,D) in q's
+    dtype."""
+    T, H, D = q.shape
+    N, bs, K, _ = k_pool.shape
+    G = H // K
+    R, nb = block_tables.shape
+    scale = D ** -0.5 if scale is None else scale
+    kt = k1_key_tile(D) if key_tile is None else key_tile
+    dp = -(-D // 16) * 16 if pad_d else D
+    n = n_spans(nb, span)
+    kf = k_pool.float().reshape(N * bs, K, D)
+    vf = v_pool.float().reshape(N * bs, K, D)
+    quant = k_scale is not None
+    m_ws = torch.full((n, T, K, G), NEG_INF)
+    l_ws = torch.zeros((n, T, K, G))
+    a_ws = torch.zeros((n, T, K, G, D))
+    for seg in ragged_segment_plan(block_tables, row_ids, token_pos, G=G,
+                                   bs=bs, window=window, span=span):
+        t0, cnt, p0 = seg["first"], seg["n"], seg["pos0"]
+        bt = block_tables[min(seg["row"], R - 1)]
+        M = cnt * G
+        qs = q[t0:t0 + cnt].float().reshape(cnt, K, G, D).permute(
+            1, 0, 2, 3).reshape(K, M, D)
+        qs = torch.nn.functional.pad(qs, (0, dp - D))
+        qp = p0 + torch.arange(M) // G
+        for s, rng in enumerate(seg["ranges"]):
+            if rng is None:
+                continue
+            lo, hi = rng
+            span_lo = s * span * bs
+            kend = min(min((s + 1) * span, nb) * bs, seg["live"] * bs)
+            m = torch.full((K, M), NEG_INF)
+            l = torch.zeros((K, M))
+            acc = torch.zeros((K, M, D))
+            for tile in range(lo // kt, (hi - 1) // kt + 1):
+                pos = torch.arange(tile * kt, (tile + 1) * kt)
+                loaded = (pos >= lo) & (pos < hi)
+                pc = pos.clamp(lo, hi - 1)
+                slot = bt[pc // bs].clamp(min=0).long() * bs + pc % bs
+                keep = loaded[:, None, None]
+                kr = torch.where(keep, kf[slot], 0.0).permute(1, 0, 2)
+                vr = torch.where(keep, vf[slot], 0.0).permute(1, 0, 2)
+                dot = _ordered_dot(qs, torch.nn.functional.pad(
+                    kr, (0, dp - D)))
+                vs = None
+                if quant:
+                    ks = torch.where(loaded[:, None], k_scale.reshape(
+                        N * bs, K)[slot], 0.0).T
+                    vs = torch.where(loaded[:, None], v_scale.reshape(
+                        N * bs, K)[slot], 0.0).T
+                    dot = dot * ks[:, None, :]
+                sc = dot * scale
+                if softcap is not None:
+                    sc = softcap * torch.tanh(sc / softcap)
+                vis = ((pos >= span_lo) & (pos < kend))[None, :] & (
+                    pos[None, :] <= qp[:, None])
+                if window is not None:
+                    vis &= (qp[:, None] - pos[None, :]) < window
+                m, l, acc = tile_update(m, l, acc, sc, vis.expand(K, -1, -1),
+                                        vr, vs)
+            m_ws[s, t0:t0 + cnt] = m.reshape(K, cnt, G).permute(1, 0, 2)
+            l_ws[s, t0:t0 + cnt] = l.reshape(K, cnt, G).permute(1, 0, 2)
+            a_ws[s, t0:t0 + cnt] = acc.reshape(K, cnt, G, D).permute(
+                1, 0, 2, 3)
+    a, ll = combine_spans(m_ws, l_ws, a_ws)
+    out = a / torch.where(ll == 0, torch.ones_like(ll), ll)[..., None]
+    return out.reshape(T, H, D).to(q.dtype)
