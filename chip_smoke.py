@@ -50,12 +50,18 @@ on the first phase that fails (exit code != 0):
                   scaled_dot_product_attention, causal or with a band mask,
                   or compiled flex_attention where there is a softcap; the
                   port never calls them).
-4. ssd_kernel   — K3, the SSD chunked scan, against its plain version at
-                  mamba2-1.3b's shapes (H=64, P=64, N=128, chunk 256; S=4500,
-                  4 x 2048, and 17) and zamba2-2.7b's (H=80, N=64), in bf16
+4. ssd_kernel   — K3, the SSD chunked scan: first what the compiler made of
+                  its stage kernels (ptxas registers, stack, spills; HMMA
+                  count in SASS, which the chunk scan must have), then
+                  against its plain version at mamba2-1.3b's shapes (H=64,
+                  P=64, N=128, chunk 256; S=4500, 4 x 2048, 17, and the score
+                  forward's 8192) and zamba2-2.7b's (H=80, N=64), in bf16
                   and f32, with and without h0 and the D-term; y and h_final
-                  within 5e-4 + 1e-3 |plain| element by element; times as
-                  for K1 (no library call computes the scan).
+                  within 5e-4 + 1e-3 |plain| element by element, and the same
+                  bits from two calls; each case's route (bf16 must take the
+                  tensor cores) and workspace bytes, and each shape's stage
+                  split from one profiled call; times as for K1 (no library
+                  call computes the scan).
 5. decode_kernel — K4, dense decode attention, against its plain version:
                   zamba2-2.7b's shared attention (8 rows of 8192 slots,
                   H=K=32, D=160, filled to 49..8192) in bf16 and f32, and
@@ -76,7 +82,10 @@ on the first phase that fails (exit code != 0):
                   group (6 mamba + 1 shared attention) at full width: the
                   last logits of ``forward`` over 1001 tokens against
                   ``prefill`` over 1000 then ``decode_step`` (K3's state,
-                  the conv window and K4 carrying the context).
+                  the conv window and K4 carrying the context).  Then, for
+                  ROADMAP W1 (informational), the mamba2 check again with
+                  f32 weights and activations and with K3's plain version,
+                  and K3's own error on that model's inputs.
 8. model        — one packed step of the 2-layer gemma2-9b, with K1
                   against the same step with the plain attention.
 9. serve        — ``ServeEngine`` serving gemma2-9b (CONFIG: full width, all
@@ -902,11 +911,13 @@ K3_TPU = "src/repro/kernels/ssd/kernel.py:80"
 K3_SRC = "src/repro_torch/kernels/csrc/ssd.cu"
 # (arch, B, S, H, P, N, chunk): mamba2-1.3b's layer on the serve phase's
 # 4500-token prompt (S % 256 != 0) and its batched 4 x 2048 prefill, a
-# 17-token prompt (Q = 17), and zamba2-2.7b's mamba layer
+# 17-token prompt (Q = 17), zamba2-2.7b's mamba layer, and mamba2-1.3b's
+# layer in the score phase's forward (S = 8192: 32 chunks)
 SSD_SHAPES = [("mamba2-1.3b", 1, 4500, 64, 64, 128, 256),
               ("mamba2-1.3b", 4, 2048, 64, 64, 128, 256),
               ("mamba2-1.3b", 1, 17, 64, 64, 128, 256),
-              ("zamba2-2.7b", 1, 4500, 80, 64, 64, 256)]
+              ("zamba2-2.7b", 1, 4500, 80, 64, 64, 256),
+              ("mamba2-1.3b", 1, 8192, 64, 64, 128, 256)]
 SSD_TOL = (5e-4, 1e-3)    # atol, rtol: the JAX suite's (tests/test_kernels.py)
 SSD_BOUND = (
     "max(bytes / 3.35e12 B/s, flops / peak[x dtype]); bytes = x "
@@ -931,16 +942,62 @@ def ssd_work(B, S, H, P, N, Q, item, h0, D):
     return nbytes, B * flops
 
 
+def _ssd_label(name: str) -> str:
+    """``ssd_scan_kernel`` for a mangled or demangled K3 kernel name."""
+    import re
+
+    m = re.search(r"(ssd_[a-z_]+_kernel)", name)
+    return m.group(1) if m else name
+
+
+def ssd_build_report() -> dict:
+    """What the compiler made of K3: ``ptxas -v``'s registers, shared
+    memory, stack and spills of each stage kernel (and the f32 FMA kernel),
+    and the count of HMMA (mma.sync) instructions in each kernel's SASS."""
+    from repro_torch.kernels import build
+
+    hmma = build.sass_count("ssd", "HMMA")
+    rep = {"phase": "ssd_build",
+           "ptxas": [dict(r, kernel=_ssd_label(r["kernel"]))
+                     for r in build.ptxas_report("ssd")],
+           "hmma": ({_ssd_label(k): n for k, n in hmma.items()}
+                    if hmma is not None else "not measured")}
+    if hmma is not None:
+        assert rep["hmma"].get("ssd_scan_kernel", 0) > 0, rep["hmma"]
+    return rep
+
+
+def ssd_stage_split(fn) -> dict:
+    """Device time (ms) of each K3 kernel in one profiled call of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {_ssd_label(ev.key): ev.self_device_time_total / 1e3
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and ev.self_device_time_total > 0 and "ssd_" in ev.key}
+
+
 def ssd_kernel_phase(dev, shapes=SSD_SHAPES, reps=(10, 3)) -> list[dict]:
     """K3 against its plain version on the card: every shape in bf16 and
     f32, with and without h0, with and without the D-term.  y and h_final
     (f32 in both versions) are held element by element to the JAX suite's
     SSD tolerance, |out - plain| <= 5e-4 + 1e-3 |plain| (ratio
-    ``err_over_tol`` <= 1), which is tighter than one bf16 rounding."""
+    ``err_over_tol`` <= 1), which is tighter than one bf16 rounding.  Each
+    case also names its route (bf16 must take the tensor cores) and its
+    workspace bytes, and two calls must give the same bits; the first case
+    of each shape and dtype reports the device time of each stage kernel
+    from one profiled call."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.ssd import ops, ref
 
+    emit(ssd_build_report())
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
     emit({"phase": "ssd_bound", "bound_ms": SSD_BOUND,
           "library_ms": SSD_LIBRARY})
@@ -966,6 +1023,7 @@ def ssd_kernel_phase(dev, shapes=SSD_SHAPES, reps=(10, 3)) -> list[dict]:
                     plain = lambda: ref.ssd_chunked_ref(x, dt, A, Bm, Cm, D,
                                                         chunk=chunk, h0=h0)
                     (y, h), (yp, hp) = kernel(), plain()
+                    y2, h2 = kernel()
                     torch.cuda.synchronize()
                     assert y.dtype == h.dtype == torch.float32
                     assert y.shape == x.shape and h.shape == (B, H, P, N)
@@ -978,11 +1036,23 @@ def ssd_kernel_phase(dev, shapes=SSD_SHAPES, reps=(10, 3)) -> list[dict]:
                     case = {"arch": arch, "B": B, "S": S, "H": H, "P": P,
                             "N": N, "chunk": chunk, "Q": min(chunk, S),
                             "dtype": str(dtype).split(".")[1],
-                            "h0": with_h0, "D": with_d, "max_abs_err": err,
-                            "err_over_tol": over, "y_scale":
-                            yp.abs().max().item()}
+                            "h0": with_h0, "D": with_d,
+                            "route": ops.ssd_route(x),
+                            "workspace_bytes": ops.workspace_bytes(x, Bm,
+                                                                   chunk),
+                            "max_abs_err": err, "err_over_tol": over,
+                            "y_scale": yp.abs().max().item(),
+                            "bit_equal_repeat": bool(torch.equal(y, y2)
+                                                     and torch.equal(h, h2))}
                     assert over <= 1.0, case
-                    del y, h, yp, hp
+                    assert case["bit_equal_repeat"], case
+                    assert dtype != torch.bfloat16 or \
+                        case["route"] == "tensor_core", case
+                    del y, h, yp, hp, y2, h2
+                    if with_h0 and not with_d:
+                        case["stage_ms"] = ssd_stage_split(kernel)
+                        assert dtype != torch.bfloat16 or \
+                            "ssd_scan_kernel" in case["stage_ms"], case
                     nbytes, flops = ssd_work(B, S, H, P, N, min(chunk, S),
                                              x.element_size(), with_h0,
                                              with_d)
@@ -1236,6 +1306,77 @@ def ssm_check_phase(dev, S=1000) -> list[dict]:
     return out
 
 
+def w1_phase(dev, S=1000) -> dict:
+    """What sets ``ssm_check``'s mamba2 difference (ROADMAP W1), on the
+    same 2-layer model and tokens: the check with the bf16 weights widened
+    to f32 and f32 activations; the bf16 check with K3's plain version in
+    the kernel's place; and K3's own error against its plain version on the
+    inputs each of its calls got in the bf16 check (forward, then prefill),
+    as ``err_over_tol`` against ``SSD_TOL``.  Informational: ``ssm_check``
+    holds the bounds."""
+    import types
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.ssd import ops as sd
+    from repro_torch.kernels.ssd import ref as sd_ref
+    from repro_torch.models import decode_step, forward, mamba2, prefill
+
+    cfg = get_config("mamba2-1.3b").replace(n_layers=2)
+    params = _seeded_params(cfg, dev, 8)
+    toks, pos = _prompt(cfg.vocab_size, S + 1, 9, dev)
+
+    def check(p, c, scan):
+        mamba2.ssd_ops = types.SimpleNamespace(ssd=scan)
+        try:
+            whole = forward(p, toks, pos, c)[0][:, -1].float()
+            _, caches = prefill(p, toks[:, :S], pos[:, :S], c, max_len=2048)
+            stepped = decode_step(p, caches, toks[:, S], pos[:, S:],
+                                  c)[0].float()
+        finally:
+            mamba2.ssd_ops = sd
+        assert bool(torch.isfinite(stepped).all())
+        return {"max_abs_err": (whole - stepped).abs().max().item(),
+                "logit_scale": whole.abs().max().item(),
+                "argmax_equal": bool(torch.equal(whole.argmax(-1),
+                                                 stepped.argmax(-1)))}
+
+    calls = []
+
+    def recording(*a, **kw):
+        calls.append((a, kw))
+        return sd.ssd(*a, **kw)
+
+    res = {"phase": "w1", "arch": cfg.name, "layers": cfg.n_layers,
+           "prompt": S, "bf16": check(params, cfg, recording),
+           "bf16_plain_k3": check(
+               params, cfg,
+               lambda *a, chunk, h0=None: sd_ref.ssd_chunked_ref(
+                   *a, chunk=chunk, h0=h0))}
+    atol, rtol = SSD_TOL
+    k3 = []
+    for a, kw in calls:
+        (y, h), (yp, hp) = sd.ssd(*a, **kw), sd_ref.ssd_chunked_ref(*a, **kw)
+        k3.append({"S": a[0].shape[1], "h0": kw.get("h0") is not None,
+                   "max_abs_err": max((y - yp).abs().max().item(),
+                                      (h - hp).abs().max().item()),
+                   "err_over_tol": max(
+                       ((y - yp).abs() / (atol + rtol * yp.abs())).max()
+                       .item(),
+                       ((h - hp).abs() / (atol + rtol * hp.abs())).max()
+                       .item()),
+                   "y_scale": yp.abs().max().item()})
+    res["k3_vs_plain"] = k3
+    del calls
+    widen = lambda t: t.float() if t.dtype == torch.bfloat16 else t
+    params32 = _map_leaves(params, widen)
+    del params
+    res["f32"] = check(params32, cfg.replace(dtype="float32"), sd.ssd)
+    emit(res)
+    del params32
+    torch.cuda.empty_cache()
+    return res
+
+
 # ============================================================ dense serve
 DENSE_PROMPTS = (2048, 2048, 2048, 2048, 4500, 17, 300, 1000)
 
@@ -1336,7 +1477,7 @@ def serve_dense_trace(cfg, params, dev) -> None:
     emit({"phase": "serve_dense_trace", "arch": cfg.name,
           "ticks": eng.stats.ticks,
           **_device_time(prof, wall, {"K2": ("flash_attention",),
-                                      "K3": ("ssd_kernel",),
+                                      "K3": ("ssd_",),
                                       "K4": K4_KERNELS,
                                       "gemm": GEMM_KEYS})})
     del eng
@@ -1546,6 +1687,14 @@ def _device_time(prof, wall, groups) -> dict:
                     for us, n, key in kernels[:8]]}
 
 
+def _map_leaves(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_leaves(v, fn) for v in tree]
+    return fn(tree)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1585,6 +1734,7 @@ def main() -> int:
     cfg = get_config("gemma2-9b")
     score_check_phase(cfg, dev)
     ssm_check_phase(dev)
+    w1_phase(dev)
     main_run = serve_phase(dev, smi)
     dense = serve_dense_phase(dev, smi)
     scores = score_phase(dev, smi)

@@ -41,7 +41,7 @@ import ctypes
 
 import torch
 
-from .. import build
+from .. import build, workspace
 from .ref import (K1_SPAN_BLOCKS, K4_SPAN_SLOTS, decode_attention_quant_ref,
                   decode_attention_ref, n_spans,
                   ragged_paged_attention_quant_ref, ragged_paged_attention_ref,
@@ -60,20 +60,6 @@ K1_ROUTES = ("tensor_core", "span", "wide")
 _lib_fn = None
 _route_fn = None
 _dense_fn = None
-_workspaces: dict[tuple[torch.device, torch.dtype], torch.Tensor] = {}
-
-
-def _workspace(device: torch.device, n: int,
-               dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """A buffer of at least ``n`` elements of ``dtype`` on ``device``, kept
-    for later calls (it only grows).  The kernels run in stream order, so
-    the calls of one stream may share it."""
-    buf = _workspaces.get((device, dtype))
-    if buf is None or buf.numel() < n:
-        _workspaces.pop((device, dtype), None)
-        buf = torch.empty(n, dtype=dtype, device=device)
-        _workspaces[(device, dtype)] = buf
-    return buf
 
 
 def _kernel():
@@ -201,9 +187,9 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, row_ids,
     N, bs, K, _ = k_pool.shape
     R, nb = block_tables.shape
     out = torch.empty_like(q)
-    ws = _workspace(q.device, workspace_elems(
+    ws = workspace(q.device, workspace_elems(
         T, K, n_spans(nb, K1_SPAN_BLOCKS), H // K, D))
-    plan = _workspace(q.device, 2 + 2 * T, torch.int32)
+    plan = workspace(q.device, 2 + 2 * T, torch.int32)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _kernel()(
@@ -331,7 +317,7 @@ def decode_attention(q, k_cache, v_cache, q_pos, cache_pos, *, k_scale=None,
     B, H, D = q.shape
     _, S, K, _ = k_cache.shape
     out = torch.empty_like(q)
-    ws = _workspace(q.device, workspace_elems(
+    ws = workspace(q.device, workspace_elems(
         B, K, n_spans(S, K4_SPAN_SLOTS), H // K, D))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

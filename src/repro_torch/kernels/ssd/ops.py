@@ -5,18 +5,25 @@ initial state ``h0`` that the JAX model's ``ssd_chunked`` takes.  The
 tensor's device picks the path:
 
 - a CPU tensor runs the plain PyTorch version (``ref.py``);
-- a CUDA tensor launches the hand-written CUDA C++ kernel
+- a CUDA tensor launches the hand-written CUDA C++ kernels
   (``kernels/csrc/ssd.cu``, built at first use) or raises — there is no
   fallback.
 
 Replaces the TPU kernel ``kernels/ssd/kernel.py::ssd_fwd`` (body
-``_kernel``).  On the H100 it is bound by the bytes it moves (x in, f32 y
-out, B, C, dt, the states); see the source note in the ``.cu`` file for
-the design.  y and h_final are float32 whatever x's dtype: the Mamba-2
-block adds its D-term in f32 and rounds once.
+``_kernel``).  x's dtype alone picks the route (``ssd_route``): bf16 runs
+the chunk-parallel stages on the tensor cores (C·Bᵀ and the chunk states,
+a short sequential pass over the states, the chunk scan; f32 operands of
+the products split into bf16 hi + lo), f32 the sequential FMA kernel.  The
+bf16 route keeps its f32 workspace (chunk states, C·Bᵀ, cum_a:
+``workspace_bytes``) in the kernels' shared scratch buffer
+(``kernels.workspace``: one per device, reused by later calls), so a call
+allocates only its outputs and needs no host sync.  See the source note in
+the ``.cu`` file for the design.  y and h_final are float32 whatever x's
+dtype: the Mamba-2 block adds its D-term in f32 and rounds once.
 
-``ssd.launches`` counts kernel launches (never plain calls), so a run can
-show that its main path went through the kernel.
+``ssd.launches`` counts calls that launched the kernels (the stages of one
+call count once; plain calls never count), so a run can show that its main
+path went through the kernel.
 """
 from __future__ import annotations
 
@@ -24,13 +31,43 @@ import ctypes
 
 import torch
 
-from .. import build
+from .. import build, workspace
 from .ref import ssd_chunked_ref
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_P, _MAX_N = 64, 128              # 4 head columns, 8 state columns a thread
+_ROUTES = {torch.float32: "fma", torch.bfloat16: "tensor_core"}
+_MAX_P, _MAX_N = 64, 128              # the kernels' padded tile widths
+_ROWS = 64                            # a chunk tile's rows (Q padded to it)
+_ALIGN = 64                           # floats: each workspace part 256-byte aligned
 
 _lib_fn = None
+
+
+def ssd_route(x) -> str:
+    """Which of K3's kernels a CUDA call with this x launches, by dtype
+    alone: "tensor_core" (bf16) or "fma" (f32)."""
+    return _ROUTES[x.dtype]
+
+
+def _workspace_parts(Bb, S, H, P, N, Q) -> tuple[int, int, int]:
+    """Floats of the bf16 route's three workspace parts, each rounded up to
+    ``_ALIGN``: chunk states (then h_prev) B·NC·H·P·N, C·Bᵀ B·NC·Qp·Qp and
+    cum_a B·NC·H·Qp (NC = ceil(S/Q), Qp = Q rounded up to 64)."""
+    NC = -(-S // Q)
+    Qp = -(-Q // _ROWS) * _ROWS
+    up = lambda n: -(-n // _ALIGN) * _ALIGN
+    return (up(Bb * NC * H * P * N), up(Bb * NC * Qp * Qp),
+            up(Bb * NC * H * Qp))
+
+
+def workspace_bytes(x, B_, chunk: int) -> int:
+    """Bytes of workspace a call with these operands uses (0 on the f32
+    route)."""
+    if ssd_route(x) != "tensor_core":
+        return 0
+    Bb, S, H, P = x.shape
+    return 4 * sum(_workspace_parts(Bb, S, H, P, B_.shape[-1],
+                                    min(chunk, S) if S else 1))
 
 
 def _kernel():
@@ -38,7 +75,8 @@ def _kernel():
     if _lib_fn is None:
         fn = build.load("ssd").ssd_scan
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [I, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P]
+        fn.argtypes = [I, P, P, P, P, P, P, P, P, P, P, P, P,
+                       I, I, I, I, I, I, P]
         fn.restype = I
         _lib_fn = fn
     return _lib_fn
@@ -98,8 +136,15 @@ def ssd(x, dt, A, B_, C_, D=None, *, chunk: int = 128, h0=None):
         return ssd_chunked_ref(x, dt, A, B_, C_, D, chunk=chunk, h0=h0)
     Bb, S, H, P = x.shape
     N = B_.shape[-1]
+    Q = min(chunk, S) if S else 1
     y = torch.empty((Bb, S, H, P), dtype=torch.float32, device=x.device)
     h_final = torch.empty((Bb, H, P, N), dtype=torch.float32, device=x.device)
+    parts = [None, None, None]
+    if ssd_route(x) == "tensor_core":
+        sizes = _workspace_parts(Bb, S, H, P, N, Q)
+        ws = workspace(x.device, max(sum(sizes), _ALIGN))
+        offsets = (0, sizes[0], sizes[0] + sizes[1])
+        parts = [ws.data_ptr() + 4 * o for o in offsets]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _kernel()(
@@ -107,8 +152,8 @@ def ssd(x, dt, A, B_, C_, D=None, *, chunk: int = 128, h0=None):
             B_.data_ptr(), C_.data_ptr(),
             D.data_ptr() if D is not None else None,
             h0.data_ptr() if h0 is not None else None,
-            y.data_ptr(), h_final.data_ptr(), Bb, S, H, P, N,
-            min(chunk, S) if S else 1, stream)
+            y.data_ptr(), h_final.data_ptr(), *parts, Bb, S, H, P, N, Q,
+            stream)
     if err != 0:
         raise RuntimeError(f"ssd kernel launch failed: CUDA error {err}")
     ssd.launches += 1
