@@ -92,23 +92,42 @@ on the first phase that fails (exit code != 0):
                   42 layers, bf16, seeded random weights) 8 requests: one
                   4500-token prompt chunked over several ticks across the
                   4096 window, seven of 16-300 tokens (two share a 64-token
-                  prefix), 32 greedy new tokens each.  Then again with
-                  speculative decoding (spec_k=2), whose greedy streams must
-                  be identical, and with an int8 pool.  Asserts host_syncs ==
-                  ticks and K1 launches == ticks x 42.
-10. trace       — the first serve run again under torch.profiler: device
-                  time by kernel and the device's idle share
-                  (informational).
+                  prefix), 32 greedy new tokens each, with the tick
+                  captured as a CUDA graph (the engine's default).  Then
+                  eagerly (``cuda_graphs=False``) and captured again, with
+                  speculative decoding (spec_k=2), with an int8 pool
+                  captured and eagerly, and three requests sampled at
+                  temperature 1 (spec_k=2) captured and eagerly: the greedy
+                  streams of every bf16 run must be identical, the int8
+                  runs' streams equal, and the sampled runs' too.  Every
+                  run goes under ``torch.cuda.set_sync_debug_mode("error")``
+                  outside the engine's one pull per tick.  Asserts
+                  host_syncs == ticks, K1 launches == ticks x 42 (a replay
+                  adds its capture's counts), one capture per captured
+                  engine and a replay at every tick after the first, and
+                  that deleting the engine frees its graph.
+10. trace       — the main serve run again under torch.profiler, captured
+                  and eagerly: device time by kernel, the device's idle
+                  share, and K1's launches as the trace counts them (==
+                  ticks x 42).  Then one ``graphs`` line: captured against
+                  eager (TTFT p50, TPOT p50, tokens/s, peak memory, idle
+                  share).
 11. serve_dense — ``ServeEngine(paged=False)`` serving mamba2-1.3b and
                   zamba2-2.7b (full width and depth, bf16, seeded weights,
                   8 slots of 8192) 8 requests: four of 2048 tokens (one
                   batched prefill), 4500, 17, 300 and 1000, 32 greedy new
-                  tokens each.  Asserts host_syncs == decode_ticks +
+                  tokens each, the decode tick captured; then eagerly and
+                  captured again (equal streams), two requests sampled
+                  captured and eagerly (equal streams), all under the sync
+                  check.  Asserts host_syncs == decode_ticks +
                   prefill_batches with 5 prefill batches, K3 launches ==
                   mamba layers x prefill_batches, K2 and K4 launches ==
                   shared-attention applications x prefill_batches and x
-                  decode_ticks; then each run again under torch.profiler
-                  (informational).
+                  decode_ticks, one decode capture per captured engine and
+                  a replay at every decode tick after the first; then each
+                  model under torch.profiler, captured and eagerly (K3's
+                  and K4's launches counted in the trace too), and its
+                  ``graphs`` line.
 12. score       — ``forward`` at full width and full depth, bf16, seeded
                   random weights, B=1: gemma2-9b, gemma3-4b, h2o-danube-1.8b,
                   mamba2-1.3b and zamba2-2.7b at S=8192, h2o-danube-3-4b at
@@ -125,6 +144,7 @@ nvidia-smi gives them, then the kernels line (K1-K4), and last
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -132,6 +152,7 @@ import statistics
 import subprocess
 import sys
 import time
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -637,36 +658,105 @@ def serve_requests(vocab: int):
             for i, p in enumerate(prompts)]
 
 
-def serve_once(cfg, params, dev, smi: str, **kw) -> tuple[dict, dict]:
+@contextlib.contextmanager
+def syncs_forbidden(eng):
+    """Inside the block every synchronizing CUDA call raises
+    (``torch.cuda.set_sync_debug_mode("error")``), except in the engine's
+    one pull per dispatch, ``_to_host``."""
+    inner = eng._to_host
+
+    def to_host(*a):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return inner(*a)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    eng._to_host = to_host
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        del eng._to_host
+
+
+def check_graphs(eng, kernel_ticks: int) -> dict:
+    """A captured engine captured its tick once and replayed it at every
+    tick after the first (eager) one; an eager engine captured nothing."""
+    s = eng.stats
+    if eng.cuda_graphs:
+        assert s.graph_captures == 1, s.graph_captures
+        assert s.graph_replays == kernel_ticks - 1, (s.graph_replays,
+                                                     kernel_ticks)
+    else:
+        assert s.graph_captures == s.graph_replays == 0, s
+    return {"cuda_graphs": eng.cuda_graphs, "graph_captures":
+            s.graph_captures, "graph_replays": s.graph_replays,
+            "graph_capture_s": s.graph_capture_s}
+
+
+def allocated_outside_workspaces() -> int:
+    """Device bytes allocated, less the kernels' shared workspaces (which
+    outlive every engine)."""
+    from repro_torch import kernels
+
+    return torch.cuda.memory_allocated() - sum(
+        b.numel() * b.element_size() for b in kernels._workspaces.values())
+
+
+def graph_ref(eng):
+    """A weak reference to the engine's captured graph (None if eager)."""
+    graph = eng._tick_runner.graph
+    return None if graph is None else weakref.ref(graph)
+
+
+def check_dropped(ref, before: int) -> int:
+    """After the caller deleted its engine: its graph went with it.  Returns
+    the bytes still allocated (outside the workspaces) beyond ``before``,
+    taken before the engine was built."""
+    torch.cuda.empty_cache()
+    assert ref is None or ref() is None, "the engine's CUDA graph outlived it"
+    return allocated_outside_workspaces() - before
+
+
+def serve_once(cfg, params, dev, smi: str, reqs=None, **kw
+               ) -> tuple[dict, dict]:
     from repro_torch.kernels.decode_attention import ops
     from repro_torch.serving.engine import ServeEngine
 
+    base = allocated_outside_workspaces()
     eng = ServeEngine(cfg, params, n_slots=8, token_budget=512, max_len=8192,
                       num_blocks=1024, device=dev, **kw)
     assert eng.cm.pools[0]["k"].device.type == dev.type
     assert params["embed"]["table"].device.type == dev.type
     done = []
     eng.on_complete = done.append
-    reqs = serve_requests(cfg.vocab_size)
+    reqs = serve_requests(cfg.vocab_size) if reqs is None else reqs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     ops.ragged_paged_attention.launches = 0
     t0 = time.monotonic()
-    for r in reqs:
-        eng.submit(r)
-    eng.run_until_drained()
+    with syncs_forbidden(eng):
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = ops.ragged_paged_attention.launches
     s = eng.stats
     assert len(done) == len(reqs) and all(r.error is None for r in done)
-    assert all(len(r.tokens) == 32 for r in done)
+    assert all(len(r.tokens) == r.max_new_tokens for r in done)
     assert all(0 <= t < cfg.vocab_size for r in done for t in r.tokens)
     assert all(np.isfinite(r.scores).all() for r in done)
     assert s.host_syncs == s.ticks, (s.host_syncs, s.ticks)
     assert s.prefix_hit_tokens > 0
     res = {"phase": "serve", "kv_dtype": kw.get("kv_dtype") or "bfloat16",
-           "spec_k": kw.get("spec_k", 0), "card": smi,
+           "spec_k": kw.get("spec_k", 0),
+           "temperature": kw.get("temperature", 0.0), "card": smi,
            "n_layers": cfg.n_layers, "pool_bytes": eng.cm.pool_bytes(),
            "num_blocks": eng.cm.num_blocks, "ticks": s.ticks,
+           **check_graphs(eng, s.ticks),
            "host_syncs": s.host_syncs, "k1_launches": launches,
            "prefill_chunks": s.prefill_chunks,
            "prefix_hit_tokens": s.prefix_hit_tokens,
@@ -676,11 +766,32 @@ def serve_once(cfg, params, dev, smi: str, **kw) -> tuple[dict, dict]:
            "ttft_p50_s": statistics.median(s.ttft_s),
            "tpot_p50_s": statistics.median(s.tpot_s),
            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
-    emit(res)
     streams = {r.request_id: list(r.tokens) for r in done}
+    ref = graph_ref(eng)
     del eng
-    torch.cuda.empty_cache()
+    res["kept_after_delete_bytes"] = check_dropped(ref, base)
+    emit(res)
     return res, streams
+
+
+GRAPH_METRICS = ("ttft_p50_s", "tpot_p50_s", "tokens_per_s",
+                 "peak_mem_bytes", "device_idle_share", "graph_capture_s")
+
+
+def graphs_line(path: str, smi: str, first: dict, captured: dict,
+                eager: dict) -> dict:
+    """Captured against eager on one path, measured in this call.  The runs
+    went captured (``first``: the process's first serve of the model, which
+    also pays the allocator's and the libraries' first calls), eager,
+    captured again; ``captured`` is the second captured run, which like the
+    eager one follows a serve of the same model."""
+    res = {"phase": "graphs", "path": path, "card": smi,
+           "captured": {m: captured[m] for m in GRAPH_METRICS},
+           "eager": {m: eager[m] for m in GRAPH_METRICS},
+           "captured_first_run": {m: first[m] for m in GRAPH_METRICS
+                                  if m in first}}
+    emit(res)
+    return res
 
 
 def serve_phase(dev, smi: str) -> dict:
@@ -703,27 +814,57 @@ def serve_phase(dev, smi: str) -> dict:
           "seconds": time.monotonic() - t0})
     main, greedy = serve_once(cfg, params, dev, smi)
     assert main["pool_bytes"] >= 4 << 30
+    eager, eager_streams = serve_once(cfg, params, dev, smi,
+                                      cuda_graphs=False)
+    assert eager_streams == greedy, "captured and eager streams differ"
+    again, again_streams = serve_once(cfg, params, dev, smi)
+    assert again_streams == greedy, "a second captured run differs"
     spec, spec_streams = serve_once(cfg, params, dev, smi, spec_k=2)
     assert spec_streams == greedy, "spec_k=2 greedy streams differ"
     assert spec["spec_drafted"] > 0
-    int8, _ = serve_once(cfg, params, dev, smi, kv_dtype="int8")
-    for res in (main, spec, int8):      # K1 at every layer of every tick
+    int8, int8_streams = serve_once(cfg, params, dev, smi, kv_dtype="int8")
+    int8_eager, int8_eager_streams = serve_once(
+        cfg, params, dev, smi, kv_dtype="int8", cuda_graphs=False)
+    assert int8_eager_streams == int8_streams, "int8: captured != eager"
+    for res in (main, eager, again, spec, int8, int8_eager):
+        # K1 at every layer of every tick
         assert res["k1_launches"] == res["ticks"] * cfg.n_layers, res
-    trace_phase(cfg, params, dev)
+    # sampled: the engine's generator, reseeded per dispatch, draws the
+    # same numbers in a replayed graph as in the eager tick
+    sampled = {graphs: serve_once(cfg, params, dev, smi,
+                                  reqs=serve_requests(cfg.vocab_size)[1:4],
+                                  spec_k=2, temperature=1.0,
+                                  cuda_graphs=graphs)[1]
+               for graphs in (True, False)}
+    assert sampled[True] == sampled[False], "sampled: captured != eager"
+    traced = {graphs: trace_phase(cfg, params, dev, graphs)
+              for graphs in (True, False)}
+    graphs_line("paged gemma2-9b bf16 spec_k=0", smi, main,
+                dict(again, **traced[True]), dict(eager, **traced[False]))
     return main
 
 
-def trace_phase(cfg, params, dev) -> None:
+def kernel_launches(prof, names) -> int:
+    """Launches of the device kernels whose names hold one of ``names``, as
+    the profiler recorded them."""
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and any(n in ev.key for n in names))
+
+
+def trace_phase(cfg, params, dev, cuda_graphs: bool) -> dict:
     """Where the time goes: the main serve run again under torch.profiler,
     device time by kernel (self time, summed over launches) and the device's
-    busy share of the wall time.  Informational: the timings above come
-    from runs without the profiler."""
+    busy share of the wall time, and K1's launches as the trace counts them
+    (one combine kernel per call).  The timings above come from runs without
+    the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving.engine import ServeEngine
 
+    base = allocated_outside_workspaces()
     eng = ServeEngine(cfg, params, n_slots=8, token_budget=512, max_len=8192,
-                      num_blocks=1024, device=dev)
+                      num_blocks=1024, device=dev, cuda_graphs=cuda_graphs)
     for r in serve_requests(cfg.vocab_size):
         eng.submit(r)
     with profile(activities=[ProfilerActivity.CPU,
@@ -732,11 +873,18 @@ def trace_phase(cfg, params, dev) -> None:
         eng.run_until_drained()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    emit({"phase": "trace", "ticks": eng.stats.ticks,
-          **_device_time(prof, wall, {"K1": K1_KERNELS,
-                                      "gemm": GEMM_KEYS})})
+    ticks = eng.stats.ticks
+    traced = kernel_launches(prof, ("ragged_combine_kernel",))
+    assert traced == ticks * cfg.n_layers, (traced, ticks)
+    res = {"phase": "trace", "cuda_graphs": cuda_graphs, "ticks": ticks,
+           "k1_launches_traced": traced,
+           **_device_time(prof, wall, {"K1": K1_KERNELS,
+                                       "gemm": GEMM_KEYS})}
+    emit(res)
+    ref = graph_ref(eng)
     del eng
-    torch.cuda.empty_cache()
+    check_dropped(ref, base)
+    return res
 
 
 # ============================================================ flash kernel
@@ -1403,27 +1551,30 @@ def _kernel_counters():
     return {"K2": fa.flash_attention, "K3": sd.ssd, "K4": da.decode_attention}
 
 
-def serve_dense_once(cfg, params, dev, smi: str) -> dict:
+def serve_dense_once(cfg, params, dev, smi: str, reqs=None, **kw) -> dict:
     from repro_torch.models import layer_specs
     from repro_torch.serving.engine import ServeEngine
     from repro_torch.serving.scheduler import Scheduler
 
+    base = allocated_outside_workspaces()
     eng = ServeEngine(cfg, params, n_slots=8, max_len=8192, paged=False,
-                      scheduler=Scheduler(prefill_budget=8), device=dev)
+                      scheduler=Scheduler(prefill_budget=8), device=dev, **kw)
     cache_bytes = sum(t.numel() * t.element_size() for c in eng.cm.caches
                       for t in c.values())
     done = []
     eng.on_complete = done.append
-    reqs = dense_requests(cfg.vocab_size)
+    full = reqs is None
+    reqs = dense_requests(cfg.vocab_size) if full else reqs
     counters = _kernel_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
     t0 = time.monotonic()
-    for r in reqs:
-        eng.submit(r)
-    eng.run_until_drained()
+    with syncs_forbidden(eng):
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
@@ -1431,41 +1582,50 @@ def serve_dense_once(cfg, params, dev, smi: str) -> dict:
     kinds = [spec.kind for spec in layer_specs(cfg)]
     n_mamba, n_attn = kinds.count("mamba"), kinds.count("shared_attn")
     assert len(done) == len(reqs) and all(r.error is None for r in done)
-    assert all(len(r.tokens) == 32 for r in done)
+    assert all(len(r.tokens) == r.max_new_tokens for r in done)
     assert all(0 <= t < cfg.vocab_size for r in done for t in r.tokens)
     assert all(np.isfinite(r.scores).all() for r in done)
     assert s.host_syncs == s.decode_ticks + s.prefill_batches, s
-    assert s.prefill_batches == 5, s.prefill_batches
+    assert not full or s.prefill_batches == 5, s.prefill_batches
     assert launches["K3"] == n_mamba * s.prefill_batches, launches
     assert launches["K4"] == n_attn * s.decode_ticks, launches
     assert launches["K2"] == n_attn * s.prefill_batches, launches
     res = {"phase": "serve_dense", "arch": cfg.name, "card": smi,
+           "temperature": kw.get("temperature", 0.0),
            "n_layers": cfg.n_layers, "mamba_layers": n_mamba,
            "shared_attn_applications": n_attn, "cache_bytes": cache_bytes,
            "prefill_batches": s.prefill_batches,
            "decode_ticks": s.decode_ticks, "host_syncs": s.host_syncs,
+           **check_graphs(eng, s.decode_ticks),
            "launches": launches, "tokens_out": s.tokens_out,
            "prompt_tokens": s.prompt_tokens, "wall_s": wall,
            "tokens_per_s": s.tokens_out / wall,
            "ttft_p50_s": statistics.median(s.ttft_s),
            "tpot_p50_s": statistics.median(s.tpot_s),
            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
-    emit(res)
+    res["streams"] = {r.request_id: list(r.tokens) for r in done}
+    ref = graph_ref(eng)
     del eng
-    torch.cuda.empty_cache()
+    res["kept_after_delete_bytes"] = check_dropped(ref, base)
+    emit({k: v for k, v in res.items() if k != "streams"})
     return res
 
 
-def serve_dense_trace(cfg, params, dev) -> None:
+def serve_dense_trace(cfg, params, dev, cuda_graphs: bool) -> dict:
     """The dense serve again under torch.profiler: device time by kernel
-    group and the device's idle share (informational)."""
+    group, the device's idle share, and K3's and K4's launches as the trace
+    counts them (one pass kernel per K3 call, one combine kernel per K4
+    call)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.models import layer_specs
     from repro_torch.serving.engine import ServeEngine
     from repro_torch.serving.scheduler import Scheduler
 
+    base = allocated_outside_workspaces()
     eng = ServeEngine(cfg, params, n_slots=8, max_len=8192, paged=False,
-                      scheduler=Scheduler(prefill_budget=8), device=dev)
+                      scheduler=Scheduler(prefill_budget=8), device=dev,
+                      cuda_graphs=cuda_graphs)
     for r in dense_requests(cfg.vocab_size):
         eng.submit(r)
     with profile(activities=[ProfilerActivity.CPU,
@@ -1474,19 +1634,32 @@ def serve_dense_trace(cfg, params, dev) -> None:
         eng.run_until_drained()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    emit({"phase": "serve_dense_trace", "arch": cfg.name,
-          "ticks": eng.stats.ticks,
-          **_device_time(prof, wall, {"K2": ("flash_attention",),
-                                      "K3": ("ssd_",),
-                                      "K4": K4_KERNELS,
-                                      "gemm": GEMM_KEYS})})
+    s = eng.stats
+    kinds = [spec.kind for spec in layer_specs(cfg)]
+    traced = {"K3": kernel_launches(prof, ("ssd_pass_kernel",)),
+              "K4": kernel_launches(prof, ("decode_combine_kernel",))}
+    assert traced["K3"] == kinds.count("mamba") * s.prefill_batches, traced
+    assert traced["K4"] == kinds.count("shared_attn") * s.decode_ticks, traced
+    res = {"phase": "serve_dense_trace", "arch": cfg.name,
+           "cuda_graphs": cuda_graphs, "ticks": s.ticks,
+           "launches_traced": traced,
+           **_device_time(prof, wall, {"K2": ("flash_attention",),
+                                       "K3": ("ssd_",),
+                                       "K4": K4_KERNELS,
+                                       "gemm": GEMM_KEYS})}
+    emit(res)
+    ref = graph_ref(eng)
     del eng
-    torch.cuda.empty_cache()
+    check_dropped(ref, base)
+    return res
 
 
 def serve_dense_phase(dev, smi: str) -> dict:
     """``ServeEngine(paged=False)`` on mamba2-1.3b and zamba2-2.7b at full
-    width and depth, bf16, seeded weights, 8 slots of 8192 positions."""
+    width and depth, bf16, seeded weights, 8 slots of 8192 positions:
+    captured, then eager in the same call (the greedy streams must be
+    equal), a short sampled serve both ways (equal streams too), and each
+    way under the profiler."""
     from repro_torch.configs.registry import get_config
 
     runs = {}
@@ -1496,7 +1669,24 @@ def serve_dense_phase(dev, smi: str) -> dict:
         n_params = sum(t.numel() for t in _leaves(params))
         assert n_params == cfg.param_count(), (n_params, cfg.param_count())
         runs[arch] = serve_dense_once(cfg, params, dev, smi)
-        serve_dense_trace(cfg, params, dev)
+        eager = serve_dense_once(cfg, params, dev, smi, cuda_graphs=False)
+        assert eager["streams"] == runs[arch]["streams"], \
+            f"{arch}: captured and eager streams differ"
+        again = serve_dense_once(cfg, params, dev, smi)
+        assert again["streams"] == runs[arch]["streams"], \
+            f"{arch}: a second captured run differs"
+        sampled = {}
+        for graphs in (True, False):
+            few = [r for r in dense_requests(cfg.vocab_size)
+                   if len(r.prompt) in (17, 300)]
+            sampled[graphs] = serve_dense_once(
+                cfg, params, dev, smi, reqs=few, temperature=1.0,
+                cuda_graphs=graphs)["streams"]
+        assert sampled[True] == sampled[False], f"{arch}: sampled differ"
+        traced = {graphs: serve_dense_trace(cfg, params, dev, graphs)
+                  for graphs in (True, False)}
+        graphs_line(f"dense {arch}", smi, runs[arch],
+                    dict(again, **traced[True]), dict(eager, **traced[False]))
         del params
         torch.cuda.empty_cache()
     return runs

@@ -99,6 +99,7 @@
 #include <initializer_list>
 
 #include "hopper.cuh"
+#include "launch_once.cuh"
 
 namespace {
 
@@ -304,11 +305,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
            int H, int K, int D, float scale, float softcap, int window,
            int smem, cudaStream_t stream) {
   auto kern = flash_attention_kernel<NJ>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  if (const int e = launch_once::allow_smem(
+          reinterpret_cast<const void*>(kern), smem))
+    return e;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
@@ -667,9 +666,9 @@ int launch(const CUtensorMap* maps, int B, int S, int H, int K, int ksteps,
            int stages, int smem, float scale, float softcap, int window,
            cudaStream_t stream) {
   auto kern = flash_attention_wgmma<NC, PN>;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (const int e = launch_once::allow_smem(
+          reinterpret_cast<const void*>(kern), smem))
+    return e;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   kern<<<grid, THREADS, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], S,
                                         H, K, ksteps, stages, scale, softcap,

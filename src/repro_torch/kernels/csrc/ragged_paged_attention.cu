@@ -889,11 +889,9 @@ int launch_tc(const void* q, const void* k_pool, const void* v_pool,
       tc::smem_layout(D, tc::key_tile(DMAX), span, bs, QUANT).total;
   int e = allow_smem(kern, smem);
   if (e) return e;
-  int dev = 0, sms = 0, occ = 0;
-  if ((e = cudaGetDevice(&dev)) ||
-      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) ||
-      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern,
-                                                         tc::THREADS, smem)))
+  int resident = 0;
+  if ((e = launch_once::resident_ctas(reinterpret_cast<const void*>(kern),
+                                      tc::THREADS, smem, &resident)))
     return e;
   if ((e = cudaMemsetAsync(plan, 0, 2 * sizeof(int), stream))) return e;
   const int* rows = static_cast<const int*>(row_ids);
@@ -904,8 +902,7 @@ int launch_tc(const void* q, const void* k_pool, const void* v_pool,
                                            n_span, tc::ROWS / G);
   if ((e = cudaGetLastError())) return e;
   const long long items = static_cast<long long>(T) * K * n_span;
-  const int grid = static_cast<int>(
-      std::min<long long>(items, static_cast<long long>(sms) * std::max(occ, 1)));
+  const int grid = static_cast<int>(std::min<long long>(items, resident));
   kern<<<grid, tc::THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const KVT*>(k_pool),
       static_cast<const KVT*>(v_pool), static_cast<const float*>(k_scale),

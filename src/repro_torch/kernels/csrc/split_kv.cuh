@@ -78,6 +78,8 @@
 
 #include <type_traits>
 
+#include "launch_once.cuh"
+
 namespace split_kv {
 
 constexpr float NEG_INF = -1e30f;
@@ -569,13 +571,11 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
   return __float2bfloat16(x);  // round to nearest even, as torch casts
 }
 
-// Sets the dynamic shared memory limit of `kern` once it needs over 48 KB.
+// Sets the dynamic shared memory limit of `kern` once it needs over 48 KB
+// (once per process and size: launch_once.cuh).
 template <typename Kern>
 int allow_smem(Kern kern, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes)));
+  return launch_once::allow_smem(reinterpret_cast<const void*>(kern), bytes);
 }
 
 }  // namespace split_kv

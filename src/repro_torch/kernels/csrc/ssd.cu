@@ -72,6 +72,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "launch_once.cuh"
 
 namespace {
 
@@ -346,12 +347,9 @@ int launch_fma(const float* x, const float* dt, const float* A, const float* Bm,
                cudaStream_t stream) {
   const int Qp = (Q + TILE - 1) / TILE * TILE;
   const size_t smem = smem_floats(N, Qp) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ssd_fma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  if (const int e = launch_once::allow_smem(
+          reinterpret_cast<const void*>(ssd_fma_kernel), smem))
+    return e;
   ssd_fma_kernel<<<dim3(H, Bsz), THREADS, smem, stream>>>(
       x, dt, A, Bm, Cm, D, h0, y, h_final, S, H, P, N, Q, Qp);
   return static_cast<int>(cudaGetLastError());
@@ -988,10 +986,7 @@ bool aligned16(const void* p) {
 
 template <typename Kernel>
 int set_smem(Kernel* kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes)));
+  return launch_once::allow_smem(reinterpret_cast<const void*>(kernel), bytes);
 }
 
 int launch(const bf16* x, const float* dt, const float* A, const bf16* Bm,

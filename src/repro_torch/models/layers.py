@@ -42,8 +42,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     d = x.shape[-1]
     half = d // 2
     exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                  device=x.device), exps)
+    # the base is a CPU scalar: a device tensor built from a Python number
+    # is a blocking upload, which a CUDA graph capture cannot hold
+    freq = torch.pow(torch.tensor(theta, dtype=torch.float32), exps)
     angles = positions[..., :, None, None].float() * freq    # (...,S,1,half)
     sin, cos = torch.sin(angles), torch.cos(angles)
     x1, x2 = x[..., :half], x[..., half:]
@@ -64,7 +65,7 @@ def embed_lookup(params: dict, tokens: torch.Tensor, *, scale: bool,
                  d: int) -> torch.Tensor:
     x = params["table"][tokens]
     if scale:
-        x = x * torch.tensor(np.sqrt(d), dtype=x.dtype, device=x.device)
+        x = x * torch.tensor(np.sqrt(d), dtype=x.dtype)    # a CPU scalar
     return x
 
 

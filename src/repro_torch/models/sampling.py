@@ -15,7 +15,11 @@ greedy decoding.  ``torch.argmax`` takes the first maximum, as
 
 Sampling draws from a ``torch.Generator`` seeded with the dispatch's seed
 (Gumbel-max for categorical draws).  The JAX and torch generators differ,
-so sampled streams match the reference in distribution only.
+so sampled streams match the reference in distribution only.  ``seed`` is
+an int, from which a fresh generator is made, or a generator the caller has
+just seeded with ``manual_seed``, which draws the same numbers: the engine
+reseeds one generator per dispatch, which a CUDA graph can hold (it reads
+the generator's seed and offset at each replay).
 """
 from __future__ import annotations
 
@@ -24,7 +28,9 @@ import torch
 NEG_INF = -1e30
 
 
-def _generator(seed: int, device) -> torch.Generator:
+def _generator(seed: int | torch.Generator, device) -> torch.Generator:
+    if isinstance(seed, torch.Generator):
+        return seed
     return torch.Generator(device=device).manual_seed(int(seed))
 
 
@@ -41,7 +47,8 @@ def _scores(logp: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return torch.stack([tok_logp, ent], dim=-1)
 
 
-def sample_with_scores(logits: torch.Tensor, seed: int, temperature: float
+def sample_with_scores(logits: torch.Tensor, seed: int | torch.Generator,
+                       temperature: float
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Sample + score one token per row.  logits (B, V); returns
     (tokens (B,) int32, scores (B, 2))."""
@@ -56,7 +63,8 @@ def sample_with_scores(logits: torch.Tensor, seed: int, temperature: float
 
 
 def speculative_verify(logits: torch.Tensor, draft_tokens: torch.Tensor,
-                       draft_len: torch.Tensor, seed: int, temperature: float
+                       draft_len: torch.Tensor, seed: int | torch.Generator,
+                       temperature: float
                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Rejection-sampling acceptance over a row's verified draft positions.
 

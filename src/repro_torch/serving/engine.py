@@ -20,8 +20,7 @@ K1, the ragged paged-attention kernel, at every layer — followed by
 - **In-place pool**: the step writes K/V into the device pool in place (the
   JAX engine donates the pool to its jitted step instead).
 - **Fixed shapes**: the packed batch is always ``token_budget`` lanes and
-  the block-table operand always (n_slots, max_blocks), ready for a CUDA
-  graph capture of the step (a later change; eager today).
+  the block-table operand always (n_slots, max_blocks).
 
 **Dense mode** (``paged=False``; the default for the SSM and hybrid
 configs): each tick first admits waiting requests in contiguous groups of
@@ -32,6 +31,23 @@ layers) masked to the live ones: an inactive slot keeps its last token.
 Every dispatch is followed by one host pull, so ``stats.host_syncs ==
 stats.decode_ticks + stats.prefill_batches``.
 
+**CUDA graphs** (``cuda_graphs``; on by default on the card): the paged
+mixed tick and the dense decode tick are each captured ONCE per engine and
+replayed after that, the port's counterpart of the JAX engine's tick jitted
+once per engine.  Each tick kind runs its first call eagerly (it loads the
+kernels and sizes their workspaces), captures at its second and replays that
+capture at once (a capture runs nothing), and replays at every later call;
+no warm-up runs a tick twice, since a tick writes the pool or the caches in
+place.  Every input reaches the device through one staging buffer that is
+never rebound: the host packs into pinned memory and uploads it with one
+non-blocking copy (the staging is written again only after the tick's one
+sync), and the tick writes its outputs into one static int32 buffer that
+``_to_host`` pulls.  Sampling reseeds one engine generator per dispatch,
+which the graph reads at each replay.  Dense prefills (one shape per prompt
+length, as the JAX engine's prefill recompiles per shape) and ``forward``
+stay eager.  ``cuda_graphs=False`` keeps every tick eager (the comparison
+the on-card smoke test makes); a capture that fails raises.
+
 Speculative decoding (``spec_k > 0``, paged only), prefix reuse with
 same-tick sharing, deadlines and the request lifecycle follow the reference
 exactly, so the greedy streams and every counter match the JAX engine's.
@@ -41,6 +57,7 @@ engine raises when there is none; tests pass ``device="cpu"``.
 """
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable
@@ -48,6 +65,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch.kernels.decode_attention.quant import (is_quantized,
                                                         resolve_kv_dtype)
 from repro_torch.models import (decode_step, layer_specs, paged_mixed_step,
@@ -86,6 +104,10 @@ class EngineStats:
     preemptions: int = 0           # preemption joins with its own slice
     spilled_blocks: int = 0
     resumes: int = 0
+    graph_captures: int = 0        # ticks captured as a CUDA graph
+    graph_replays: int = 0         # ticks that replayed a captured graph
+    graph_capture_s: float = 0.0   # host time of the captures (instantiation
+                                   # included; the first replay excluded)
     ttft_s: list = field(default_factory=list)     # time to first token
     tpot_s: list = field(default_factory=list)     # time per output token
     queue_wait_s: dict = field(default_factory=dict)   # slo -> [seconds]
@@ -99,6 +121,126 @@ class EngineStats:
 def _later(what: str, slice_: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet: it comes with the "
                                f"{slice_} slice of the port (see ROADMAP.md)")
+
+
+def _flatten(tensors, out: torch.Tensor | None = None) -> torch.Tensor:
+    """Every tensor (4-byte dtypes) bit-cast to int32 and concatenated on
+    the device, into ``out`` when given."""
+    return torch.cat([t.reshape(-1).view(torch.int32) for t in tensors],
+                     out=out)
+
+
+def _layout(tensors) -> list[tuple[tuple[int, ...], type]]:
+    """The (shape, numpy dtype) pairs ``_to_host`` splits ``tensors``
+    into."""
+    return [(tuple(t.shape),
+             np.float32 if t.dtype == torch.float32 else np.int32)
+            for t in tensors]
+
+
+class _Staging:
+    """The int32 inputs of one tick kind: named views into one host buffer
+    (pinned on the card) and one device buffer of the same layout, each
+    view 16-byte aligned.  The host packs into ``host``; ``upload`` is one
+    non-blocking copy; the tick reads ``dev``, whose storage never moves."""
+
+    def __init__(self, shapes: dict[str, tuple[int, ...]], device) -> None:
+        offsets, n = {}, 0
+        for name, shape in shapes.items():
+            offsets[name] = n
+            n += -(-math.prod(shape) // 4) * 4
+        self._host = torch.zeros(n, dtype=torch.int32,
+                                 pin_memory=device.type == "cuda")
+        self._dev = torch.zeros(n, dtype=torch.int32, device=device)
+        flat = self._host.numpy()
+        self.host = {k: flat[o:o + math.prod(shapes[k])].reshape(shapes[k])
+                     for k, o in offsets.items()}
+        self.dev = {k: self._dev[o:o + math.prod(shapes[k])].view(shapes[k])
+                    for k, o in offsets.items()}
+
+    def upload(self) -> None:
+        self._dev.copy_(self._host, non_blocking=True)
+
+
+# one capture stream a device, shared by every engine: cuBLAS keeps a
+# workspace for each stream it has run on, for the life of the process
+_side_streams: dict[torch.device, torch.cuda.Stream] = {}
+
+
+class _GraphTick:
+    """Runs one kind of engine tick: ``step`` is a function of the engine's
+    static buffers alone (inputs, params, pool or caches, outputs).
+
+    Eager (``capture=False``): every call runs ``step``.  Captured: the first
+    call runs ``step`` eagerly on a side stream (it loads the kernels, sizes
+    their workspaces and readies that stream's cuBLAS state), the second
+    captures it on that stream and replays the graph once, and every later
+    call replays it.  ``step`` is passed at every call, and only kept inside
+    the graph, so the engine and its ticks hold no reference cycle and
+    deleting the engine frees the graph and its memory pool at once.
+
+    The capture runs inside ``kernels.holding()``: the graph keeps the
+    workspaces its kernels point into alive for as long as it lives.  The
+    wrappers' launch counters moved at the capture although nothing ran, so
+    the capture's counts are taken back and each replay adds them.  A
+    ``generator`` the step draws from is registered with the graph, which
+    then reads its seed and offset at each replay: the caller reseeds it
+    before every call, captured or not."""
+
+    def __init__(self, device, stats: EngineStats, *, capture: bool,
+                 generator: torch.Generator | None) -> None:
+        self.capture = capture
+        self.stats = stats
+        self.generator = generator
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.calls = 0
+        self._held: list[torch.Tensor] = []
+        self._launches: dict[str, int] = {}
+        if capture:
+            if device not in _side_streams:
+                _side_streams[device] = torch.cuda.Stream(device)
+            self.stream = _side_streams[device]
+
+    def __call__(self, step: Callable[[], None]) -> None:
+        self.calls += 1
+        if self.graph is None and not self.capture:
+            step()
+            return
+        if self.graph is None:
+            cur = torch.cuda.current_stream(self.stream.device)
+            self.stream.wait_stream(cur)
+            if self.calls == 1:
+                with torch.cuda.stream(self.stream):
+                    step()
+                cur.wait_stream(self.stream)
+                return
+            self._capture(step)
+            cur.wait_stream(self.stream)
+        self.graph.replay()
+        kernels.add_launches(self._launches)
+        self.stats.graph_replays += 1
+
+    def _capture(self, step: Callable[[], None]) -> None:
+        t0 = time.monotonic()
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        before = kernels.launch_counts()
+        # not torch.cuda.graph(): it also empties the allocator's cache,
+        # which would send every later tick's eager allocations back to
+        # cudaMalloc in the middle of serving
+        with kernels.holding() as held, torch.cuda.stream(self.stream):
+            graph.capture_begin()
+            try:
+                step()
+            finally:
+                graph.capture_end()
+        after = kernels.launch_counts()
+        self._launches = {k: after[k] - before[k] for k in after}
+        kernels.add_launches({k: -n for k, n in self._launches.items()})
+        self.graph, self._held = graph, held
+        self.stats.graph_captures += 1
+        self.stats.graph_capture_s += time.monotonic() - t0
 
 
 class ServeEngine:
@@ -116,7 +258,8 @@ class ServeEngine:
                  draft_source: DraftSource | None = None,
                  spill_pool=None,
                  preempt: bool = False,
-                 mesh=None, device="cuda") -> None:
+                 mesh=None, device="cuda",
+                 cuda_graphs: bool | None = None) -> None:
         if "attn_moe" in {s.kind for s in layer_specs(cfg)}:
             raise _later(f"MoE layers (config {cfg.name})", "MoE")
         if cfg.input_mode != "tokens":
@@ -142,6 +285,12 @@ class ServeEngine:
             raise RuntimeError("ServeEngine runs on the card (device='cuda') "
                                "but CUDA is not available; pass device='cpu' "
                                "to run the plain-PyTorch path")
+        if cuda_graphs is None:
+            cuda_graphs = self.device.type == "cuda"
+        elif cuda_graphs and self.device.type != "cuda":
+            raise ValueError(f"cuda_graphs=True captures CUDA graphs, but the "
+                             f"engine runs on {self.device}")
+        self.cuda_graphs = bool(cuda_graphs)
         table = params["embed"]["table"]
         if table.device.type != self.device.type:
             raise ValueError(f"params live on {table.device}, the engine on "
@@ -192,14 +341,36 @@ class ServeEngine:
         if self.paged:
             # host-side last emitted token per slot: the tick packs on host
             self._last_host = np.zeros((n_slots,), np.int64)
+            K, T, R = self.spec_k, self.token_budget, n_slots
+            self._stage = _Staging(
+                {"toks": (T,), "pos": (T,), "rows": (T,),
+                 "sample_idx": (R, K + 1), "draft_toks": (R, K),
+                 "draft_len": (R,), "bt": (R, self.cm.max_blocks)},
+                self.device)
+            # tokens (R, K+1), n_accept (R,), scores (R, K+1, 2)
+            self._out_layout = [((R, K + 1), np.int32), ((R,), np.int32),
+                                ((R, K + 1, 2), np.float32)]
         else:
             # the dense tick feeds the last tokens back on the device
             self._last_tokens = torch.zeros((n_slots,), dtype=torch.int32,
                                             device=self.device)
-        # one fresh sampling seed per dispatch, offset by replica
+            self._stage = _Staging({"pos": (n_slots, 1),
+                                    "active": (n_slots,)}, self.device)
+            # tokens (R,), scores (R, 2)
+            self._out_layout = [((n_slots,), np.int32),
+                                ((n_slots, 2), np.float32)]
+        self._out = torch.zeros(
+            sum(math.prod(shape) for shape, _ in self._out_layout),
+            dtype=torch.int32, device=self.device)
+        # one fresh sampling seed per dispatch, offset by replica, set on
+        # the engine's one generator
         self._seed_base = (seed_offset if seed_offset is not None
                            else replica_id) * 1_000_003
         self._dispatches = 0
+        self._gen = torch.Generator(device=self.device)
+        self._tick_runner = _GraphTick(
+            self.device, self.stats, capture=self.cuda_graphs,
+            generator=self._gen if temperature > 0 else None)
 
     # ------------------------------------------------------------- client
     def submit(self, req: Request) -> None:
@@ -270,25 +441,31 @@ class ServeEngine:
                 self._deadline_error(req, "decode")
 
     # ------------------------------------------------------------- engine
-    def _next_seed(self) -> int:
+    def _next_seed(self) -> torch.Generator:
+        """The engine's generator, seeded for the next dispatch."""
         self._dispatches += 1
-        return self._seed_base + self._dispatches
+        return self._gen.manual_seed(self._seed_base + self._dispatches)
 
-    def _to_host(self, tensors: tuple[torch.Tensor, ...]) -> list[np.ndarray]:
-        """THE device→host sync point: every tensor (4-byte dtypes) is
-        bit-cast to int32, concatenated on the device and pulled in ONE
-        ``.cpu()``, then split back into numpy arrays of the original
-        shapes and dtypes."""
+    def _to_host(self, flat: torch.Tensor, layout) -> list[np.ndarray]:
+        """THE device→host sync point: ``flat`` (int32, from ``_flatten``)
+        is pulled in ONE ``.cpu()``, then split into numpy arrays of
+        ``layout``'s (shape, dtype) pairs."""
         self.stats.host_syncs += 1
-        flat = torch.cat([t.reshape(-1).view(torch.int32) for t in tensors])
         host = flat.cpu().numpy()
         out, i = [], 0
-        for t in tensors:
-            n = t.numel()
-            dt = np.float32 if t.dtype == torch.float32 else np.int32
-            out.append(host[i:i + n].view(dt).reshape(tuple(t.shape)))
+        for shape, dt in layout:
+            n = math.prod(shape)
+            out.append(host[i:i + n].view(dt).reshape(shape))
             i += n
         return out
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device, through pinned memory and
+        a non-blocking copy on the card (no host sync)."""
+        t = torch.from_numpy(a)
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     @staticmethod
     def _norm_prompt(prompt) -> np.ndarray:
@@ -372,14 +549,15 @@ class ServeEngine:
         dev = self.device
         for shape, group in groups:
             S = shape[0]
-            prompts = torch.from_numpy(np.stack([p for _, p in group])).to(dev)
+            prompts = self._upload(np.stack([p for _, p in group]))
             pos = torch.arange(S, dtype=torch.int32, device=dev).repeat(
                 len(group), 1)
             logits, group_caches = prefill(self.params, prompts, pos,
                                            self.cfg, max_len=self.cm.max_len)
-            toks, scores = sample_with_scores(logits, self._next_seed(),
-                                              self.temperature)
-            host_toks, host_scores = self._to_host((toks, scores))
+            out = sample_with_scores(logits, self._next_seed(),
+                                     self.temperature)
+            host_toks, host_scores = self._to_host(_flatten(out),
+                                                   _layout(out))
             self.stats.prefill_batches += 1           # one sync per group
             now = time.monotonic()
             for row, (req, p) in enumerate(group):
@@ -393,10 +571,23 @@ class ServeEngine:
 
     def _finish_admission(self, req: Request, slot: int, tok: int,
                           now: float, score) -> None:
-        self._last_tokens[slot] = tok
+        self._last_tokens[slot].fill_(tok)    # a kernel: no upload, no sync
         self._emit_first_token(req, slot, tok, now, score)
 
     # --------------------------------------------------- dense decode tick
+    def _dense_step(self) -> None:
+        """The dense tick's device work, from the static buffers alone:
+        decode every slot, sample, keep an inactive slot's last token, and
+        write tokens + scores into ``_out``."""
+        ins = self._stage.dev
+        logits, _ = decode_step(self.params, self.cm.caches,
+                                self._last_tokens, ins["pos"], self.cfg)
+        sampled, scores = sample_with_scores(logits, self._gen,
+                                             self.temperature)
+        self._last_tokens.copy_(torch.where(ins["active"] != 0, sampled,
+                                            self._last_tokens))
+        _flatten((self._last_tokens, scores), out=self._out)
+
     def _tick_dense(self) -> int:
         """Admit, then decode every slot in one dispatch masked to the live
         ones (an inactive slot keeps its last token), then one host pull."""
@@ -405,17 +596,13 @@ class ServeEngine:
             self.stats.ticks += 1
             return 0
         t0 = time.monotonic()
-        dev = self.device
-        positions = torch.from_numpy(self.cm.positions()[:, None]).to(dev)
-        active = torch.from_numpy(self.cm.active_mask()).to(dev)
-        logits, _ = decode_step(self.params, self.cm.caches,
-                                self._last_tokens, positions, self.cfg)
-        sampled, step_scores = sample_with_scores(logits, self._next_seed(),
-                                                  self.temperature)
-        new_toks = torch.where(active, sampled, self._last_tokens)
-        self._last_tokens = new_toks
+        self._stage.host["pos"][:, 0] = self.cm.positions()
+        self._stage.host["active"][:] = self.cm.active_mask()
+        self._stage.upload()
+        self._next_seed()
+        self._tick_runner(self._dense_step)
         # the ONE sync of this tick: tokens + scores in one pull
-        host_toks, host_scores = self._to_host((new_toks, step_scores))
+        host_toks, host_scores = self._to_host(self._out, self._out_layout)
         self.cm.advance()
         dt = time.monotonic() - t0
         done = []
@@ -538,30 +725,31 @@ class ServeEngine:
                 lanes_left -= len(valid)
         return plans
 
-    def _dispatch(self, bt, toks, pos, rows, sample_idx, draft_toks,
-                  draft_len):
-        """The tick's device work: upload the packed batch, run the model
-        (K1 at every layer, pools updated in place) and the acceptance
-        rule.  Returns device tensors (tokens, n_accept, scores)."""
-        dev = self.device
-        up = lambda a: torch.from_numpy(a).to(dev)
-        logits = paged_mixed_step(self.params, self.cm.pools, up(bt), up(toks),
-                                  up(pos), up(rows), up(sample_idx), self.cfg)
-        return speculative_verify(logits, up(draft_toks), up(draft_len),
-                                  self._next_seed(), self.temperature)
+    def _mixed_step(self) -> None:
+        """The paged tick's device work, from the static buffers alone: the
+        model over the packed batch (K1 at every layer, pools updated in
+        place) and the acceptance rule, writing tokens, n_accept and scores
+        into ``_out``."""
+        ins = self._stage.dev
+        logits = paged_mixed_step(self.params, self.cm.pools, ins["bt"],
+                                  ins["toks"], ins["pos"], ins["rows"],
+                                  ins["sample_idx"], self.cfg)
+        _flatten(speculative_verify(logits, ins["draft_toks"],
+                                    ins["draft_len"], self._gen,
+                                    self.temperature), out=self._out)
 
     def _tick_mixed(self) -> int:
         """ONE fixed-shape mixed step: decode rows (each with up to spec_k
         verified draft tokens) + prefill chunks packed against the token
         budget, one dispatch, one host sync."""
         T = self.token_budget
-        K = self.spec_k
-        toks = np.zeros(T, np.int32)
-        pos = np.full(T, -1, np.int32)
-        rows = np.full(T, -1, np.int32)
-        sample_idx = np.zeros((self.cm.n_slots, K + 1), np.int32)
-        draft_toks = np.zeros((self.cm.n_slots, K), np.int32)
-        draft_len = np.zeros(self.cm.n_slots, np.int32)
+        host = self._stage.host
+        toks, pos, rows = host["toks"], host["pos"], host["rows"]
+        sample_idx, draft_toks, draft_len = (
+            host["sample_idx"], host["draft_toks"], host["draft_len"])
+        for a, fill in ((toks, 0), (pos, -1), (rows, -1), (sample_idx, 0),
+                        (draft_toks, 0), (draft_len, 0)):
+            a.fill(fill)
         finished: list[int] = []
         n = 0
         decode_slots = list(self.live.keys())
@@ -602,14 +790,15 @@ class ServeEngine:
         if n == 0:
             return 0          # idle: nothing dispatched, not a tick
         t0 = time.monotonic()
-        sampled, n_acc, scores = self._dispatch(
-            self.cm.block_tables(), toks, pos, rows, sample_idx, draft_toks,
-            draft_len)
+        self.cm.block_tables(out=host["bt"])
+        self._stage.upload()
+        self._next_seed()
+        self._tick_runner(self._mixed_step)
         self.cm.publish()
         self.stats.blocks_in_use = self.cm.blocks_in_use
         # the ONE sync of this tick
-        host_toks, host_acc, host_scores = self._to_host(
-            (sampled, n_acc, scores))
+        host_toks, host_acc, host_scores = self._to_host(self._out,
+                                                         self._out_layout)
         dt = time.monotonic() - t0
         now = time.monotonic()
         n_emitted = 0

@@ -463,10 +463,15 @@ class PagedCacheManager:
         self.alloc.unref(tail)
         return len(tail)
 
-    def block_tables(self) -> np.ndarray:
+    def block_tables(self, out: np.ndarray | None = None) -> np.ndarray:
         """(n_slots, max_blocks) int32 table, -1 = unused (inactive rows
-        are all -1)."""
-        bt = np.full((self.n_slots, self.max_blocks), -1, np.int32)
+        are all -1), written into ``out`` when given (the engine's staging
+        buffer, so the device operand is never rebound)."""
+        if out is None:
+            bt = np.full((self.n_slots, self.max_blocks), -1, np.int32)
+        else:
+            bt = out
+            bt.fill(-1)
         for r, seq in enumerate(self.slots):
             bt[r, :len(seq.table)] = seq.table
         return bt
