@@ -128,14 +128,44 @@ on the first phase that fails (exit code != 0):
                   model under torch.profiler, captured and eagerly (K3's
                   and K4's launches counted in the trace too), and its
                   ``graphs`` line.
-12. score       — ``forward`` at full width and full depth, bf16, seeded
+12. preempt     — gemma2-9b at full width and depth, bf16, captured ticks,
+                  8 slots, 512-token budget, prefix cache off: six batch
+                  requests (900-token prompts, 64 greedy tokens) ticked
+                  until each decodes, then one interactive request (1,500
+                  tokens, 32), four ways: (a) 1,024 blocks, no pressure;
+                  (b) 400 blocks with ``preempt=True`` and a SpillPool
+                  backed by a host CascadeStore pool ``/spill/gemma2-9b``
+                  (victims resume by ``adopt``); (c) 400 blocks with a
+                  standalone SpillPool of 32 blocks, which refuses every
+                  park (victims replay); (d) 400 blocks without
+                  preemption.  Every stream of (b), (c) and (d) equals
+                  (a)'s; (b) preempts and resumes at least twice, each
+                  resume an adoption; (c) resumes none; host_syncs ==
+                  ticks + spill_syncs; K1 launches == ticks x 42; the
+                  allocator drains exactly; no pool leaf is rebound; all
+                  under the sync check.  Prints the interactive TTFT of
+                  each run and every spill's and adoption's bytes, ms and
+                  GB/s.
+13. failover_and_steps — engine A serves the six batch requests; a seeded
+                  FaultInjector crashes it at a tick entry once they
+                  decode; ``evacuate(spill_kv=True)`` and ``adopt`` on
+                  engine B (same params, its own pool): the streams equal
+                  (a)'s, A keeps host_syncs == ticks + spill_syncs and B
+                  host_syncs == ticks.  Then ``paged_prefill`` of four
+                  1,000-token prompts and 16 ``paged_decode_step``s at full
+                  depth: K1 42 times a step, the first-token logits within
+                  2e-2 x scale of ``paged_mixed_step`` packing the same
+                  prompts as the engine does, K1's workspace bytes before
+                  and after; at f32 cut to 4 layers, the greedy streams
+                  equal the engine's.
+14. score       — ``forward`` at full width and full depth, bf16, seeded
                   random weights, B=1: gemma2-9b, gemma3-4b, h2o-danube-1.8b,
                   mamba2-1.3b and zamba2-2.7b at S=8192, h2o-danube-3-4b at
                   S=9216 (past its 8192 window); finite f32 logits of shape
                   (1, S, V), K2 launches == attention layers and K3 launches
                   == mamba layers per forward; wall time, tokens/s, peak
                   memory.
-13. score_trace — one gemma2-9b score forward under torch.profiler
+15. score_trace — one gemma2-9b score forward under torch.profiler
                   (informational).
 
 It prints one JSON line per phase, then the card's name and power limit as
@@ -1692,6 +1722,446 @@ def serve_dense_phase(dev, smi: str) -> dict:
     return runs
 
 
+# ============================================================ preempt
+# gemma2-9b at full depth under block pressure: six batch requests (900
+# prompt tokens, 64 new: 61 blocks each at most) fill a tight pool of 400
+# blocks; then an interactive request (1,500 tokens, 32 new: 96 blocks)
+# arrives, which cannot issue until two of them are evicted
+PREEMPT_BLOCKS = 400
+PREEMPT_SPILL_CAP = 256          # blocks the store-backed pool may park
+PREEMPT_REFUSING_CAP = 32        # below one victim: every park refused
+STEPS_B, STEPS_S, STEPS_NEW = 4, 1000, 16
+
+
+def preempt_batch(vocab: int):
+    from repro_torch.serving.scheduler import SLO_BATCH, Request
+
+    rng = np.random.default_rng(11)
+    return [Request(request_id=f"b{i}", session_key=f"b{i}",
+                    prompt=rng.integers(0, vocab, 900).astype(np.int32),
+                    max_new_tokens=64, slo=SLO_BATCH) for i in range(6)]
+
+
+def preempt_interactive(vocab: int):
+    """Made when it is submitted: its TTFT counts from then."""
+    from repro_torch.serving.scheduler import SLO_INTERACTIVE, Request
+
+    rng = np.random.default_rng(12)
+    return Request(request_id="i0", session_key="i0",
+                   prompt=rng.integers(0, vocab, 1500).astype(np.int32),
+                   max_new_tokens=32, slo=SLO_INTERACTIVE)
+
+
+def tick_until_live(eng, n: int, max_ticks: int = 200) -> None:
+    """Tick until ``n`` requests decode, each with a token out."""
+    for _ in range(max_ticks):
+        if len(eng.live) == n and all(r.tokens for r in eng.live.values()):
+            return
+        eng.tick()
+    raise TimeoutError(f"{n} requests never went live")
+
+
+@contextlib.contextmanager
+def timed_moves(eng):
+    """Inside the block, time each of the engine's ``spill`` and ``adopt``
+    calls (its preemption, resume and failover paths make them): a spill
+    by the host clock (it ends in the engine's one pull, so the clock
+    covers the gather and the copy), an adoption by CUDA events around the
+    call (the host's packing, the non-blocking upload and the scatter, in
+    stream order; read them with ``adopt_times`` after a synchronize).
+    Yields the two lists it fills."""
+    spills, adopts = [], []
+    spill, adopt = eng.spill, eng.adopt
+
+    def timed_spill(slot):
+        t0 = time.perf_counter()
+        out = spill(slot)
+        dt = time.perf_counter() - t0
+        if out is not None:
+            spills.append({"request": out.request_id, "blocks": out.n_blocks,
+                           "nbytes": out.nbytes, "ms": dt * 1e3,
+                           "gb_per_s": out.nbytes / dt / 1e9})
+        return out
+
+    def timed_adopt(req, spilled):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        s.record()
+        ok = adopt(req, spilled)
+        e.record()
+        adopts.append((req.request_id, spilled.n_blocks if spilled else 0,
+                       spilled.nbytes if spilled else 0, ok, s, e,
+                       time.perf_counter() - t0))
+        return ok
+
+    eng.spill, eng.adopt = timed_spill, timed_adopt
+    try:
+        yield spills, adopts
+    finally:
+        del eng.spill, eng.adopt
+
+
+def adopt_times(adopts) -> list[dict]:
+    """``timed_moves``'s adoptions, their events read (after a
+    synchronize)."""
+    return [{"request": rid, "adopted": ok, "blocks": n_blocks,
+             "nbytes": nbytes, "ms": s.elapsed_time(e), "host_ms": host * 1e3,
+             "gb_per_s": (nbytes / (s.elapsed_time(e) * 1e-3) / 1e9
+                          if nbytes else None)}
+            for rid, n_blocks, nbytes, ok, s, e, host in adopts]
+
+
+def assert_drained_exactly(eng) -> None:
+    """``tests/test_preempt_resume.py:_assert_drained_exactly``: with the
+    prefix cache off a drained pool holds nothing, every slot is free and
+    the free list holds each block once (a double free would repeat one)."""
+    alloc = eng.cm.alloc
+    assert alloc.blocks_in_use == 0
+    assert all(not s.active for s in eng.cm.slots)
+    assert len(alloc.free) == len(set(alloc.free)) == eng.cm.num_blocks - 1
+    assert eng.cm.available_for_admission() == alloc.available()
+
+
+def pool_ptrs(eng) -> list[int]:
+    return [t.data_ptr() for pool in eng.cm.pools for t in pool.values()]
+
+
+def preempt_once(cfg, params, dev, *, num_blocks: int, preempt: bool,
+                 spill_pool=None) -> dict:
+    """The six batch requests until each decodes, then the interactive
+    one, all under the sync check; every pool leaf keeps its storage."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.serving.engine import ServeEngine
+
+    base = allocated_outside_workspaces()
+    eng = ServeEngine(cfg, params, n_slots=8, token_budget=512, max_len=8192,
+                      num_blocks=num_blocks, prefix_cache=False,
+                      preempt=preempt, spill_pool=spill_pool, device=dev)
+    done = {}
+    eng.on_complete = lambda r: done.setdefault(r.request_id, r)
+    ptrs = pool_ptrs(eng)
+    torch.cuda.synchronize()
+    ops.ragged_paged_attention.launches = 0
+    t0 = time.monotonic()
+    with timed_moves(eng) as (spills, adopts), syncs_forbidden(eng):
+        for r in preempt_batch(cfg.vocab_size):
+            eng.submit(r)
+        tick_until_live(eng, 6)
+        inter = preempt_interactive(cfg.vocab_size)
+        eng.submit(inter)
+        eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = ops.ragged_paged_attention.launches
+    adopts = adopt_times(adopts)
+    s = eng.stats
+    assert len(done) == 7 and all(r.error is None for r in done.values())
+    assert all(len(r.tokens) == r.max_new_tokens for r in done.values())
+    assert launches == s.ticks * cfg.n_layers, (launches, s.ticks)
+    assert s.host_syncs == s.ticks + s.spill_syncs, s
+    assert pool_ptrs(eng) == ptrs, "a pool leaf was rebound"
+    assert_drained_exactly(eng)
+    res = {"num_blocks": num_blocks, "preempt": preempt,
+           "spill_pool_blocks": getattr(spill_pool, "capacity_blocks", None),
+           "ticks": s.ticks, "host_syncs": s.host_syncs,
+           "spill_syncs": s.spill_syncs, "preemptions": s.preemptions,
+           "resumes": s.resumes, "adopted_sessions": s.adopted_sessions,
+           "spilled_blocks": s.spilled_blocks, "k1_launches": launches,
+           "graph_replays": s.graph_replays, "wall_s": wall,
+           "interactive_ttft_s": inter.first_token_s - inter.arrived_s,
+           "spills": spills, "adopts": adopts,
+           "streams": {rid: list(r.tokens) for rid, r in done.items()}}
+    ref = graph_ref(eng)
+    del eng
+    check_dropped(ref, base)
+    return res
+
+
+def store_retained_bytes(store) -> int:
+    """Payload bytes the store still holds in its version chains (a
+    tombstone is a new version; the parked one stays in the chain)."""
+    return sum(obj.nbytes() for w in store.workers.values()
+               for chain in w.volatile.values() for obj in chain)
+
+
+def preempt_phase(cfg, params, dev, smi: str) -> dict:
+    """The four runs of one call: (a) a baseline with 1,024 blocks and no
+    pressure; (b) the tight pool with preemption into a store-backed
+    ``SpillPool`` under ``/spill/<model>`` (victims resume by adoption);
+    (c) preemption into a standalone pool too small for any victim (every
+    park refused: victims replay); (d) the tight pool without preemption
+    (the interactive request waits)."""
+    from repro_torch.core.pools import PoolSpec
+    from repro_torch.core.store import CascadeStore, SpillPool, Worker
+
+    t0 = time.monotonic()
+    base = preempt_once(cfg, params, dev, num_blocks=1024, preempt=False)
+    assert base["preemptions"] == 0
+    prefix = f"/spill/{cfg.name}"
+    store = CascadeStore([Worker(0, n_upcall_threads=1)])
+    try:
+        store.create_pool(PoolSpec(path=prefix, replication=1))
+        pool = SpillPool(capacity_blocks=PREEMPT_SPILL_CAP, store=store,
+                         prefix=prefix)
+        parked = preempt_once(cfg, params, dev, num_blocks=PREEMPT_BLOCKS,
+                              preempt=True, spill_pool=pool)
+        retained = store_retained_bytes(store)
+        assert pool.blocks == 0 and pool.parked == pool.unparked
+    finally:
+        store.close()
+    del store, pool
+    refusing = SpillPool(capacity_blocks=PREEMPT_REFUSING_CAP)
+    replay = preempt_once(cfg, params, dev, num_blocks=PREEMPT_BLOCKS,
+                          preempt=True, spill_pool=refusing)
+    assert refusing.parked == 0 and refusing.blocks == 0
+    waited = preempt_once(cfg, params, dev, num_blocks=PREEMPT_BLOCKS,
+                          preempt=False)
+    for name, run in (("store", parked), ("replay", replay),
+                      ("no preemption", waited)):
+        assert run["streams"] == base["streams"], f"{name}: streams differ"
+    assert parked["preemptions"] >= 2 and parked["resumes"] >= 2
+    assert parked["adopted_sessions"] == parked["resumes"]
+    assert len(parked["spills"]) == parked["spill_syncs"] >= 2
+    assert replay["preemptions"] >= 2 and replay["resumes"] == 0
+    assert waited["preemptions"] == 0
+    runs = {"baseline": base, "preempt_store": parked,
+            "preempt_replay": replay, "no_preempt": waited}
+    res = {"phase": "preempt", "card": smi, "n_layers": cfg.n_layers,
+           "kv_dtype": "bfloat16", "cuda_graphs": True,
+           "store_retained_bytes": retained,
+           "seconds": time.monotonic() - t0,
+           "runs": {k: dict({m: v for m, v in r.items()
+                             if m not in ("streams", "spills", "adopts")},
+                            spill=moves_summary(r["spills"]),
+                            adopt=moves_summary(r["adopts"]))
+                    for k, r in runs.items()}}
+    emit(res)
+    # each victim's spills and adoptions, in order, on a line of their own
+    print(json.dumps({
+        "preempt_summary": smi,
+        "interactive_ttft_s": {k: r["interactive_ttft_s"]
+                               for k, r in runs.items()},
+        "spills": [[x["request"], x["nbytes"], x["ms"], x["gb_per_s"]]
+                   for x in parked["spills"]],
+        "adopts": [[x["request"], x["nbytes"], x["ms"], x["gb_per_s"]]
+                   for x in parked["adopts"] if x["adopted"]],
+        "k1_launches": {k: r["k1_launches"] for k, r in runs.items()}}),
+        flush=True)
+    return base
+
+
+def moves_summary(moves: list[dict]) -> dict:
+    """Count, bytes and the median / least / most ms and GB/s of spills or
+    adoptions."""
+    if not moves:
+        return {"n": 0}
+    ms = [x["ms"] for x in moves]
+    rate = [x["gb_per_s"] for x in moves if x["gb_per_s"] is not None]
+    return {"n": len(moves), "nbytes": sorted({x["nbytes"] for x in moves}),
+            "ms_median": statistics.median(ms), "ms_min": min(ms),
+            "ms_max": max(ms),
+            "gb_per_s_median": statistics.median(rate) if rate else None}
+
+
+def failover_phase(cfg, params, dev, want: dict) -> dict:
+    """Engine A serves the six batch requests; a seeded injector crashes it
+    at a tick entry once all six decode; ``evacuate(spill_kv=True)`` spills
+    them and engine B (the same params, its own pool) adopts each, then
+    serves them to the end.  The streams equal the uninterrupted run's."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.faults import (FaultInjector, FaultKind,
+                                            FaultSpec, ReplicaCrashed)
+
+    kw = dict(n_slots=8, token_budget=512, max_len=8192, num_blocks=512,
+              prefix_cache=False, device=dev)
+    a, b = ServeEngine(cfg, params, **kw), ServeEngine(cfg, params, **kw)
+    done = {}
+    for eng in (a, b):
+        eng.on_complete = lambda r: done.setdefault(r.request_id, r)
+    ops.ragged_paged_attention.launches = 0
+    with timed_moves(a) as (spills, _), syncs_forbidden(a):
+        for r in preempt_batch(cfg.vocab_size):
+            a.submit(r)
+        tick_until_live(a, 6)
+        inj = FaultInjector([FaultSpec(FaultKind.CRASH, at_tick=2)], seed=0)
+        a.faults = inj.bind(cfg.name, 0)
+        a.tick()
+        try:
+            a.tick()
+            raise AssertionError("the injected crash did not fire")
+        except ReplicaCrashed:
+            pass
+        queued, inflight = a.evacuate(spill_kv=True)
+    assert a.crashed and not queued and len(inflight) == 6
+    migrated = 0
+    with timed_moves(b) as (_, adopts), syncs_forbidden(b):
+        for req, spilled in inflight:
+            if spilled is not None and b.adopt(req, spilled):
+                migrated += 1
+                continue
+            req.fold_for_replay()
+            b.submit(req)
+        b.run_until_drained()
+    torch.cuda.synchronize()
+    launches = ops.ragged_paged_attention.launches
+    adopts = adopt_times(adopts)
+    del inflight
+    assert migrated == 6 == b.stats.adopted_sessions
+    assert {rid: list(r.tokens) for rid, r in done.items()} == want, \
+        "failover streams differ"
+    assert a.stats.host_syncs == a.stats.ticks + a.stats.spill_syncs
+    assert b.stats.host_syncs == b.stats.ticks
+    assert launches == (a.stats.ticks + b.stats.ticks) * cfg.n_layers
+    for eng in (a, b):
+        assert_drained_exactly(eng)
+    res = {"fired": inj.fired_log, "ticks_a": a.stats.ticks,
+           "ticks_b": b.stats.ticks, "spill_syncs_a": a.stats.spill_syncs,
+           "migrated": migrated, "k1_launches": launches,
+           "spill": moves_summary(spills), "adopt": moves_summary(adopts)}
+    del a, b
+    torch.cuda.empty_cache()
+    return res
+
+
+def workspace_bytes() -> int:
+    from repro_torch import kernels
+
+    return sum(b.numel() * b.element_size()
+               for b in kernels._workspaces.values())
+
+
+def step_streams(cfg, params, pools, bt, toks, new: int):
+    """``paged_prefill`` of the (B, S) prompts, then ``new`` greedy
+    ``paged_decode_step``s: the first-token logits and the B streams."""
+    from repro_torch.models import paged_decode_step, paged_prefill
+
+    B, S = toks.shape
+    pos = torch.arange(S, dtype=torch.int32, device=toks.device).repeat(B, 1)
+    first, _ = paged_prefill(params, pools, bt, toks, pos, cfg)
+    out = [first.argmax(-1)]
+    for i in range(new):
+        qpos = torch.full((B, 1), S + i, dtype=torch.int32, device=toks.device)
+        logits, _ = paged_decode_step(params, pools, bt, out[-1], qpos, cfg)
+        out.append(logits.argmax(-1))
+    return first, torch.stack(out, 1).tolist()
+
+
+def mixed_first_logits(cfg, params, pools, bt, toks, budget: int = 512):
+    """The same prompts through ``paged_mixed_step`` as the engine packs
+    them: consecutive ``budget``-lane ticks over the rows' prompt tokens in
+    order; each row's logits at its last prompt token."""
+    from repro_torch.models import paged_mixed_step
+
+    B, S = toks.shape
+    dev = toks.device
+    lanes = [(r, p) for r in range(B) for p in range(S)]
+    first = [None] * B
+    for lo in range(0, len(lanes), budget):
+        chunk = lanes[lo:lo + budget]
+        rows = torch.full((budget,), -1, dtype=torch.int32)
+        pos = torch.full((budget,), -1, dtype=torch.int32)
+        sample = torch.zeros(B, dtype=torch.int32)
+        for i, (r, p) in enumerate(chunk):
+            rows[i], pos[i] = r, p
+            if p == S - 1:
+                sample[r] = i
+        t = torch.zeros(budget, dtype=torch.int32, device=dev)
+        t[:len(chunk)] = toks.reshape(-1)[lo:lo + len(chunk)]
+        logits = paged_mixed_step(params, pools, bt, t, pos.to(dev),
+                                  rows.to(dev), sample.to(dev), cfg)
+        for r in {r for r, p in chunk if p == S - 1}:
+            first[r] = logits[r]
+    return torch.stack(first)
+
+
+def steps_check(cfg, params, dev) -> dict:
+    """``paged_prefill`` of four 1,000-token prompts, then 16
+    ``paged_decode_step``s, at full depth in bf16 with the engine's table
+    width (max_len 8192): K1 once a layer a step, and the first-token
+    logits within 2e-2 x scale of the engine's packed ticks (the ssm_check
+    rule).  Then the same at f32 cut to 4 layers, where the greedy streams
+    must equal the engine's."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.models import init_paged_pools
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.scheduler import Request
+
+    B, S, new, bs = STEPS_B, STEPS_S, STEPS_NEW, 16
+    per_row = -(-(S + new) // bs)
+    bt = torch.full((B, 8192 // bs), -1, dtype=torch.int32)
+    bt[:, :per_row] = torch.arange(1, 1 + B * per_row).reshape(B, per_row)
+    bt = bt.to(dev)
+    rng = np.random.default_rng(13)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
+                            .astype(np.int32)).to(dev)
+    ws0 = workspace_bytes()
+    pools = init_paged_pools(cfg, 1 + B * per_row, bs, device=dev)
+    torch.cuda.synchronize()
+    ops.ragged_paged_attention.launches = 0
+    t0 = time.monotonic()
+    first, streams = step_streams(cfg, params, pools, bt, toks, new)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = ops.ragged_paged_attention.launches
+    assert launches == (1 + new) * cfg.n_layers, launches
+    ws1 = workspace_bytes()
+    assert bool(torch.isfinite(first).all())
+    pools2 = init_paged_pools(cfg, 1 + B * per_row, bs, device=dev)
+    mixed = mixed_first_logits(cfg, params, pools2, bt, toks)
+    err = (first - mixed).abs().max().item()
+    scale = mixed.abs().max().item()
+    assert err <= 2e-2 * scale, (err, scale)
+    del pools, pools2
+
+    f32 = cfg.replace(n_layers=4, dtype="float32")
+    p32 = _seeded_params(f32, dev, 5)
+    pools = init_paged_pools(f32, 1 + B * per_row, bs, device=dev)
+    _, steps32 = step_streams(f32, p32, pools, bt, toks, new)
+    eng = ServeEngine(f32, p32, n_slots=8, token_budget=512, max_len=8192,
+                      num_blocks=1 + B * per_row, prefix_cache=False,
+                      device=dev)
+    done = {}
+    eng.on_complete = lambda r: done.setdefault(r.request_id, r.tokens)
+    for i in range(B):
+        eng.submit(Request(request_id=f"p{i}", session_key=f"p{i}",
+                           prompt=toks[i].cpu().numpy(),
+                           max_new_tokens=1 + new))
+    eng.run_until_drained()
+    assert [done[f"p{i}"] for i in range(B)] == steps32, \
+        "f32: the paged steps' streams differ from the engine's"
+    del eng, pools, p32
+    torch.cuda.empty_cache()
+    return {"B": B, "S": S, "decode_steps": new, "k1_launches": launches,
+            "k1_per_step": launches // (1 + new), "wall_s": wall,
+            "first_logits_max_abs_err": err, "logit_scale": scale,
+            "argmax_equal": bool(torch.equal(first.argmax(-1),
+                                             mixed.argmax(-1))),
+            "workspace_bytes_before": ws0, "workspace_bytes_after": ws1,
+            "f32_4_layers_streams_equal": True}
+
+
+def preempt_phases(dev, smi: str) -> dict:
+    """gemma2-9b at full width and depth, bf16, seeded weights: the
+    ``preempt`` phase, then ``failover_and_steps``."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config("gemma2-9b")
+    params = _seeded_params(cfg, dev, 0)
+    base = preempt_phase(cfg, params, dev, smi)
+    t0 = time.monotonic()
+    want = {rid: s for rid, s in base["streams"].items() if rid != "i0"}
+    res = {"phase": "failover_and_steps", "card": smi,
+           "failover": failover_phase(cfg, params, dev, want),
+           "steps": steps_check(cfg, params, dev)}
+    res["seconds"] = time.monotonic() - t0
+    emit(res)
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
 # ================================================================== score
 def _seeded_params(cfg, dev, seed):
     """Seeded random weights with N(0, 1/d) embedding rows, as the serve
@@ -1927,6 +2397,7 @@ def main() -> int:
     w1_phase(dev)
     main_run = serve_phase(dev, smi)
     dense = serve_dense_phase(dev, smi)
+    preempt_phases(dev, smi)
     scores = score_phase(dev, smi)
     rep = next(c for c in cases if c["kv_dtype"] == "bfloat16"
                and c["window"] is None and c["softcap"] == 50.0)

@@ -1,14 +1,17 @@
 from .config import LayerSpec, ModelConfig, Segment
 from .lm import (caches_from_numpy, caches_to_numpy, decode_step, forward,
                  init_decode_caches, init_paged_pools, init_params,
-                 layer_specs, paged_mixed_step, params_from_numpy,
-                 pools_from_numpy, pools_to_numpy, prefill, supports_paged,
-                 supports_speculative)
+                 layer_specs, paged_decode_step, paged_mixed_step,
+                 paged_prefill, params_from_numpy, pools_from_numpy,
+                 pools_to_numpy, prefill, spilled_from_numpy,
+                 spilled_to_numpy, supports_paged, supports_speculative)
 from .sampling import sample_with_scores, speculative_verify
 
 __all__ = ["LayerSpec", "ModelConfig", "Segment", "caches_from_numpy",
            "caches_to_numpy", "decode_step", "forward", "init_decode_caches",
            "init_paged_pools", "init_params", "layer_specs",
-           "paged_mixed_step", "params_from_numpy", "pools_from_numpy",
-           "pools_to_numpy", "prefill", "sample_with_scores",
-           "speculative_verify", "supports_paged", "supports_speculative"]
+           "paged_decode_step", "paged_mixed_step", "paged_prefill",
+           "params_from_numpy", "pools_from_numpy", "pools_to_numpy",
+           "prefill", "sample_with_scores", "speculative_verify",
+           "spilled_from_numpy", "spilled_to_numpy", "supports_paged",
+           "supports_speculative"]

@@ -13,7 +13,9 @@ RoPE, then one of
   (``kernels/decode_attention/ops.py::decode_attention``);
 - ``paged_attention``: the pool layout, quantize-on-write and the packed
   ragged write, then ragged paged attention through the K1 wrapper
-  (``kernels/decode_attention/ops.py::ragged_paged_attention``).
+  (``kernels/decode_attention/ops.py::ragged_paged_attention``), for one
+  packed row (the engine's tick) or a (B, T) batch (the phase-separated
+  paged prefill and decode steps).
 
 Each wrapper launches the hand-written CUDA kernel for CUDA tensors and runs
 its plain version for CPU tensors.
@@ -220,18 +222,39 @@ def prefill_cache(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
 def paged_attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
                     *, cfg: ModelConfig, spec: LayerSpec, pool: dict,
                     block_table: torch.Tensor,
-                    row_ids: torch.Tensor) -> torch.Tensor:
-    """Ragged-mode attention against the paged pool: x (T, d) is ONE packed
-    row of mixed prefill-chunk, decode and verify tokens; token t belongs to
-    request row ``row_ids[t]`` of ``block_table`` (-1 = pad lane).  Writes
-    all packed K/V into ``pool`` first, then every token attends causally at
-    its own position.  Returns (T, d)."""
-    T = x.shape[0]
+                    row_ids: torch.Tensor | None = None) -> torch.Tensor:
+    """Attention against the paged pool, through K1 in both modes.  Writes
+    the new tokens' K/V into ``pool`` first (in place), then every token
+    attends causally at its own position over everything its row's block
+    table maps, shared prefix blocks included.
+
+    Ragged mode (``row_ids`` given): x (T, d) is ONE packed row of mixed
+    prefill-chunk, decode and verify tokens; token t belongs to request row
+    ``row_ids[t]`` of ``block_table`` (-1 = pad lane).  Returns (T, d).
+
+    Batched mode (``row_ids`` None): x (B, T, d), positions (B, T), row b
+    on ``block_table`` row b.  A decode step (T = 1) is K1's one-token
+    packing (``ops.paged_decode_attention``); a suffix prefill (T > 1)
+    packs the B·T tokens as lanes of rows 0..B-1.  The JAX package runs
+    both through its XLA gather + masked softmax, which computes the same
+    function.  Returns (B, T, d)."""
+    lead = x.shape[:-1]
     q, k, v = _qkv(params, x, positions, cfg=cfg, spec=spec)
+    kw = dict(k_scale=pool.get("k_scale"), v_scale=pool.get("v_scale"),
+              window=spec.window, softcap=cfg.attn_logit_softcap,
+              scale=cfg.head_dim ** -0.5)
+    if row_ids is None:
+        B, T = lead
+        rows = torch.arange(B, dtype=torch.int32, device=x.device)
+        row_ids = rows.repeat_interleave(T)
+        q, k, v = (t.reshape(B * T, *t.shape[2:]) for t in (q, k, v))
+        positions = positions.reshape(B * T).to(torch.int32)
     _ragged_paged_write(pool, k, v, positions, block_table, row_ids)
-    out = da_ops.ragged_paged_attention(
-        q, pool["k"], pool["v"], block_table, row_ids, positions,
-        k_scale=pool.get("k_scale"), v_scale=pool.get("v_scale"),
-        window=spec.window, softcap=cfg.attn_logit_softcap,
-        scale=cfg.head_dim ** -0.5)
-    return out.reshape(T, -1) @ params["wo"].reshape(-1, cfg.d_model)
+    if len(lead) == 2 and lead[1] == 1:
+        out = da_ops.paged_decode_attention(q, pool["k"], pool["v"],
+                                            block_table, positions, **kw)
+    else:
+        out = da_ops.ragged_paged_attention(q, pool["k"], pool["v"],
+                                            block_table, row_ids, positions,
+                                            **kw)
+    return out.reshape(*lead, -1) @ params["wo"].reshape(-1, cfg.d_model)

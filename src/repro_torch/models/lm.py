@@ -7,7 +7,8 @@ zamba2).  ``forward`` scores whole sequences (attention through K2, the
 flash-attention kernel; the SSD scan through K3); ``prefill`` and
 ``decode_step`` run the dense per-slot caches (prefill through K2 and K3,
 decode attention through K4); ``paged_mixed_step`` runs one packed tick
-against the paged KV pool (attention through K1).  One block body
+against the paged KV pool, and ``paged_prefill`` / ``paged_decode_step``
+the phase-separated steps over it (attention through K1 in all three).  One block body
 (``_apply_block``) serves them all.  The JAX package scans each segment over
 ``repeat`` stacked parameter copies; the port keeps one flat list of layers
 in the same order (``layer_specs``): layer ``r·len(pattern) + i`` of a
@@ -217,6 +218,21 @@ def pools_to_numpy(pools: list[dict], cfg: ModelConfig):
     return _restack(pools, cfg)
 
 
+def spilled_from_numpy(tree, cfg: ModelConfig) -> list[dict]:
+    """The port's ``SpilledKV.blocks`` (one dict of CPU tensors per layer,
+    leaves (n_blocks, bs, K, D) / (n_blocks, bs, K)) from a JAX
+    ``SpilledKV.blocks`` tree (numpy leaves (repeat, n_blocks, bs, K, D) per
+    segment and pattern position): a session spilled by the JAX engine
+    resumes on the port's."""
+    return _unstack(tree, cfg, lambda a: _to_torch(a, "cpu"))
+
+
+def spilled_to_numpy(blocks: list[dict], cfg: ModelConfig):
+    """The inverse of ``spilled_from_numpy``: the JAX ``SpilledKV.blocks``
+    tree (bfloat16 / fp8 leaves as raw bits, see ``_to_numpy``)."""
+    return _restack(blocks, cfg)
+
+
 def caches_from_numpy(tree, cfg: ModelConfig, device="cuda") -> list[dict]:
     """The port's per-layer dense caches from a JAX ``init_decode_caches``
     (or ``prefill`` / ``decode_step``) tree: one ``{"k", "v", "pos"}`` per
@@ -288,8 +304,9 @@ def _apply_block(p, x, positions, *, cfg: ModelConfig, spec: LayerSpec,
     ``mode`` is "score" (whole sequences x (B, T, d), no cache), "prefill"
     (builds the layer's dense cache for ``max_len`` positions; a mamba layer
     starts from ``cache``'s state), "decode" (one token per row against
-    ``cache``), or "paged" (the packed row x (T, d) against ``pool``,
-    updated in place; attn_mlp layers only).  ``shared`` holds zamba2's
+    ``cache``), or "paged" (against ``pool``, updated in place; attn_mlp
+    layers only): the packed row x (T, d) with ``row_ids``, or x (B, T, d)
+    with ``row_ids`` None, row b on ``block_table`` row b.  ``shared`` holds zamba2's
     shared-attention parameters, ``embeds0`` the stack's input embeddings
     that its block reads beside the hidden state."""
     if spec.kind == "mamba":
@@ -386,6 +403,40 @@ def decode_step(params, caches, inputs, positions, cfg: ModelConfig):
     return _head(params, x, cfg)[:, 0, :], caches
 
 
+def _paged_layers(params, pools, x, positions, block_tables, row_ids, cfg):
+    for spec, p, pool in zip(layer_specs(cfg), params["layers"], pools):
+        x, _ = _apply_block(p, x, positions, cfg=cfg, spec=spec, mode="paged",
+                            pool=pool, block_table=block_tables,
+                            row_ids=row_ids)
+    return x
+
+
+def paged_prefill(params, pools, block_tables, inputs, positions,
+                  cfg: ModelConfig):
+    """Prefill a (possibly block-aligned-truncated) prompt suffix against
+    the paged pool: inputs (B, T) int32 suffix tokens, positions (B, T)
+    int32 their absolute positions (row b starts at its reused prefix
+    length), row b on ``block_tables`` row b.  The suffix attends to the
+    reused prefix KV through the table without recomputing it (K1, its
+    B·T tokens packed as lanes of rows 0..B-1).  Returns (f32 last-token
+    logits (B, V), pools), the pools updated in place."""
+    x = _paged_layers(params, pools, _embed_inputs(params, inputs, cfg),
+                      positions, block_tables, None, cfg)
+    return _head(params, x[:, -1:, :], cfg)[:, 0, :], pools
+
+
+def paged_decode_step(params, pools, block_tables, inputs, positions,
+                      cfg: ModelConfig):
+    """One decode step over the paged pool: inputs (B,) or (B, 1) int32
+    tokens, positions (B, 1) int32 (K1 with one token per row).  Returns
+    (f32 logits (B, V), pools), the pools updated in place."""
+    if inputs.dim() == 1:
+        inputs = inputs[:, None]
+    x = _paged_layers(params, pools, _embed_inputs(params, inputs, cfg),
+                      positions, block_tables, None, cfg)
+    return _head(params, x, cfg)[:, 0, :], pools
+
+
 def paged_mixed_step(params, pools, block_tables, tokens, positions, row_ids,
                      sample_idx, cfg: ModelConfig):
     """ONE step over a packed ragged token batch: prefill chunks, decode
@@ -397,11 +448,8 @@ def paged_mixed_step(params, pools, block_tables, tokens, positions, row_ids,
     lanes whose logits each request row samples from.  Returns f32 logits
     (R, V) or (R, J, V); every layer's pool in ``pools`` is updated in
     place (all packed K/V is written before the layer's attention reads)."""
-    x = _embed_inputs(params, tokens, cfg)                    # (T, d)
-    for spec, p, pool in zip(layer_specs(cfg), params["layers"], pools):
-        x, _ = _apply_block(p, x, positions, cfg=cfg, spec=spec, mode="paged",
-                            pool=pool, block_table=block_tables,
-                            row_ids=row_ids)
+    x = _paged_layers(params, pools, _embed_inputs(params, tokens, cfg),
+                      positions, block_tables, row_ids, cfg)   # (T, d)
     if sample_idx.dim() == 1:
         return _head(params, x[sample_idx.long()], cfg)
     # (R, J): one head product per fed position j, each of R rows, so a

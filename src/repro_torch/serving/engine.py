@@ -52,6 +52,22 @@ Speculative decoding (``spec_k > 0``, paged only), prefix reuse with
 same-tick sharing, deadlines and the request lifecycle follow the reference
 exactly, so the greedy streams and every counter match the JAX engine's.
 
+**Preemption, spill and adoption** (paged only) follow the reference too.
+With ``preempt=True`` the tick's entry evicts at most one in-flight victim
+whose virtual deadline is strictly later than the best waiting request's,
+when that request cannot issue for lack of slots or blocks.  A decoding
+victim's KV is spilled (``spill``: a device gather, then ONE pull through
+``_to_host``, counted in ``stats.spill_syncs``) and parked in
+``spill_pool`` (``core.store.SpillPool``); when it re-issues, ``adopt``
+scatters it back into fresh blocks in place and it decodes on, bit for bit.
+A refused or evicted park, or no pool, folds the emissions into the prompt
+and the request replays.  So a spilling engine keeps ``host_syncs == ticks
++ spill_syncs``, and a pool-less preempting one ``host_syncs == ticks``.
+``evacuate`` empties a crashed replica (``faults.FaultInjector``'s seams
+fire at tick and submit entry) and a sibling ``adopt``s its spilled
+sessions.  Spills and adoptions run at tick entry, outside any capture, on
+the current stream: after the last replay, before the next.
+
 Entry points run on the card: ``device`` defaults to ``"cuda"`` and the
 engine raises when there is none; tests pass ``device="cpu"``.
 """
@@ -76,8 +92,9 @@ from repro_torch.models.config import ModelConfig
 
 from .draft import DraftSource, default_draft_source
 from .faults import ReplicaCrashed
-from .kvcache import CacheManager, PagedCacheManager
-from .scheduler import Request, Scheduler
+from .kvcache import (CacheManager, PagedCacheManager, SpilledKV, pack,
+                      to_device, unpack)
+from .scheduler import Request, Scheduler, virtual_deadline
 
 
 @dataclass
@@ -98,12 +115,16 @@ class EngineStats:
     spec_accepted: int = 0         # drafts the target confirmed (kept)
     spec_rolled_back: int = 0      # rejected drafts whose KV was rolled back
     deadline_exceeded: int = 0     # requests expired at this replica
-    spill_syncs: int = 0           # spills join with the cluster slice
-    spilled_sessions: int = 0
-    adopted_sessions: int = 0
-    preemptions: int = 0           # preemption joins with its own slice
-    spilled_blocks: int = 0
-    resumes: int = 0
+    spill_syncs: int = 0           # device→host KV spills (counted in
+    #                                host_syncs too: a spilling replica
+    #                                keeps host_syncs == ticks + spill_syncs)
+    spilled_sessions: int = 0      # live sessions spilled off this replica
+    adopted_sessions: int = 0      # spilled sessions restored INTO this one
+    preemptions: int = 0           # in-flight victims evicted for a waiter
+    spilled_blocks: int = 0        # KV blocks pulled host-side by spills
+    resumes: int = 0               # preempted requests restored via adopt()
+    #                                (replays re-issue as ordinary
+    #                                admissions and are not counted)
     graph_captures: int = 0        # ticks captured as a CUDA graph
     graph_replays: int = 0         # ticks that replayed a captured graph
     graph_capture_s: float = 0.0   # host time of the captures (instantiation
@@ -275,8 +296,6 @@ class ServeEngine:
                     "path only runs single-device (pass paged=True or a "
                     "config with supports_paged)")
             raise _later("mesh slices", "mesh")
-        if spill_pool is not None or (preempt and self.paged):
-            raise _later("preemption into a SpillPool", "preemption")
         if devstore is not None or kv_key is not None:
             raise _later("the DeviceStore bridge (devstore / kv_key)",
                          "DeviceStore")
@@ -327,7 +346,11 @@ class ServeEngine:
                     f"dense slot cache has no block pool to quantize")
             self.cm = CacheManager(cfg, n_slots, max_len, device=self.device)
             self.token_budget = None
-        if preempt:
+        # preemption (opt-in, paged only): victims spill into spill_pool
+        # (core.store.SpillPool) and resume through adopt(), or replay
+        self.preempt = bool(preempt)
+        self.spill_pool = spill_pool
+        if self.preempt and not self.paged:
             raise ValueError("preemption spills paged KV blocks; the dense "
                              "path has no per-request blocks to spill")
         self.scheduler = scheduler or Scheduler(n_replicas=1)
@@ -337,7 +360,11 @@ class ServeEngine:
         self.stats = EngineStats()
         self.live: dict[int, Request] = {}         # slot → decoding request
         self.prefilling: dict[int, Request] = {}   # slot → mid-prompt request
-        self.crashed = False        # set when the replica is marked down
+        # fault seams (faults.FaultInjector.bind); ``crashed`` makes tick and
+        # submit raise ReplicaCrashed
+        self.faults = None
+        self.crashed = False
+        self.kv_recoverable = True
         if self.paged:
             # host-side last emitted token per slot: the tick packs on host
             self._last_host = np.zeros((n_slots,), np.int64)
@@ -380,6 +407,8 @@ class ServeEngine:
         if self.crashed:
             raise ReplicaCrashed(
                 f"replica {self.replica_id} is marked down")
+        if self.faults is not None:
+            self.faults.on_submit()          # may raise InjectedFault
         if req.expired():
             self._deadline_error(req, "admission")
             return
@@ -459,14 +488,6 @@ class ServeEngine:
             i += n
         return out
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """A host array on the engine's device, through pinned memory and
-        a non-blocking copy on the card (no host sync)."""
-        t = torch.from_numpy(a)
-        if self.device.type != "cuda":
-            return t.to(self.device)
-        return t.pin_memory().to(self.device, non_blocking=True)
-
     @staticmethod
     def _norm_prompt(prompt) -> np.ndarray:
         """(S,) tokens; squeeze a legacy leading batch dim."""
@@ -515,6 +536,10 @@ class ServeEngine:
 
     def _complete(self, req: Request) -> None:
         req.done_s = time.monotonic()
+        if self.spill_pool is not None:
+            # a preempted request reaching any terminal state must not leak
+            # its parked KV
+            self.spill_pool.discard(req.request_id)
         if self.on_complete is not None:
             self.on_complete(req)
 
@@ -549,7 +574,8 @@ class ServeEngine:
         dev = self.device
         for shape, group in groups:
             S = shape[0]
-            prompts = self._upload(np.stack([p for _, p in group]))
+            prompts = to_device(
+                torch.from_numpy(np.stack([p for _, p in group])), dev)
             pos = torch.arange(S, dtype=torch.int32, device=dev).repeat(
                 len(group), 1)
             logits, group_caches = prefill(self.params, prompts, pos,
@@ -661,9 +687,19 @@ class ServeEngine:
                 max_blocks=self.cm.num_blocks - 1)
             if req is None:
                 break
+            if self.spill_pool is not None and req.tokens:
+                # a preempted request re-issuing: restore its parked KV (it
+                # decodes from the next tick; this tick packs nothing for
+                # it), or fall through to replay when the pool evicted it
+                parked = self.spill_pool.unpark(req.request_id)
+                if parked is not None and self.adopt(req, parked):
+                    self.stats.resumes += 1
+                    self._record_issue(req)
+                    free -= 1
+                    continue
             if len(req.tokens) > req.replay_offset:
-                # emissions of a replayed request: fold them into the prompt
-                # so replay-prefill reproduces the stream exactly
+                # emissions whose KV is gone: fold them into the prompt so
+                # replay-prefill reproduces the stream exactly
                 req.fold_for_replay()
             err = self._validate(req)
             if err is not None:
@@ -738,10 +774,61 @@ class ServeEngine:
                                     ins["draft_len"], self._gen,
                                     self.temperature), out=self._out)
 
+    # ------------------------------------------------- preemption (opt-in)
+    def _maybe_preempt(self) -> None:
+        """Tick-entry pressure check: when the best waiting request cannot
+        issue for lack of slots or blocks, evict AT MOST ONE in-flight
+        victim whose virtual deadline is strictly later (EDF across the
+        issue boundary; one victim a tick keeps the policy damped)."""
+        waiter = self.scheduler.best_waiting(self.replica_id)
+        if waiter is None:
+            return
+        need = self._block_cost(waiter)
+        if need > self.cm.num_blocks - 1:
+            return                    # unservable: the rejection path's job
+        if (self.cm.n_slots - self.cm.n_active > 0
+                and need <= self.cm.available_for_admission()):
+            return                    # will issue normally this tick
+        victim_slot, victim, v_vdl = None, None, virtual_deadline(waiter)
+        in_flight = list(self.prefilling.items()) + list(self.live.items())
+        for slot, req in in_flight:
+            if req.session_key == waiter.session_key:
+                continue              # same session: waiter can't overtake
+            vdl = virtual_deadline(req)
+            if vdl > v_vdl:
+                victim_slot, victim, v_vdl = slot, req, vdl
+        if victim is not None:
+            self.preempt_slot(victim_slot, victim)
+
+    def preempt_slot(self, slot: int, req: Request) -> None:
+        """Evict one in-flight request and requeue it at the head of its
+        queue.  A mid-prefill victim releases its blocks and replays (it
+        emitted nothing).  A decoding victim spills through the one sync
+        site and parks in the spill pool; without a pool it is not spilled
+        (no sync), and when the park fails its emissions fold into the
+        prompt now, so its re-issue replays the stream exactly."""
+        if slot in self.prefilling:
+            self.prefilling.pop(slot)
+            self.cm.release(slot)
+        else:
+            self.live.pop(slot)
+            spilled = self.spill(slot) if self.spill_pool is not None else None
+            self.cm.release(slot)
+            parked = (spilled is not None
+                      and self.spill_pool.park(req.request_id, spilled,
+                                               spilled.n_blocks))
+            if not parked:
+                req.fold_for_replay()   # paged prompts are tokens: can't fail
+        req.slot = None
+        self.stats.preemptions += 1
+        self.scheduler.requeue(self.replica_id, req)
+
     def _tick_mixed(self) -> int:
         """ONE fixed-shape mixed step: decode rows (each with up to spec_k
         verified draft tokens) + prefill chunks packed against the token
         budget, one dispatch, one host sync."""
+        if self.preempt:
+            self._maybe_preempt()
         T = self.token_budget
         host = self._stage.host
         toks, pos, rows = host["toks"], host["pos"], host["rows"]
@@ -845,20 +932,85 @@ class ServeEngine:
         slots."""
         if self.crashed:
             raise ReplicaCrashed(f"replica {self.replica_id} is marked down")
+        if self.faults is not None:
+            # fault seams fire at tick entry, before any dispatch: a crash
+            # raises, a stall returns without progress, a slow tick sleeps
+            if self.faults.on_tick(self) == "stall":
+                return 0
         self._sweep_deadlines()
         if self.paged:
             return self._tick_mixed()
         return self._tick_dense()
 
     # --------------------------------------- spill (failover + preemption)
-    def spill(self, slot: int) -> Any:
-        raise _later("spill", "cluster")
+    def spill(self, slot: int) -> SpilledKV | None:
+        """Spill one live slot's KV blocks to the host (failover or a
+        preemption victim): the cache manager gathers them on the device,
+        packed into one byte buffer, and ``_to_host`` pulls it in ONE sync,
+        counted in ``spill_syncs``."""
+        if not self.paged:
+            return None
+        seq = self.cm.slots[slot]
+        if not seq.active or not seq.table:
+            return None
+        flat, layout = pack(self.cm.spill_device(slot))
+        (raw,) = self._to_host(flat, [((flat.numel(),), np.uint8)])
+        self.stats.spill_syncs += 1
+        self.stats.spilled_sessions += 1
+        self.stats.spilled_blocks += len(seq.table)
+        return SpilledKV(request_id=seq.request_id, pos=seq.pos,
+                         n_blocks=len(seq.table),
+                         block_size=self.cm.block_size,
+                         blocks=unpack(torch.from_numpy(raw), layout))
 
-    def evacuate(self, *, spill_kv: bool = True):
-        raise _later("evacuate", "cluster")
+    def evacuate(self, *, spill_kv: bool = True
+                 ) -> tuple[list[Request], list[tuple[Request, Any]]]:
+        """Empty a dead replica (after ``crashed`` is set, so racing
+        submits bounce): queued requests pop for plain resubmission;
+        mid-prefill requests release their blocks (replay is exact); live
+        requests spill their KV when ``spill_kv`` (else, or when the spill
+        fails, they re-home as replays).  Every slot is released, so the
+        allocator ends where a normal drain leaves it.  Returns (queued,
+        [(req, spilled or None)])."""
+        queued = self.scheduler.drain(self.replica_id)
+        inflight: list[tuple[Request, Any]] = []
+        for slot, req in list(self.prefilling.items()):
+            self.prefilling.pop(slot)
+            self.cm.release(slot)
+            inflight.append((req, None))
+        for slot, req in list(self.live.items()):
+            self.live.pop(slot)
+            spilled = None
+            if spill_kv:
+                try:
+                    spilled = self.spill(slot)
+                except Exception:
+                    spilled = None       # unrecoverable KV: replay instead
+            self.cm.release(slot)
+            inflight.append((req, spilled))
+        return queued, inflight
 
-    def adopt(self, req: Request, spilled) -> bool:
-        raise _later("adopt", "cluster")
+    def adopt(self, req: Request, spilled: SpilledKV | None) -> bool:
+        """Restore a spilled session into this replica: fresh blocks, the
+        migrated KV scattered in, decoding resumed at the spilled position,
+        so the stream continues exactly where it stopped.  False (nothing
+        allocated) when this replica cannot host it; the caller falls back
+        to prompt replay."""
+        if (not self.paged or self.crashed or spilled is None
+                or not req.tokens):
+            return False
+        slot = self.cm.acquire(req.request_id)
+        if slot is None:
+            return False
+        seq = self.cm.adopt(slot, self._norm_prompt(req.prompt), spilled,
+                            req.max_new_tokens)
+        if seq is None:
+            return False                 # cm.adopt released the slot
+        self._last_host[slot] = int(req.tokens[-1])
+        req.slot = slot
+        self.live[slot] = req
+        self.stats.adopted_sessions += 1
+        return True
 
     def run_until_drained(self, max_ticks: int = 10_000) -> None:
         for _ in range(max_ticks):

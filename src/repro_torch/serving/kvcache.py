@@ -23,6 +23,13 @@ block-aligned sharing by refcount (copy-on-write never copies),
 chunk-granularity trie commit for same-tick sharing, commit-time dedup, LRU
 eviction of unreferenced cached blocks, and block 0 reserved as the null
 block that masked lanes scribble on.
+
+Spill and restore (``spill_device`` / ``adopt``, with ``SpilledKV``) move a
+live session's blocks off the device and back.  The gather and the scatter
+are plain indexing on the block axis, as in the JAX package, over a bit
+view of each leaf (so every pool dtype, fp8 included, moves bit for bit).
+The scatter writes the existing pool tensors in place: a captured engine
+tick keeps their pointers, so a pool leaf is never rebound.
 """
 from __future__ import annotations
 
@@ -31,10 +38,110 @@ from dataclasses import dataclass, field
 from typing import Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core.trie import PathTrie
 from repro_torch.models import init_decode_caches, init_paged_pools
 from repro_torch.models.config import ModelConfig
+
+
+_BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """``t`` viewed as the integer dtype of its element size: index ops
+    exist for every integer dtype (not for fp8) and copy bits exactly."""
+    return t.view(_BITS[t.element_size()])
+
+
+def _gather_blocks(pools: list[dict], idx: torch.Tensor) -> list[dict]:
+    """The blocks ``idx`` (table order) of every pool leaf, on the device:
+    leaves (n, bs, K, D) / (n, bs, K), block axis 0."""
+    return [{k: _bits(leaf).index_select(0, idx).view(leaf.dtype)
+             for k, leaf in pool.items()} for pool in pools]
+
+
+def _scatter_blocks(pools: list[dict], blocks: list[dict],
+                    idx: torch.Tensor) -> None:
+    """Write migrated ``blocks`` into the pool blocks ``idx``, IN PLACE
+    (the JAX package returns a new donated pool instead)."""
+    for pool, src in zip(pools, blocks):
+        for k, leaf in pool.items():
+            _bits(leaf).index_copy_(0, idx, _bits(src[k].to(leaf.dtype)))
+
+
+def pack(tree: list[dict], *, pin: bool = False
+         ) -> tuple[torch.Tensor, list[list[tuple]]]:
+    """Every leaf's bytes in ONE flat uint8 tensor on the leaves' device
+    (each leaf padded to 16 bytes, so every unpacked view is aligned), and
+    the layout ``unpack`` reads; ``pin`` puts a host result in pinned
+    memory, ready for a non-blocking upload."""
+    parts, layout, off = [], [], 0
+    for layer in tree:
+        entry = []
+        for k, t in layer.items():
+            b = t.contiguous().reshape(-1).view(torch.uint8)
+            pad = -b.numel() % 16
+            parts.append(b)
+            if pad:
+                parts.append(b.new_zeros(pad))
+            entry.append((k, t.dtype, tuple(t.shape), off, b.numel()))
+            off += b.numel() + pad
+        layout.append(entry)
+    out = torch.empty(off, dtype=torch.uint8, device=parts[0].device,
+                      pin_memory=pin)
+    return torch.cat(parts, out=out), layout
+
+
+def unpack(flat: torch.Tensor, layout: list[list[tuple]]) -> list[dict]:
+    """The inverse of ``pack``: views into ``flat``, one dict per layer."""
+    return [{k: flat[o:o + n].view(dt).view(shape)
+             for k, dt, shape, o, n in entry} for entry in layout]
+
+
+def to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor on ``device``: through pinned memory and a
+    non-blocking copy on the card (no host sync)."""
+    if device.type != "cuda":
+        return t.to(device)
+    return (t if t.is_pinned() else t.pin_memory()).to(device,
+                                                       non_blocking=True)
+
+
+def upload(tree: list[dict], device: torch.device) -> list[dict]:
+    """Host leaves on ``device`` in one packed copy (``to_device``)."""
+    flat, layout = pack(tree, pin=device.type == "cuda")
+    return unpack(to_device(flat, device), layout)
+
+
+@dataclass
+class SpilledKV:
+    """A live session's committed KV, spilled off a replica: its table's
+    blocks in TABLE ORDER on the host (one dict per layer of CPU tensors,
+    leaves (n_blocks, bs, K, D) / (n_blocks, bs, K)), plus the position it
+    resumes at.  Restoring allocates the same COUNT of fresh blocks and
+    scatters these in, so the session decodes on at ``pos`` as if it had
+    never moved (its KV is valid over [0, pos)).
+
+    Failover spills a dead replica's live slots (``engine.evacuate``, then
+    ``adopt`` on a sibling); preemption spills a victim into the host-side
+    ``core.store.SpillPool``, where it parks until the request re-issues.
+    ``adopt`` is the one restore site either way, with prompt replay
+    (``Request.fold_for_replay``) as the fallback.
+    ``models.spilled_to_numpy`` / ``spilled_from_numpy`` carry ``blocks``
+    to and from the JAX package's tree."""
+    request_id: str
+    pos: int                      # next position to write on resume
+    n_blocks: int
+    block_size: int
+    blocks: list                  # one dict of CPU tensors per layer
+
+    @property
+    def nbytes(self) -> int:
+        """Host bytes this entry holds while parked (a property, so the
+        store's ``CascadeObject.nbytes()`` sizes a parked entry)."""
+        return sum(t.numel() * t.element_size()
+                   for layer in self.blocks for t in layer.values())
 
 
 @dataclass
@@ -313,6 +420,7 @@ class PagedCacheManager:
             num_blocks = 1 + (n_slots + 2) * self.max_blocks
         self.num_blocks = num_blocks
         self.kv_dtype = cfg.kv_dtype if kv_dtype is None else kv_dtype
+        self.device = torch.device(device)
         self.alloc = PrefixBlockAllocator(num_blocks, block_size,
                                           enable_cache=prefix_cache)
         self.pools = init_paged_pools(cfg, num_blocks, block_size,
@@ -462,6 +570,52 @@ class PagedCacheManager:
         del seq.table[keep:]
         self.alloc.unref(tail)
         return len(tail)
+
+    # -------------------------------------------------- spill / restore
+    def spill_device(self, slot: int) -> list[dict]:
+        """Device-side gather of this slot's blocks, in table order, on the
+        current stream (after the last tick's writes).  No host transfer
+        happens here: the engine pulls the result through its one sync
+        site, ``_to_host``."""
+        idx = to_device(torch.tensor(self.slots[slot].table,
+                                     dtype=torch.int64), self.device)
+        return _gather_blocks(self.pools, idx)
+
+    def adopt(self, slot: int, prompt: np.ndarray, spilled: SpilledKV,
+              max_new_tokens: int) -> PagedSeq | None:
+        """Install a spilled session into ``slot``: allocate the same count
+        of fresh blocks, scatter the migrated KV in (in place, one upload),
+        and resume at ``spilled.pos``.  Accounting is the reference's: the
+        fresh blocks are refcount-1 private (the source's trie residency did
+        not travel), ``reserve`` is the request's worst-case footprint, and
+        ``finish`` later donates prompt + generated blocks to this replica's
+        trie.  Returns None (slot released, nothing allocated) when the
+        block geometry differs or the pool cannot cover the worst case."""
+        seq = self.slots[slot]
+        S = len(prompt)
+        reserve = self.block_cost(S, max_new_tokens)
+        if (spilled.block_size != self.block_size
+                or spilled.n_blocks > self.max_blocks
+                or reserve > self.available_for_admission()):
+            self.release(slot)
+            return None
+        fresh = self.alloc.allocate(spilled.n_blocks)
+        if fresh is None:
+            self.release(slot)
+            return None
+        seq.prompt = np.asarray(prompt)
+        seq.table = list(fresh)
+        seq.reused = 0
+        seq.reserve = max(reserve, spilled.n_blocks)
+        seq.prefill_pos = S            # prompt fully in KV already
+        seq.committed = 0              # nothing trie-resident here yet
+        seq.trie_key = ""
+        seq.pos = spilled.pos
+        *blocks, idx = upload(
+            spilled.blocks + [{"idx": torch.tensor(fresh, dtype=torch.int64)}],
+            self.device)
+        _scatter_blocks(self.pools, blocks, idx["idx"])
+        return seq
 
     def block_tables(self, out: np.ndarray | None = None) -> np.ndarray:
         """(n_slots, max_blocks) int32 table, -1 = unused (inactive rows

@@ -53,6 +53,7 @@ def test_engine_import_pulls_in_no_jax():
             "repro_torch.kernels.decode_attention.ops, "
             "repro_torch.kernels.flash_attention.ops, repro_torch.models, "
             "repro_torch.kernels.ssd.ops, repro_torch.models.mamba2, "
+            "repro_torch.core.store, repro_torch.serving.faults, "
             "repro_torch.configs.gemma3_4b, "
             "repro_torch.configs.h2o_danube_1_8b, "
             "repro_torch.configs.h2o_danube_3_4b, "

@@ -21,6 +21,7 @@ from repro.serving.engine import ServeEngine as JEngine
 import repro_torch.models as P
 from repro_torch.configs.registry import get_config
 from repro_torch.core.pools import DispatchPolicy
+from repro_torch.core.store import SpillPool
 from repro_torch.serving import kvcache as pkv
 from repro_torch.serving import scheduler as psched
 from repro_torch.serving.engine import ServeEngine
@@ -240,17 +241,22 @@ def test_engine_rejects_unservable_requests_through_completion(model):
 
 
 def test_deferred_features_raise_not_implemented(model):
+    """The DeviceStore bridge and mesh slices still raise, naming their
+    slice; preemption into a spill pool and spill / evacuate / adopt are
+    ported (``tests/test_torch_preempt.py``): on an idle engine they find
+    nothing to move."""
     name, jcfg, pcfg, jp, pp = model
-    for kw in (dict(preempt=True), dict(spill_pool=object()),
-               dict(devstore=object()), dict(kv_key="/kv/x"),
+    for kw in (dict(devstore=object()), dict(kv_key="/kv/x"),
                dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="slice"):
             ServeEngine(pcfg, pp, device="cpu", **kw)
-    eng = ServeEngine(pcfg, pp, n_slots=2, max_len=32, device="cpu")
-    for call in (lambda: eng.spill(0), lambda: eng.evacuate(),
-                 lambda: eng.adopt(None, None)):
-        with pytest.raises(NotImplementedError, match="cluster"):
-            call()
+    eng = ServeEngine(pcfg, pp, n_slots=2, max_len=32, device="cpu",
+                      preempt=True, spill_pool=SpillPool(capacity_blocks=8))
+    assert eng.preempt and eng.spill(0) is None
+    assert eng.evacuate() == ([], [])
+    assert eng.adopt(psched.Request(request_id="a", session_key="a",
+                                    prompt=np.zeros(4, np.int32)),
+                     None) is False
 
 
 def test_deadlines_expire_at_the_same_stages_as_jax(model):
