@@ -158,14 +158,44 @@ on the first phase that fails (exit code != 0):
                   prompts as the engine does, K1's workspace bytes before
                   and after; at f32 cut to 4 layers, the greedy streams
                   equal the engine's.
-14. score       — ``forward`` at full width and full depth, bf16, seeded
+14. cluster     — Cascade's serving layer, bf16, captured ticks, all
+                  under the sync check (a node's upcall threads included;
+                  an upcall that raises fails the drain at once).  First
+                  ``ServeCluster(gemma2-9b, n_replicas=1)`` on the serve
+                  phase's eight requests: the direct engine's captured
+                  greedy streams bit for bit, host_syncs == ticks, K1
+                  launches == ticks x 42, TTFT / TPOT p50 beside the direct
+                  engine's and the queue wait from client submit to issue.
+                  Then one ``ServeNode(n_workers=2)`` hosting h2o-danube-1.8b
+                  (paged, 2 replicas, FIFO sessions, 8 slots of 8192, budget
+                  512, 1,024 blocks) and zamba2-2.7b (dense, 2 replicas, 4
+                  slots of 4096), which share a 32,000-token vocabulary:
+                  three chat sessions x three turns (64 -> ~300 tokens, 16
+                  new each; each session on one replica, prefix hits), a
+                  probe pass and a ``CascadeRoute`` over 16 prompts of
+                  128-1000 tokens (32 new) whose logprob gate sits at the
+                  probe's median (0 < escalation rate < 1), a burst of 24
+                  over a watermark of 2 (redirects, sheds answered by the
+                  heavy tier, none lost), and a seeded crash of light replica
+                  1 mid-drain (its KV adopted on replica 0).  A client
+                  request arrives inside every capture of every replica's
+                  tick.  Checks each tier's sync invariant, K1 == light
+                  ticks x 24, K2 / K3 == 9 / 54 x heavy prefill batches, K4
+                  == 9 x heavy decode ticks, every light and escalated
+                  stream against a direct engine's, each ``/kv`` key's
+                  version == ticks + adoptions with the engine's own pool
+                  tensors stored (no donate miss); then the light tier's
+                  ``stop()`` leaves no ``/kv/light`` key and, once its
+                  engines and the store's read cache let go, the memory
+                  falls by at least its two pools.
+15. score       — ``forward`` at full width and full depth, bf16, seeded
                   random weights, B=1: gemma2-9b, gemma3-4b, h2o-danube-1.8b,
                   mamba2-1.3b and zamba2-2.7b at S=8192, h2o-danube-3-4b at
                   S=9216 (past its 8192 window); finite f32 logits of shape
                   (1, S, V), K2 launches == attention layers and K3 launches
                   == mamba layers per forward; wall time, tokens/s, peak
                   memory.
-15. score_trace — one gemma2-9b score forward under torch.profiler
+16. score_trace — one gemma2-9b score forward under torch.profiler
                   (informational).
 
 It prints one JSON line per phase, then the card's name and power limit as
@@ -176,6 +206,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import json
 import os
 import statistics
@@ -689,26 +720,29 @@ def serve_requests(vocab: int):
 
 
 @contextlib.contextmanager
-def syncs_forbidden(eng):
+def syncs_forbidden(*engines):
     """Inside the block every synchronizing CUDA call raises
-    (``torch.cuda.set_sync_debug_mode("error")``), except in the engine's
-    one pull per dispatch, ``_to_host``."""
-    inner = eng._to_host
+    (``torch.cuda.set_sync_debug_mode("error")``, process-wide: a serving
+    node's upcall threads too), except in each engine's one pull per
+    dispatch, ``_to_host`` (which a spill's pull goes through as well)."""
+    def exempt(inner):
+        def to_host(*a):
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return inner(*a)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+        return to_host
 
-    def to_host(*a):
-        torch.cuda.set_sync_debug_mode(0)
-        try:
-            return inner(*a)
-        finally:
-            torch.cuda.set_sync_debug_mode("error")
-
-    eng._to_host = to_host
+    for eng in engines:
+        eng._to_host = exempt(eng._to_host)
     torch.cuda.set_sync_debug_mode("error")
     try:
         yield
     finally:
         torch.cuda.set_sync_debug_mode(0)
-        del eng._to_host
+        for eng in engines:
+            del eng._to_host
 
 
 def check_graphs(eng, kernel_ticks: int) -> dict:
@@ -871,6 +905,7 @@ def serve_phase(dev, smi: str) -> dict:
               for graphs in (True, False)}
     graphs_line("paged gemma2-9b bf16 spec_k=0", smi, main,
                 dict(again, **traced[True]), dict(eager, **traced[False]))
+    main["streams"] = greedy
     return main
 
 
@@ -2162,6 +2197,429 @@ def preempt_phases(dev, smi: str) -> dict:
     return res
 
 
+# ================================================================ cluster
+# Cascade's serving layer on one node: a paged light model and a hybrid
+# heavy model that share a 32,000-token vocabulary, so every id the light
+# model emits is in range for the heavy one's embedding
+CLUSTER_LIGHT, CLUSTER_HEAVY = "h2o-danube-1.8b", "zamba2-2.7b"
+LIGHT_ENGINE = dict(n_slots=8, max_len=8192, token_budget=512,
+                    num_blocks=1024)
+HEAVY_ENGINE = dict(n_slots=4, max_len=4096, paged=False)
+CHAT_USER = (64, 100, 100)        # user tokens a turn; 16 new tokens each
+ROUTE_LENGTHS = tuple(int(n) for n in np.linspace(128, 1000, 16))
+BURST, FAILOVER_REQUESTS, CRASH_AT_TICK = 24, 8, 5
+
+
+def node_drain(node, receipts=(), timeout_s: float = 300.0) -> None:
+    """``run_until_drained``, failing at the first upcall that raised on a
+    worker thread (the dispatcher contains it; the drain would only time
+    out), with the error of a client receipt that carries one."""
+    step = node.step
+
+    def checked() -> int:
+        busy = step()
+        errors = sum(w.dispatcher.stats()["upcall_errors"]
+                     for w in node.workers)
+        if errors:
+            raised = [ev.error for r in receipts for ev in r.events
+                      if ev.error is not None]
+            raise RuntimeError(f"{errors} upcall(s) raised on a worker "
+                               f"thread: {raised[:1]!r}")
+        return busy
+
+    node.step = checked
+    try:
+        node.run_until_drained(timeout_s)
+    finally:
+        del node.step
+
+
+def wait_all(receipts) -> None:
+    """Wait for every client put's upcall (the engine holds the request)."""
+    for rc in receipts:
+        rc.wait()
+
+
+def arrive_during_captures(engines, inject) -> None:
+    """Every capture of these engines' ticks runs ``inject(engine)`` between
+    ``capture_begin`` and ``capture_end``: a client submit whose upcall runs
+    on a worker thread (admission, the engine's ``submit``) while the graph
+    is being captured in the global capture mode."""
+    for eng in engines:
+        runner = eng._tick_runner
+        capture = runner._capture
+
+        def with_arrival(step, capture=capture, eng=eng):
+            def step_and_arrival():
+                step()
+                inject(eng)
+            capture(step_and_arrival)
+
+        runner._capture = with_arrival
+
+
+def kv_versions(dep, ds) -> list[dict]:
+    """Each replica's pool key: its version against ticks + adoptions, and
+    whether the stored leaves are the engine's pool tensors."""
+    out = []
+    for r, eng in enumerate(dep.engines):
+        key = f"/kv/{dep.name}/replica{r}/pool"
+        stored = ds.get(key)
+        out.append({"key": key, "latest_version": ds.latest_version(key),
+                    "ticks": eng.stats.ticks,
+                    "adoptions": eng.stats.adopted_sessions,
+                    "same_tensors": [t.data_ptr() for layer in stored
+                                     for t in layer.values()]
+                    == pool_ptrs(eng)})
+    return out
+
+
+def tier_stats(dep) -> dict:
+    st = dep.stats()
+    keep = ("requests", "tokens_out", "ticks", "decode_ticks",
+            "prefill_batches", "host_syncs", "prefix_hit_tokens", "shed",
+            "redirected", "failovers", "rehomed", "migrated", "replayed",
+            "ttft_p50_s", "ttft_p99_s", "tpot_p50_s", "tpot_p99_s")
+    return {**{k: st[k] for k in keep}, "queue_wait_s": st["queue_wait_s"],
+            "per_replica_requests": st["per_replica_requests"],
+            "graph_captures": sum(e.stats.graph_captures
+                                  for e in dep.engines),
+            "graph_capture_s": sum(e.stats.graph_capture_s
+                                   for e in dep.engines)}
+
+
+def direct_streams(cfg, params, dev, sent: dict, **kw) -> dict:
+    """The same prompts through one engine of the same shape, outside the
+    node: request id -> greedy stream."""
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.scheduler import Request
+
+    eng = ServeEngine(cfg, params, device=dev, **kw)
+    done = {}
+    eng.on_complete = lambda r: done.setdefault(r.request_id, list(r.tokens))
+    for rid, (prompt, new) in sent.items():
+        eng.submit(Request(request_id=rid, session_key=rid, prompt=prompt,
+                           max_new_tokens=new))
+    eng.run_until_drained(max_ticks=100_000)
+    assert len(done) == len(sent)
+    del eng
+    return done
+
+
+def first_difference(a: list, b: list) -> int | None:
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
+
+
+def cluster_single_tenant(dev, smi: str, direct: dict) -> dict:
+    """``ServeCluster(gemma2-9b, n_replicas=1)`` on the serve phase's eight
+    requests: the direct engine's captured greedy streams, bit for bit."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.serving.cluster import ServeCluster
+
+    cfg = get_config("gemma2-9b")
+    params = _seeded_params(cfg, dev, 0)
+    reqs = serve_requests(cfg.vocab_size)
+    cluster = ServeCluster(cfg, params, n_replicas=1, device=dev,
+                           **LIGHT_ENGINE)
+    eng = cluster.engines[0]
+    torch.cuda.synchronize()
+    ops.ragged_paged_attention.launches = 0
+    t0 = time.monotonic()
+    with syncs_forbidden(eng):
+        receipts = [cluster.submit(r.session_key, r.request_id, r.prompt,
+                                   max_new_tokens=r.max_new_tokens)
+                    for r in reqs]
+        wait_all(receipts)             # one queue, as the direct engine had
+        node_drain(cluster.node, receipts)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = ops.ragged_paged_attention.launches
+    st = cluster.stats()
+    streams = {r.request_id: cluster.result(r.request_id).tolist()
+               for r in reqs}
+    assert streams == direct["streams"], {
+        rid: first_difference(streams[rid], direct["streams"][rid])
+        for rid in streams}
+    assert st["host_syncs"] == st["ticks"], st
+    assert launches == st["ticks"] * cfg.n_layers, (launches, st["ticks"])
+    ds = cluster.kv_store
+    assert ds.donate_misses == 0
+    assert ds.latest_version(f"/kv/{cfg.name}/replica0/pool") == st["ticks"]
+    res = {"phase": "cluster_single", "arch": cfg.name, "card": smi,
+           "ticks": st["ticks"], "host_syncs": st["host_syncs"],
+           "k1_launches": launches, "streams_equal_direct": True,
+           "kv_latest_version": ds.latest_version(
+               f"/kv/{cfg.name}/replica0/pool"),
+           "wall_s": wall,
+           "node": {"ttft_p50_s": st["ttft_p50_s"],
+                    "tpot_p50_s": st["tpot_p50_s"],
+                    "queue_wait_s": st["queue_wait_s"]},
+           "direct": {"ttft_p50_s": direct["ttft_p50_s"],
+                      "tpot_p50_s": direct["tpot_p50_s"]}}
+    cluster.close()
+    # the receipts' events hold the serving lambda, so the deployment and
+    # its engines: all of it goes here, not at some later collection
+    del cluster, eng, params, ds, receipts
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(res)
+    return res
+
+
+def cluster_tenants(dev, smi: str) -> dict:
+    """Two tenants on one ``ServeNode(n_workers=2)``: chat sessions and a
+    calibrated cascade, overload, a failover, then the light tier's
+    teardown."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.placement import LRUCache
+    from repro_torch.core.pools import DispatchPolicy
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.models import layer_specs
+    from repro_torch.serving.cluster import (CascadeGate, CascadeRoute,
+                                             ServeNode)
+    from repro_torch.serving.faults import (FaultInjector, FaultKind,
+                                            FaultSpec)
+
+    t_phase = time.monotonic()
+    lcfg, hcfg = get_config(CLUSTER_LIGHT), get_config(CLUSTER_HEAVY)
+    assert lcfg.vocab_size == hcfg.vocab_size, (lcfg.vocab_size,
+                                                hcfg.vocab_size)
+    V = lcfg.vocab_size
+    lparams, hparams = _seeded_params(lcfg, dev, 1), _seeded_params(hcfg,
+                                                                    dev, 2)
+    kinds = [spec.kind for spec in layer_specs(hcfg)]
+    n_mamba, n_attn = kinds.count("mamba"), kinds.count("shared_attn")
+    counters = {"K1": da.ragged_paged_attention, **_kernel_counters()}
+    rng, arrival_rng = np.random.default_rng(31), np.random.default_rng(32)
+    node = ServeNode(n_workers=2, device=dev)
+    light = node.deploy("light", lcfg, lparams, n_replicas=2,
+                        policy=DispatchPolicy.FIFO, **LIGHT_ENGINE)
+    heavy = node.deploy("heavy", hcfg, hparams, n_replicas=2, **HEAVY_ENGINE)
+    assert all(e.params is lparams for e in light.engines)
+    assert all(e.params is hparams for e in heavy.engines)
+    engines = light.engines + heavy.engines
+    light_sent, heavy_sent = {}, {}     # held against direct engines
+    receipts, arrivals = [], []
+
+    def inject(eng):
+        dep = light if eng in light.engines else heavy
+        rid = f"arrival{len(arrivals)}"
+        p = arrival_rng.integers(0, V, 40 + 7 * len(arrivals)).astype(
+            np.int32)
+        (light_sent if dep is light else heavy_sent)[rid] = (p, 16)
+        dep.submit(rid, rid, p, max_new_tokens=16).wait()
+        arrivals.append({"capturing": f"{dep.name}/replica"
+                         f"{dep.engines.index(eng)}", "request": rid,
+                         "routed": dep.routed[rid]})
+
+    arrive_during_captures(engines, inject)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.monotonic()
+    with syncs_forbidden(*engines):
+        # chat: three sessions x three turns, each turn on its history
+        history = {f"chat{s}": np.zeros(0, np.int32) for s in range(3)}
+        for turn, n_user in enumerate(CHAT_USER):
+            wave = []
+            for s in history:
+                history[s] = np.concatenate(
+                    [history[s], rng.integers(0, V, n_user).astype(np.int32)])
+                rid = f"{s}-t{turn}"
+                light_sent[rid] = (history[s], 16)
+                wave.append(light.submit(s, rid, history[s],
+                                         max_new_tokens=16))
+            receipts += wave
+            wait_all(wave)
+            node_drain(node, receipts)
+            for s in history:
+                history[s] = np.concatenate(
+                    [history[s], light.result(f"{s}-t{turn}")])
+        chat = {s: sorted({light.routed[f"{s}-t{t}"] for t in range(3)})
+                for s in history}
+        assert all(len(r) == 1 for r in chat.values()), chat
+        chat_hits = light.stats()["prefix_hit_tokens"]
+        assert chat_hits > 0
+        # cascade: a probe pass calibrates the gate at its median
+        prompts = {f"q{i}": rng.integers(0, V, n).astype(np.int32)
+                   for i, n in enumerate(ROUTE_LENGTHS)}
+        probe = {}
+
+        def listener(req):
+            if req.request_id.startswith("probe-"):
+                probe[req.request_id] = req.mean_logprob()
+
+        light.on_done.append(listener)
+        wave = [light.submit(rid, f"probe-{rid}", p, max_new_tokens=32)
+                for rid, p in prompts.items()]
+        wait_all(wave)
+        node_drain(node, receipts + wave)
+        light.on_done.remove(listener)
+        threshold = float(np.median(list(probe.values())))
+        route = CascadeRoute(light, heavy, CascadeGate("logprob", threshold),
+                             escalate_on_error=True)
+        wave = [route.submit(rid, rid, p, max_new_tokens=32)
+                for rid, p in prompts.items()]
+        for rid, p in prompts.items():
+            light_sent[f"probe-{rid}"] = light_sent[rid] = (p, 32)
+        receipts += wave
+        wait_all(wave)
+        node_drain(node, receipts)
+        cascade = route.stats()
+        assert 0 < cascade["escalation_rate"] < 1, cascade
+        for rid, p in prompts.items():
+            assert route.result(rid) is not None
+            if route.escalated(rid):
+                heavy_sent[rid] = (p, 32)
+        t_main = time.monotonic() - t0
+        ls, hs = tier_stats(light), tier_stats(heavy)
+        ds = node.kv_store()
+        kv = kv_versions(light, ds)
+        # overload: a burst over the light tier's watermark
+        light.watermark = 2
+        burst = {f"burst{i}": rng.integers(0, V, 64 + 6 * i).astype(np.int32)
+                 for i in range(BURST)}
+        wave = [route.submit("burst", rid, p, max_new_tokens=8)
+                for rid, p in burst.items()]
+        receipts += wave
+        wait_all(wave)
+        node_drain(node, receipts)
+        light.watermark = None
+        shed = [rid for rid in burst if (light.error(rid) or {}).get(
+            "error") == "shed_overload"]
+        assert light.redirected > 0 and shed, (light.redirected, shed)
+        for rid in burst:
+            assert len(route.result(rid)) == 8, rid
+            assert route.error(rid) is None, route.error(rid)
+        for rid in shed:
+            assert route.escalated(rid) and len(heavy.result(rid)) == 8, rid
+        overload = {"burst": BURST, "watermark": 2,
+                    "redirected": light.redirected, "shed": len(shed),
+                    "answered": BURST, "shed_answered_by_heavy": len(shed),
+                    "route": route.stats()}
+        # failover: light replica 1 crashes mid-drain
+        injector = FaultInjector([FaultSpec(FaultKind.CRASH,
+                                            deployment="light", replica=1,
+                                            at_tick=CRASH_AT_TICK)], seed=0)
+        light.install_faults(injector)
+        fo = {f"fo{i}": rng.integers(0, V, 100 + 25 * i).astype(np.int32)
+              for i in range(FAILOVER_REQUESTS)}
+        wave = [light.submit(rid, rid, p, max_new_tokens=16)
+                for rid, p in fo.items()]
+        for rid, p in fo.items():
+            light_sent[rid] = (p, 16)
+        receipts += wave
+        wait_all(wave)
+        on_1 = [rid for rid in fo if light.routed[rid] == 1]
+        assert on_1, light.routed
+        node_drain(node, receipts)
+        fst = light.stats()
+        assert fst["failovers"] == 1 and fst["migrated"] >= 1, fst
+        assert all(len(light.result(rid)) == 16 for rid in fo)
+        failover = {k: fst[k] for k in ("failovers", "rehomed", "migrated",
+                                        "replayed", "failover_failed",
+                                        "spill_syncs", "adopted_sessions")}
+        failover.update(down=fst["down"], on_replica_1=on_1,
+                        fired=list(injector.fired_log))
+        kv_after = kv_versions(light, ds)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    t_node = time.monotonic() - t0
+    l_all, h_all = light.stats(), heavy.stats()
+    # each deployment's own sync invariant (a spilling replica adds its
+    # spill pulls), and every kernel launched at its per-tick count
+    assert all(e.stats.host_syncs == e.stats.ticks + e.stats.spill_syncs
+               for e in light.engines), [e.stats for e in light.engines]
+    assert h_all["host_syncs"] == (h_all["decode_ticks"]
+                                   + h_all["prefill_batches"]), h_all
+    want = {"K1": l_all["ticks"] * lcfg.n_layers,
+            "K2": n_attn * h_all["prefill_batches"],
+            "K3": n_mamba * h_all["prefill_batches"],
+            "K4": n_attn * h_all["decode_ticks"]}
+    assert launches == want, (launches, want)
+    assert all(n > 0 for n in launches.values()), launches
+    for row in kv + kv_after:
+        assert row["same_tensors"], row
+    for row in kv + kv_after:
+        assert row["latest_version"] == row["ticks"] + row["adoptions"], row
+    assert ds.donate_misses == 0, ds.donate_misses
+    assert len(arrivals) == sum(e.stats.graph_captures for e in engines) \
+        == len(engines), arrivals
+    # the light and escalated streams against engines outside the node
+    t_ref = time.monotonic()
+    light_ref = direct_streams(lcfg, lparams, dev, light_sent,
+                               **LIGHT_ENGINE)
+    heavy_ref = direct_streams(hcfg, hparams, dev, heavy_sent,
+                               **HEAVY_ENGINE)
+    t_ref = time.monotonic() - t_ref
+    differ = {rid: first_difference(light.result(rid).tolist(), want)
+              for rid, want in light_ref.items()
+              if light.result(rid).tolist() != want}
+    differ.update({f"heavy:{rid}": first_difference(
+        heavy.result(rid).tolist(), want) for rid, want in heavy_ref.items()
+        if heavy.result(rid).tolist() != want})
+    assert not differ, differ
+    # teardown: stop, drop the engines, and the memory they held
+    pool_bytes = sum(e.cm.pool_bytes() for e in light.engines)
+    del receipts, wave
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = allocated_outside_workspaces()
+    light.stop()
+    left = [k for k in ds.keys() if k.startswith("/kv/light")]
+    assert not left, left
+    light.engines.clear()
+    del route, engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    fall_stop = before - allocated_outside_workspaces()
+    lru_held = [k for k in (f"/kv/light/replica{r}/pool" for r in range(2))
+                if k in ds.lru]
+    lru_bytes = ds.lru.nbytes
+    ds.lru = LRUCache(ds.lru.capacity_bytes)   # F9: the reference keeps it
+    gc.collect()
+    torch.cuda.empty_cache()
+    fall = before - allocated_outside_workspaces()
+    assert fall >= pool_bytes, (fall, pool_bytes)
+    teardown = {"kv_keys_left": left, "pool_bytes": pool_bytes,
+                "freed_after_stop_bytes": fall_stop,
+                "read_cache_keys": lru_held, "read_cache_bytes": lru_bytes,
+                "freed_after_read_cache_bytes": fall,
+                "allocated_after_bytes": allocated_outside_workspaces()}
+    res = {"phase": "cluster", "card": smi, "light": CLUSTER_LIGHT,
+           "heavy": CLUSTER_HEAVY, "light_tier": ls, "heavy_tier": hs,
+           "chat": {"sessions": chat, "prefix_hit_tokens": chat_hits},
+           "cascade": {**cascade, "probe_logprobs": probe,
+                       "escalated": sorted(rid for rid in prompts
+                                           if rid in heavy_sent)},
+           "kv": kv, "kv_after_failover": kv_after,
+           "donate_hits": ds.donate_hits, "donate_misses": ds.donate_misses,
+           "launches": launches, "launches_expected": want,
+           "arrivals_during_captures": arrivals,
+           "overload": overload, "failover": failover,
+           "streams_equal_direct": {"light": len(light_ref),
+                                    "heavy": len(heavy_ref)},
+           "teardown": teardown, "main_s": t_main, "node_s": t_node,
+           "reference_s": t_ref}
+    node.close()
+    del node, light, heavy, lparams, hparams, ds
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.monotonic() - t_phase
+    emit(res)
+    return res
+
+
+def cluster_phase(dev, smi: str, serve_main: dict) -> dict:
+    t0 = time.monotonic()
+    single = cluster_single_tenant(dev, smi, serve_main)
+    tenants = cluster_tenants(dev, smi)
+    return {"single": single, "tenants": tenants,
+            "seconds": time.monotonic() - t0}
+
+
 # ================================================================== score
 def _seeded_params(cfg, dev, seed):
     """Seeded random weights with N(0, 1/d) embedding rows, as the serve
@@ -2398,6 +2856,7 @@ def main() -> int:
     main_run = serve_phase(dev, smi)
     dense = serve_dense_phase(dev, smi)
     preempt_phases(dev, smi)
+    cluster_phase(dev, smi, main_run)
     scores = score_phase(dev, smi)
     rep = next(c for c in cases if c["kv_dtype"] == "bfloat16"
                and c["window"] is None and c["softcap"] == 50.0)

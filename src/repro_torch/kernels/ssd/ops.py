@@ -117,9 +117,12 @@ def _check(x, dt, A, B_, C_, D, h0, chunk):
         raise ValueError(f"D must be ({H},), got {tuple(D.shape)}")
     if h0 is not None and h0.shape != (Bb, H, P, N):
         raise ValueError(f"h0 must be {(Bb, H, P, N)}, got {tuple(h0.shape)}")
-    if not (0 < P <= _MAX_P and 0 < N <= _MAX_N):
+    # the kernel's limits; the plain version (the CPU route) also takes a
+    # zero-width state (a toy SSM config's), as the reference does
+    n_min = 1 if x.is_cuda else 0
+    if not (0 < P <= _MAX_P and n_min <= N <= _MAX_N):
         raise ValueError(f"head_dim {P} / state {N} outside 1..{_MAX_P} / "
-                         f"1..{_MAX_N}")
+                         f"{n_min}..{_MAX_N}")
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
 

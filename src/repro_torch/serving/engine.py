@@ -18,7 +18,9 @@ K1, the ragged paged-attention kernel, at every layer — followed by
   stats.ticks`` is the invariant (an idle tick dispatches nothing and does
   not count).
 - **In-place pool**: the step writes K/V into the device pool in place (the
-  JAX engine donates the pool to its jitted step instead).
+  JAX engine donates the pool to its jitted step instead), and every tick
+  publishes the pool tensors themselves to the ``DeviceStore`` key
+  ``kv_key`` (``PagedCacheManager.publish``).
 - **Fixed shapes**: the packed batch is always ``token_budget`` lanes and
   the block-table operand always (n_slots, max_blocks).
 
@@ -296,9 +298,6 @@ class ServeEngine:
                     "path only runs single-device (pass paged=True or a "
                     "config with supports_paged)")
             raise _later("mesh slices", "mesh")
-        if devstore is not None or kv_key is not None:
-            raise _later("the DeviceStore bridge (devstore / kv_key)",
-                         "DeviceStore")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ServeEngine runs on the card (device='cuda') "
@@ -331,7 +330,8 @@ class ServeEngine:
             self.cm: Any = PagedCacheManager(
                 cfg, n_slots, max_len, block_size=block_size,
                 num_blocks=num_blocks, prefix_cache=prefix_cache,
-                kv_dtype=resolve_kv_dtype(kv_dtype), device=self.device)
+                kv_dtype=resolve_kv_dtype(kv_dtype), devstore=devstore,
+                kv_key=kv_key, device=self.device)
             self.token_budget = (token_budget if token_budget is not None
                                  else max(32, 2 * n_slots))
             if self.token_budget < n_slots:
@@ -507,6 +507,12 @@ class ServeEngine:
     def idle(self) -> bool:
         return (self.scheduler.pending(self.replica_id) == 0
                 and not self.live and not self.prefilling)
+
+    def backlog(self) -> int:
+        """Requests this replica currently holds: queued + mid-prefill +
+        decoding (the signal a deployment's watermark bounds)."""
+        return (self.scheduler.pending(self.replica_id)
+                + len(self.prefilling) + len(self.live))
 
     def _emit_first_token(self, req: Request, slot: int, tok: int,
                           now: float, score) -> None:

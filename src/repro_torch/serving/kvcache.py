@@ -12,10 +12,12 @@ conv state carries the whole history in O(1) per request).
 Paged manager (``PagedCacheManager``): every layer holds (num_blocks,
 block_size, K, D) K/V tensors on the device (``models.init_paged_pools``),
 and a request's cache is a *block table* — the physical blocks that back its
-logical positions [0, ctx).  The engine's step updates the pool in place, so
-the pool simply lives on the device; the JAX package's ``DeviceStore`` bridge
-(``devstore`` / ``kv_key``, ``publish`` re-installing the donated tree) joins
-with the port's DeviceStore slice, and ``publish`` is a no-op until then.
+logical positions [0, ctx).  The engine's step updates the pool in place.
+The pool is also an object of a ``core.devstore.DeviceStore`` (``devstore``
+/ ``kv_key``; by default a store of its own under ``/kv/pool``): ``publish``
+installs the pool tensors themselves as the key's next version, never a
+copy, after every tick and every adoption, as the reference does after
+each donated dispatch.
 
 The paged host-side accounting is the reference's, line for line: a
 per-replica prefix trie over prompt token blocks (``core.trie.PathTrie``),
@@ -40,6 +42,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.devstore import DeviceStore
+from repro_torch.core.pools import PoolSpec
 from repro_torch.core.trie import PathTrie
 from repro_torch.models import init_decode_caches, init_paged_pools
 from repro_torch.models.config import ModelConfig
@@ -410,7 +414,8 @@ class PagedCacheManager:
     def __init__(self, cfg: ModelConfig, n_slots: int, max_len: int, *,
                  block_size: int = 16, num_blocks: int | None = None,
                  prefix_cache: bool = True, kv_dtype: str | None = None,
-                 device="cuda") -> None:
+                 devstore: DeviceStore | None = None,
+                 kv_key: str | None = None, device="cuda") -> None:
         self.cfg, self.n_slots, self.max_len = cfg, n_slots, max_len
         self.block_size = block_size
         self.max_blocks = max(1, math.ceil(max_len / block_size))
@@ -426,10 +431,19 @@ class PagedCacheManager:
         self.pools = init_paged_pools(cfg, num_blocks, block_size,
                                       kv_dtype=self.kv_dtype, device=device)
         self.slots = [PagedSeq() for _ in range(n_slots)]
+        if devstore is None:
+            devstore = DeviceStore(self.device, keep_versions=1)
+            devstore.create_pool(PoolSpec(path="/kv"))
+        self.devstore = devstore
+        self.kv_key = kv_key or "/kv/pool"
+        self.publish()
 
+    # ----------------------------------------------------- devstore bridge
     def publish(self) -> None:
-        """No-op: the pool is updated in place on the device.  Installing
-        it on a DeviceStore comes with the port's DeviceStore slice."""
+        """Install the pool on the device store as the key's next version:
+        the pool tensors themselves (a donate hit), which the tick and
+        ``adopt`` update in place, so the stored version is the live pool."""
+        self.devstore.put(self.kv_key, self.pools, donate=True)
 
     def pool_bytes(self) -> int:
         """Device bytes of the whole pool (every layer, every leaf)."""
@@ -615,6 +629,7 @@ class PagedCacheManager:
             spilled.blocks + [{"idx": torch.tensor(fresh, dtype=torch.int64)}],
             self.device)
         _scatter_blocks(self.pools, blocks, idx["idx"])
+        self.publish()
         return seq
 
     def block_tables(self, out: np.ndarray | None = None) -> np.ndarray:

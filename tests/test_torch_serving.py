@@ -20,7 +20,8 @@ from repro.serving import scheduler as jsched
 from repro.serving.engine import ServeEngine as JEngine
 import repro_torch.models as P
 from repro_torch.configs.registry import get_config
-from repro_torch.core.pools import DispatchPolicy
+from repro_torch.core.devstore import DeviceStore
+from repro_torch.core.pools import DispatchPolicy, PoolSpec
 from repro_torch.core.store import SpillPool
 from repro_torch.serving import kvcache as pkv
 from repro_torch.serving import scheduler as psched
@@ -241,15 +242,20 @@ def test_engine_rejects_unservable_requests_through_completion(model):
 
 
 def test_deferred_features_raise_not_implemented(model):
-    """The DeviceStore bridge and mesh slices still raise, naming their
-    slice; preemption into a spill pool and spill / evacuate / adopt are
-    ported (``tests/test_torch_preempt.py``): on an idle engine they find
-    nothing to move."""
+    """Mesh slices still raise, naming their slice; the DeviceStore bridge
+    (``devstore`` / ``kv_key``) is ported (``tests/test_torch_devstore.py``)
+    and publishes the pool at construction; preemption into a spill pool
+    and spill / evacuate / adopt are ported (``tests/test_torch_preempt.py``):
+    on an idle engine they find nothing to move."""
     name, jcfg, pcfg, jp, pp = model
-    for kw in (dict(devstore=object()), dict(kv_key="/kv/x"),
-               dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="slice"):
-            ServeEngine(pcfg, pp, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="slice"):
+        ServeEngine(pcfg, pp, device="cpu", mesh=object())
+    ds = DeviceStore("cpu", keep_versions=1)
+    ds.create_pool(PoolSpec(path="/kv"))
+    eng = ServeEngine(pcfg, pp, n_slots=2, max_len=32, device="cpu",
+                      devstore=ds, kv_key="/kv/x")
+    assert ds.keys() == ["/kv/x"] and ds.latest_version("/kv/x") == 0
+    assert ds.get("/kv/x") is eng.cm.pools and ds.donate_misses == 0
     eng = ServeEngine(pcfg, pp, n_slots=2, max_len=32, device="cpu",
                       preempt=True, spill_pool=SpillPool(capacity_blocks=8))
     assert eng.preempt and eng.spill(0) is None

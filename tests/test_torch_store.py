@@ -1,18 +1,18 @@
 """The port's host core (``repro_torch.core``: objects, versioning, the
-persistent log, pools, placement, the dispatcher and the store) under the
-JAX package's own scenarios, on the CPU.
+persistent log, pools, placement, the dispatcher, the store, the path trie,
+the DFG, the lambda API and ``CascadeService``) under the JAX package's own
+scenarios, on the CPU.
 
 Those modules are copies of the JAX package's, so their tests are too: the
-scenarios of ``tests/test_store_core.py``, ``tests/test_dispatcher.py`` and
-``tests/test_log.py`` are read from those files and run here with every
-``repro.`` import pointed at ``repro_torch.`` (a name the JAX tests import
-from the ``repro.core`` package comes from the port's submodule that
-defines it; ``CascadeService``, imported but unused there, waits for the
-port's ``core/service.py``).  Each scenario runs under the reference's
-lock-order tracker, installed for the port's modules.
+scenarios of ``tests/test_store_core.py``, ``tests/test_dispatcher.py``,
+``tests/test_log.py``, ``tests/test_trie.py`` and
+``tests/test_dfg_service.py`` are read from those files and run here with
+every ``repro.`` import pointed at ``repro_torch.`` (``repro_torch.core``
+exports the names ``repro.core`` does, bar the device fast path).  Each
+scenario runs under the reference's lock-order tracker, installed for the
+port's modules.
 """
 import ast
-import importlib
 import inspect
 from pathlib import Path
 
@@ -24,44 +24,32 @@ from repro.analysis.sanitizer import LockOrderTracker
 torch.set_num_threads(1)
 
 TESTS = Path(__file__).resolve().parent
-SOURCES = ("test_store_core", "test_dispatcher", "test_log")
-PORT_CORE = ("objects", "versioning", "log", "pools", "placement",
-             "dispatcher", "store", "trie")
-
-
-def _homes() -> dict[str, str]:
-    """Each public name of the port's core modules → the module defining
-    it."""
-    homes = {}
-    for name in PORT_CORE:
-        mod = importlib.import_module(f"repro_torch.core.{name}")
-        for attr, val in vars(mod).items():
-            if (not attr.startswith("_")
-                    and getattr(val, "__module__", mod.__name__)
-                    == mod.__name__):
-                homes.setdefault(attr, mod.__name__)
-    return homes
+SOURCES = ("test_store_core", "test_dispatcher", "test_log", "test_trie",
+           "test_dfg_service")
 
 
 class _ToPort(ast.NodeTransformer):
-    def __init__(self, homes: dict[str, str]) -> None:
-        self.homes = homes
-
     def visit_ImportFrom(self, node):
         mod = node.module or ""
-        if mod == "repro.core":
-            return [ast.ImportFrom(module=self.homes[a.name], names=[a],
-                                   level=0)
-                    for a in node.names if a.name in self.homes]
         if mod.startswith("repro."):
             node.module = "repro_torch" + mod[len("repro"):]
+        return node
+
+    def visit_Call(self, node):
+        """``__import__("repro.x", ...)`` inside a scenario → the port."""
+        self.generic_visit(node)
+        arg = node.args[0] if node.args else None
+        if (getattr(node.func, "id", None) == "__import__"
+                and isinstance(arg, ast.Constant)
+                and arg.value.startswith("repro.")):
+            arg.value = "repro_torch" + arg.value[len("repro"):]
         return node
 
 
 def _load(stem: str) -> dict:
     """The scenarios of ``tests/<stem>.py``, executed against the port."""
     path = TESTS / f"{stem}.py"
-    tree = _ToPort(_homes()).visit(ast.parse(path.read_text()))
+    tree = _ToPort().visit(ast.parse(path.read_text()))
     ns = {"__name__": f"{stem}_on_the_port", "__file__": str(path)}
     exec(compile(ast.fix_missing_locations(tree), str(path), "exec"), ns)
     return ns
