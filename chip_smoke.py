@@ -28,7 +28,9 @@ on the first phase that fails (exit code != 0):
                   lanes (rows reordered, chunks cut at other offsets, verify
                   runs taken apart); then bf16 pools at the
                   h2o-danube widths (H=32, K=8, D=80 and D=120), each at its
-                  config's window; then the serve phase's decode tick (8
+                  config's window, and at the MoE configs' (D=128:
+                  deepseek-moe-16b H=K=16, llama4-maverick H=40, K=8), no
+                  window; then the serve phase's decode tick (8
                   decode rows, one at 4,532 positions, padded to 512 lanes)
                   with bf16 and int8 pools.  Times: kernel and plain version
                   (CUDA events, median, cold L2), and the bound (bytes and
@@ -42,7 +44,9 @@ on the first phase that fails (exit code != 0):
                   S=8192, H=16, K=8, D=256) in f32
                   and bf16 with window None / 4096 and softcap None / 50, one
                   case at each other config's shapes and window (zamba2-2.7b:
-                  D=160, H=K=32), a ragged S=8000, and zamba2-2.7b's dense
+                  D=160, H=K=32; deepseek-moe-16b: D=128, H=K=16;
+                  llama4-maverick: D=128, H=40, K=8), a ragged S=8000, and
+                  zamba2-2.7b's dense
                   prefill shapes (4 x 2048, 17, 300); bf16 outputs held
                   element by element to one rounding from the plain version's
                   f32 values; times as for K1, plus one library call
@@ -188,18 +192,40 @@ on the first phase that fails (exit code != 0):
                   ``stop()`` leaves no ``/kv/light`` key and, once its
                   engines and the store's read cache let go, the memory
                   falls by at least its two pools.
-15. score       — ``forward`` at full width and full depth, bf16, seeded
+15. serve_moe   — ``ServeEngine`` serving deepseek-moe-16b (CONFIG: full
+                  width, all 28 layers, 27 of them MoE with 64 routed
+                  experts top-6 and 2 shared, bf16, seeded weights, 32.75
+                  GB) the serve phase's 8 requests on 8 slots, a 512-token
+                  budget and 1,024 blocks of 16: captured, eagerly and
+                  captured again (equal streams), and at spec_k=2 (its
+                  streams against spec_k=0's reported, not asserted:
+                  capacity makes a token's output depend on the other
+                  tokens of its tick), all under the sync check; asserts
+                  host_syncs == ticks and K1 launches == ticks x 28; then
+                  one captured run traced (device time in K1, gemm and an
+                  approximate moe_dispatch group), and one tick's share of
+                  (token, slot) entries that capacity drops.
+16. moe_check   — llama4-maverick-400b-a17b at full width cut to one period
+                  of its pattern (n_layers 48 -> 2: a dense and a MoE layer
+                  of 128 experts, 37.1 GB): ``forward`` on 2048 tokens with
+                  K2 against the plain attention (the tokens both runs route
+                  alike held within 2e-2 of the logits' scale, at least 0.9
+                  of them), then three requests served captured and eagerly
+                  (equal streams, K1 launches == ticks x 2).
+17. score       — ``forward`` at full width and full depth, bf16, seeded
                   random weights, B=1: gemma2-9b, gemma3-4b, h2o-danube-1.8b,
-                  mamba2-1.3b and zamba2-2.7b at S=8192, h2o-danube-3-4b at
-                  S=9216 (past its 8192 window); finite f32 logits of shape
-                  (1, S, V), K2 launches == attention layers and K3 launches
-                  == mamba layers per forward; wall time, tokens/s, peak
-                  memory.
-16. score_trace — one gemma2-9b score forward under torch.profiler
+                  mamba2-1.3b, zamba2-2.7b and deepseek-moe-16b at S=8192,
+                  h2o-danube-3-4b at S=9216 (past its 8192 window); finite
+                  f32 logits of shape (1, S, V), K2 launches == attention
+                  layers and K3 launches == mamba layers per forward, the
+                  aux loss >= 1 - 1e-3 with experts and 0 without; wall
+                  time, tokens/s, peak memory.
+18. score_trace — one gemma2-9b score forward under torch.profiler
                   (informational).
 
-It prints one JSON line per phase, then the card's name and power limit as
-nvidia-smi gives them, then the kernels line (K1-K4), and last
+It prints one JSON line per phase, then each phase's seconds, then the
+card's name and power limit as nvidia-smi gives them, then the kernels line
+(K1-K4), and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -208,6 +234,7 @@ import contextlib
 import functools
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -322,10 +349,13 @@ H, KV, D, BS, T = 16, 8, 256, 16, 512
 # to the tick's T = 512 lanes
 DECODE_TICK_ROWS = [(4532, 1), (196, 1), (332, 1), (152, 1), (48, 1),
                     (109, 1), (332, 1), (63, 1)]
-# K1 at the h2o-danube widths (head_dim 80 and 120), bf16 pool, the
-# config's own window: (arch, H, K, D, window)
+# K1 at the h2o-danube widths (head_dim 80 and 120) and the MoE configs'
+# (head_dim 128: deepseek-moe-16b's MHA, G = 1, and llama4-maverick's G = 5),
+# bf16 pool, the config's own window: (arch, H, K, D, window)
 K1_WIDTHS = [("h2o-danube-1.8b", 32, 8, 80, 4096),
-             ("h2o-danube-3-4b", 32, 8, 120, 8192)]
+             ("h2o-danube-3-4b", 32, 8, 120, 8192),
+             ("deepseek-moe-16b", 16, 16, 128, None),
+             ("llama4-maverick-400b-a17b", 40, 8, 128, None)]
 
 
 def kernel_inputs(dev, rng, h=H, kv=KV, d=D, reqs=KERNEL_ROWS):
@@ -815,7 +845,8 @@ def serve_once(cfg, params, dev, smi: str, reqs=None, **kw
     assert all(np.isfinite(r.scores).all() for r in done)
     assert s.host_syncs == s.ticks, (s.host_syncs, s.ticks)
     assert s.prefix_hit_tokens > 0
-    res = {"phase": "serve", "kv_dtype": kw.get("kv_dtype") or "bfloat16",
+    res = {"phase": "serve", "arch": cfg.name,
+           "kv_dtype": kw.get("kv_dtype") or "bfloat16",
            "spec_k": kw.get("spec_k", 0),
            "temperature": kw.get("temperature", 0.0), "card": smi,
            "n_layers": cfg.n_layers, "pool_bytes": eng.cm.pool_bytes(),
@@ -917,12 +948,13 @@ def kernel_launches(prof, names) -> int:
                and any(n in ev.key for n in names))
 
 
-def trace_phase(cfg, params, dev, cuda_graphs: bool) -> dict:
+def trace_phase(cfg, params, dev, cuda_graphs: bool, groups=None) -> dict:
     """Where the time goes: the main serve run again under torch.profiler,
-    device time by kernel (self time, summed over launches) and the device's
-    busy share of the wall time, and K1's launches as the trace counts them
-    (one combine kernel per call).  The timings above come from runs without
-    the profiler."""
+    device time by kernel (self time, summed over launches, in ``groups``:
+    K1 and the dense products unless given) and the device's busy share of
+    the wall time, and K1's launches as the trace counts them (one combine
+    kernel per call).  The timings above come from runs without the
+    profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving.engine import ServeEngine
@@ -943,8 +975,8 @@ def trace_phase(cfg, params, dev, cuda_graphs: bool) -> dict:
     assert traced == ticks * cfg.n_layers, (traced, ticks)
     res = {"phase": "trace", "cuda_graphs": cuda_graphs, "ticks": ticks,
            "k1_launches_traced": traced,
-           **_device_time(prof, wall, {"K1": K1_KERNELS,
-                                       "gemm": GEMM_KEYS})}
+           **_device_time(prof, wall, groups or {"K1": K1_KERNELS,
+                                                 "gemm": GEMM_KEYS})}
     emit(res)
     ref = graph_ref(eng)
     del eng
@@ -956,8 +988,9 @@ def trace_phase(cfg, params, dev, cuda_graphs: bool) -> dict:
 # (arch, B, S, H, K, D, dtype, window, softcap): gemma2-9b's attention at
 # S = 8192 in both dtypes with and without its window and softcap, one case
 # at each other config's shapes and window (zamba2-2.7b's shared attention:
-# D = 160, MHA), a ragged S, and the shapes zamba2-2.7b's dense prefill
-# sends in serve_dense (4 x 2048 batched, and 17 and 300 tokens)
+# D = 160, MHA; the MoE configs' D = 128, G = 1 and 5), a ragged S, and the
+# shapes zamba2-2.7b's dense prefill sends in serve_dense (4 x 2048
+# batched, and 17 and 300 tokens)
 FLASH_CASES = (
     [("gemma2-9b", 1, 8192, 16, 8, 256, dt, w, c)
      for dt in (torch.float32, torch.bfloat16)
@@ -966,6 +999,10 @@ FLASH_CASES = (
        ("h2o-danube-1.8b", 1, 8192, 32, 8, 80, torch.bfloat16, 4096, None),
        ("h2o-danube-3-4b", 1, 9216, 32, 8, 120, torch.bfloat16, 8192, None),
        ("zamba2-2.7b", 1, 8192, 32, 32, 160, torch.bfloat16, None, None),
+       ("deepseek-moe-16b", 1, 8192, 16, 16, 128, torch.bfloat16, None,
+        None),
+       ("llama4-maverick-400b-a17b", 1, 8192, 40, 8, 128, torch.bfloat16,
+        None, None),
        ("gemma2-9b", 1, 8000, 16, 8, 256, torch.bfloat16, 4096, 50.0)]
     + [("zamba2-2.7b", B, S, 32, 32, 160, torch.bfloat16, None, None)
        for B, S in ((4, 2048), (1, 17), (1, 300))])
@@ -2620,6 +2657,226 @@ def cluster_phase(dev, smi: str, serve_main: dict) -> dict:
             "seconds": time.monotonic() - t0}
 
 
+# ==================================================================== MoE
+# the MoE layer's routing and dispatch kernels in a trace, by name: scatter_
+# and gather, index / index_put_, cumsum's scan, topk's select and sort.
+# Approximate: the embedding lookup's index kernel lands here too, and
+# softmax, where and the zero fills count as other
+MOE_DISPATCH = ("scatter", "gather", "index", "scan", "topk", "sort",
+                "radix")
+
+
+class RepeatDrafts:
+    """Proposes the row's last token k times (a duck-typed DraftSource):
+    drafts that are mostly rejected, so the verify rows and their rollback
+    run whatever the weights generate."""
+
+    def propose(self, req, history, k):
+        return [int(history()[-1])] * k
+
+
+def moe_drop_shares(cfg, params, dev) -> dict:
+    """The share of (token, slot) entries that capacity drops at each MoE
+    layer of one served tick: the serve traffic's first tick, run eagerly,
+    each layer's hidden states routed again by the port's dispatch plan
+    (``models/moe.py::dispatch_plan``).  Over all lanes, and over the lanes
+    that hold a token (pad lanes share one hidden state, so they choose the
+    same experts, and they pack after the tokens)."""
+    import importlib
+
+    from repro_torch.models import lm
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving.engine import ServeEngine
+
+    moe_mod = importlib.import_module("repro_torch.models.moe")
+    eng = ServeEngine(cfg, params, n_slots=8, token_budget=512, max_len=8192,
+                      num_blocks=1024, device=dev, cuda_graphs=False)
+    for r in serve_requests(cfg.vocab_size):
+        eng.submit(r)
+    lanes, dropped = [], []
+    step, layer = engine_mod.paged_mixed_step, lm.moe
+
+    def spy_step(params, pools, bt, tokens, positions, *a):
+        lanes.append(positions >= 0)
+        return step(params, pools, bt, tokens, positions, *a)
+
+    def spy_moe(p, x, *, cfg):
+        plan = moe_mod.dispatch_plan(p, x.reshape(-1, x.shape[-1]), cfg)
+        dropped.append(~plan.keep)
+        return layer(p, x, cfg=cfg)
+
+    engine_mod.paged_mixed_step, lm.moe = spy_step, spy_moe
+    try:
+        eng.tick()
+    finally:
+        engine_mod.paged_mixed_step, lm.moe = step, layer
+    del eng
+    token = lanes[0]
+    every = [float(d.float().mean()) for d in dropped]
+    tokens = [float(d[token].float().mean()) for d in dropped]
+    return {"tick": 1, "lanes": token.numel(), "token_lanes": int(token.sum()),
+            "moe_layers": len(dropped),
+            "dropped_share_mean": statistics.fmean(every),
+            "dropped_share_max": max(every),
+            "dropped_share_token_lanes_mean": statistics.fmean(tokens),
+            "dropped_share_token_lanes_max": max(tokens)}
+
+
+def serve_moe_phase(dev, smi: str) -> dict:
+    """``ServeEngine`` serving deepseek-moe-16b at full width and depth (28
+    layers, 27 of them MoE: 64 routed experts top-6 and 2 shared; bf16,
+    seeded weights) on the serve traffic: captured, eagerly, captured
+    again (the three streams equal), at spec_k=2 with ``RepeatDrafts``
+    (the n-gram drafter finds nothing to propose on these weights; its
+    streams reported against spec_k=0's, not asserted: capacity makes a
+    token's output depend on the other tokens of its tick), then one
+    captured run traced; and one tick's capacity drops."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config("deepseek-moe-16b")
+    t0 = time.monotonic()
+    params = _seeded_params(cfg, dev, 0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    assert n_params == cfg.param_count(), (n_params, cfg.param_count())
+    emit({"phase": "init", "arch": cfg.name, "params": n_params,
+          "param_bytes": sum(t.numel() * t.element_size()
+                             for t in _leaves(params)),
+          "seconds": time.monotonic() - t0})
+    drops = moe_drop_shares(cfg, params, dev)
+    main, greedy = serve_once(cfg, params, dev, smi)
+    eager, eager_streams = serve_once(cfg, params, dev, smi,
+                                      cuda_graphs=False)
+    assert eager_streams == greedy, "MoE: captured and eager streams differ"
+    again, again_streams = serve_once(cfg, params, dev, smi)
+    assert again_streams == greedy, "MoE: a second captured run differs"
+    spec, spec_streams = serve_once(cfg, params, dev, smi, spec_k=2,
+                                    draft_source=RepeatDrafts())
+    assert spec["spec_drafted"] > 0
+    for res in (main, eager, again, spec):
+        # K1 at every layer of every tick
+        assert res["k1_launches"] == res["ticks"] * cfg.n_layers, res
+    traced = trace_phase(cfg, params, dev, True,
+                         {"K1": K1_KERNELS, "gemm": GEMM_KEYS,
+                          "moe_dispatch": MOE_DISPATCH})
+    graphs_line("paged deepseek-moe-16b bf16 spec_k=0", smi, main,
+                dict(again, **traced),
+                dict(eager, device_idle_share="not measured"))
+    res = {"phase": "serve_moe", "arch": cfg.name, "card": smi,
+           "params": n_params, "ticks": main["ticks"],
+           "host_syncs": main["host_syncs"],
+           "k1_launches": main["k1_launches"],
+           "captured_equals_eager": True, "second_capture_equal": True,
+           "spec_k2_drafted": spec["spec_drafted"],
+           "spec_k2_accepted": spec["spec_accepted"],
+           "spec_k2_streams_equal": spec_streams == greedy,
+           "spec_k2_streams_differing": sum(
+               spec_streams[k] != greedy[k] for k in greedy),
+           **{m: again[m] for m in GRAPH_METRICS if m in again},
+           "first_run": {m: main[m] for m in GRAPH_METRICS if m in main},
+           "pool_bytes": main["pool_bytes"], "drops": drops,
+           "moe_dispatch_group": "approximate (see MOE_DISPATCH)",
+           "trace_group_ms": traced["group_ms"]}
+    emit(res)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def moe_check_phase(dev, smi: str, S=2048) -> dict:
+    """llama4-maverick-400b-a17b at full width cut to one period of its
+    pattern (n_layers 48 -> 2: a dense layer, then a MoE layer of 128
+    experts top-1 and one shared; bf16, seeded weights): ``forward`` over
+    S tokens with K2 against the same forward with the plain attention,
+    then a three-request paged serve captured and eagerly.
+
+    K2 and its plain version round differently, so a token whose router
+    probabilities nearly tie may choose another expert in the two runs (and
+    move a later token of those experts past the capacity).  The logits of
+    every token that both runs send to the same expert, or drop alike, are
+    held within 2e-2 of the logits' scale; the share of such tokens must be
+    at least 0.9."""
+    import importlib
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.models import attention, forward, lm
+
+    moe_mod = importlib.import_module("repro_torch.models.moe")
+    cfg = get_config("llama4-maverick-400b-a17b").replace(n_layers=2)
+    t0 = time.monotonic()
+    params = _seeded_params(cfg, dev, 7)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    assert n_params == cfg.param_count(), (n_params, cfg.param_count())
+    init_s = time.monotonic() - t0
+    toks, pos = _prompt(cfg.vocab_size, S, 7, dev)
+    kernel_fn, layer = attention.fa_ops.flash_attention, lm.moe
+
+    def plain_fn(q, k, v, *, positions=None, **kw):
+        return fa_ref.attention_ref(q, k, v, **kw)
+
+    runs = {}
+    for name, fn in (("kernel", kernel_fn), ("plain", plain_fn)):
+        routes = []
+
+        def spy(p, x, *, cfg):
+            plan = moe_mod.dispatch_plan(p, x.reshape(-1, x.shape[-1]), cfg)
+            # each entry's expert, or -1 where capacity dropped it
+            routes.append(torch.where(
+                plan.keep, plan.row // (plan.groups * plan.capacity), -1))
+            return layer(p, x, cfg=cfg)
+
+        attention.fa_ops.flash_attention, lm.moe = fn, spy
+        kernel_fn.launches = 0
+        try:
+            logits, aux = forward(params, toks, pos, cfg)
+        finally:
+            attention.fa_ops.flash_attention, lm.moe = kernel_fn, layer
+        runs[name] = (logits, float(aux), routes, kernel_fn.launches)
+    (a, aux_a, ra, k2), (b, aux_b, rb, _) = runs.pop("kernel"), \
+        runs.pop("plain")
+    assert k2 == 2, k2
+    assert a.shape == (1, S, cfg.vocab_size) and a.dtype == torch.float32
+    assert bool(torch.isfinite(a).all())
+    assert math.isfinite(aux_a) and aux_a >= 1 - 1e-3, aux_a
+    same = torch.stack([(x == y).all(-1) for x, y in zip(ra, rb)]).all(0)
+    same_share = float(same.float().mean())
+    err = (a[0, same] - b[0, same]).abs().max().item()
+    scale = b.abs().max().item()
+    assert same_share >= 0.9, same_share
+    assert err <= 2e-2 * scale, (err, scale)
+    res = {"phase": "moe_check", "arch": cfg.name, "card": smi,
+           "reduced": "n_layers 48 -> 2", "params": n_params,
+           "init_s": init_s, "tokens": S, "k2_launches": k2,
+           "aux_kernel": aux_a, "aux_plain": aux_b,
+           "routed_alike_share": same_share,
+           "kernel_vs_plain_max_abs_err_routed_alike": err,
+           "logit_scale": scale,
+           "argmax_equal_share": float((a.argmax(-1) == b.argmax(-1)).float()
+                                       .mean())}
+    del a, b, ra, rb
+    served = {}
+    for graphs in (True, False):
+        r, streams = serve_once(cfg, params, dev, smi,
+                                reqs=serve_requests(cfg.vocab_size)[1:4],
+                                cuda_graphs=graphs)
+        assert r["k1_launches"] == r["ticks"] * cfg.n_layers, r
+        served[graphs] = streams
+        res["serve_captured" if graphs else "serve_eager"] = {
+            k: r[k] for k in ("ticks", "host_syncs", "k1_launches",
+                              "ttft_p50_s", "tpot_p50_s", "tokens_per_s",
+                              "peak_mem_bytes")}
+    assert served[True] == served[False], "llama4: captured != eager"
+    res["captured_equals_eager"] = True
+    emit(res)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 # ================================================================== score
 def _seeded_params(cfg, dev, seed):
     """Seeded random weights with N(0, 1/d) embedding rows, as the serve
@@ -2703,10 +2960,12 @@ def score_check_phase(cfg, dev, S=2048, S_prompt=512) -> dict:
 
 # (arch, S): S = 8192 crosses gemma2's and danube-1.8b's 4096 window and
 # gemma3's 1024; danube-3-4b's 8192 window needs S = 9216; mamba2-1.3b and
-# zamba2-2.7b scan 32 chunks of 256
+# zamba2-2.7b scan 32 chunks of 256; deepseek-moe-16b routes 16 groups of
+# 512 tokens
 SCORE_RUNS = [("gemma2-9b", 8192), ("gemma3-4b", 8192),
               ("h2o-danube-1.8b", 8192), ("h2o-danube-3-4b", 9216),
-              ("mamba2-1.3b", 8192), ("zamba2-2.7b", 8192)]
+              ("mamba2-1.3b", 8192), ("zamba2-2.7b", 8192),
+              ("deepseek-moe-16b", 8192)]
 
 
 def score_phase(dev, smi: str, runs=SCORE_RUNS, smoke=False) -> list[dict]:
@@ -2714,7 +2973,10 @@ def score_phase(dev, smi: str, runs=SCORE_RUNS, smoke=False) -> list[dict]:
     weights), one sequence per config: a first forward builds up the
     allocator and checks the output, a second is timed (host clock around a
     forward that ends in synchronize) and must launch K2 once per attention
-    layer and K3 once per mamba layer.  gemma2-9b's is then traced."""
+    layer and K3 once per mamba layer.  The aux loss is finite and at least
+    1 - 1e-3 for a config with experts (the Switch loss's bound at balance,
+    ``tests/test_models.py::test_moe_aux_loss_positive_and_bounded``), 0
+    otherwise.  gemma2-9b's is then traced."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import forward, layer_specs
 
@@ -2730,7 +2992,10 @@ def score_phase(dev, smi: str, runs=SCORE_RUNS, smoke=False) -> list[dict]:
         init_s = time.monotonic() - t0
         logits, aux = forward(params, toks, pos, cfg)
         assert logits.shape == (1, S, cfg.vocab_size), logits.shape
-        assert logits.dtype == torch.float32 and float(aux) == 0.0
+        assert logits.dtype == torch.float32 and aux.dtype == torch.float32
+        aux = float(aux)
+        assert (math.isfinite(aux) and aux >= 1 - 1e-3 if cfg.n_experts
+                else aux == 0.0), (arch, aux)
         assert bool(torch.isfinite(logits).all()), arch
         del logits
         torch.cuda.reset_peak_memory_stats()
@@ -2751,7 +3016,7 @@ def score_phase(dev, smi: str, runs=SCORE_RUNS, smoke=False) -> list[dict]:
                "n_layers": cfg.n_layers, "d_model": cfg.d_model,
                "params": n_params, "B": 1, "S": S, "dtype": cfg.dtype,
                "k2_launches": launches["K2"], "k3_launches": launches["K3"],
-               "init_s": init_s, "wall_s": wall,
+               "aux": aux, "init_s": init_s, "wall_s": wall,
                "tokens_per_s": S / wall,
                "peak_mem_bytes": torch.cuda.max_memory_allocated()}
         emit(res)
@@ -2784,7 +3049,8 @@ def score_trace_phase(cfg, params, toks, pos) -> None:
 
 
 def _device_time(prof, wall, groups) -> dict:
-    """Device self time by kernel group and the busy / idle share of the
+    """Device self time by kernel group (a kernel counts in the first group
+    one of whose patterns its name holds) and the busy / idle share of the
     host wall time of a profiled run."""
     kernels = [(ev.self_device_time_total, ev.count, ev.key)
                for ev in prof.key_averages()
@@ -2792,9 +3058,12 @@ def _device_time(prof, wall, groups) -> dict:
                and ev.self_device_time_total > 0]
     kernels.sort(reverse=True)
     busy_ms = sum(k[0] for k in kernels) / 1e3
-    share = {g: sum(us for us, _, key in kernels
-                    if any(p in key.lower() for p in pats)) / 1e3
-             for g, pats in groups.items()}
+    share = dict.fromkeys(groups, 0.0)
+    for us, _, key in kernels:
+        g = next((g for g, pats in groups.items()
+                  if any(p in key.lower() for p in pats)), None)
+        if g is not None:
+            share[g] += us / 1e3
     share["other"] = busy_ms - sum(share.values())
     return {"wall_ms": wall * 1e3,
             "device_busy_ms": busy_ms if kernels else "not measured",
@@ -2845,19 +3114,30 @@ def main() -> int:
     emit({"phase": "env", "card": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "build_s": build.build()})
-    cases = kernel_phase(dev)
-    flash = flash_kernel_phase(dev)
-    ssd = ssd_kernel_phase(dev)
-    decode = decode_kernel_phase(dev)
-    cfg = get_config("gemma2-9b")
-    score_check_phase(cfg, dev)
-    ssm_check_phase(dev)
-    w1_phase(dev)
-    main_run = serve_phase(dev, smi)
-    dense = serve_dense_phase(dev, smi)
-    preempt_phases(dev, smi)
-    cluster_phase(dev, smi, main_run)
-    scores = score_phase(dev, smi)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.monotonic()
+        out = fn(*args)
+        seconds[name] = time.monotonic() - t0
+        return out
+
+    cases = timed("kernel", kernel_phase, dev)
+    flash = timed("flash_kernel", flash_kernel_phase, dev)
+    ssd = timed("ssd_kernel", ssd_kernel_phase, dev)
+    decode = timed("decode_kernel", decode_kernel_phase, dev)
+    timed("score_check", score_check_phase, get_config("gemma2-9b"), dev)
+    timed("ssm_check", ssm_check_phase, dev)
+    timed("w1", w1_phase, dev)
+    main_run = timed("serve", serve_phase, dev, smi)
+    dense = timed("serve_dense", serve_dense_phase, dev, smi)
+    timed("preempt", preempt_phases, dev, smi)
+    timed("cluster", cluster_phase, dev, smi, main_run)
+    moe = timed("serve_moe", serve_moe_phase, dev, smi)
+    timed("moe_check", moe_check_phase, dev, smi)
+    scores = timed("score", score_phase, dev, smi)
+    # where the script's run time goes, for the next phase's budget
+    emit({"phase": "seconds", **seconds})
     rep = next(c for c in cases if c["kv_dtype"] == "bfloat16"
                and c["window"] is None and c["softcap"] == 50.0)
     # K2's representative case: a global layer of gemma2-9b's score forward
@@ -2872,6 +3152,11 @@ def main() -> int:
                 and not c["D"])
     rep4 = next(c for c in decode if c["arch"] == "zamba2-2.7b"
                 and c["kv_dtype"] == "bfloat16")
+    # K1 and K2 at the MoE configs' head_dim 128
+    d128 = lambda cases: [{k: c.get(k) for k in (
+        "arch", "H", "K", "S", "kernel_ms", "bound_ms", "bound_by",
+        "plain_ms", "library_ms", "max_abs_err")} for c in cases
+        if c.get("D") == 128]
     print(smi)
     emit({"kernels": [{
         "name": "ragged_paged_attention", "id": "K1", "route": "cuda",
@@ -2883,7 +3168,8 @@ def main() -> int:
         "ms": rep["kernel_ms"], "plain_ms": rep["plain_ms"],
         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
         "library_ms": None,
-        "shape": "T=512 H=16 K=8 D=256 bs=16, bf16 q and pool, softcap 50"}, {
+        "shape": "T=512 H=16 K=8 D=256 bs=16, bf16 q and pool, softcap 50",
+        "launches_serve_moe": moe["k1_launches"], "d128": d128(cases)}, {
         "name": "flash_attention", "id": "K2", "route": "cuda",
         "source": K2_SRC, "replaces": K2_TPU,
         "tpu": "kernels/flash_attention/kernel.py:flash_attention_fwd",
@@ -2897,7 +3183,8 @@ def main() -> int:
                         "score_mod, causal block mask, enable_gqa; the port "
                         "never calls it",
         "shape": "B=1 S=8192 H=16 K=8 D=256, bf16, causal, no window, "
-                 "softcap 50 (gemma2-9b's global layers)"}, {
+                 "softcap 50 (gemma2-9b's global layers)",
+        "d128": d128(flash)}, {
         "name": "ssd", "id": "K3", "route": "cuda",
         "source": K3_SRC, "replaces": K3_TPU,
         "tpu": "kernels/ssd/kernel.py:ssd_fwd",

@@ -1,9 +1,9 @@
 """Architecture registry of the port.
 
 ``ARCH_IDS`` lists only the configs the port runs end to end, in the JAX
-package's registry order: its four pure-attention token configs and the
-SSM and hybrid configs; the MoE and embeds configs join in their own slices
-of the port.
+package's registry order: its two MoE configs, its four pure-attention
+token configs and the SSM and hybrid configs; the embeds configs join in
+their own slice of the port.
 """
 from __future__ import annotations
 
@@ -12,6 +12,8 @@ from importlib import import_module
 from repro_torch.models.config import ModelConfig
 
 _MODULES = {
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
     "gemma3-4b": "gemma3_4b",
     "gemma2-9b": "gemma2_9b",
     "h2o-danube-1.8b": "h2o_danube_1_8b",

@@ -2,11 +2,12 @@
 the dense prefill / decode steps and the paged serving step.
 
 Port of the JAX package's ``models/lm.py`` for token models of ``attn_mlp``,
-``mamba`` and ``shared_attn`` layers (the pure-attention configs, mamba2 and
-zamba2).  ``forward`` scores whole sequences (attention through K2, the
-flash-attention kernel; the SSD scan through K3); ``prefill`` and
-``decode_step`` run the dense per-slot caches (prefill through K2 and K3,
-decode attention through K4); ``paged_mixed_step`` runs one packed tick
+``attn_moe``, ``mamba`` and ``shared_attn`` layers (the pure-attention
+configs, the MoE configs, mamba2 and zamba2).  ``forward`` scores whole
+sequences (attention through K2, the flash-attention kernel; the SSD scan
+through K3); ``prefill`` and ``decode_step`` run the dense per-slot caches
+(prefill through K2 and K3, decode attention through K4);
+``paged_mixed_step`` runs one packed tick
 against the paged KV pool, and ``paged_prefill`` / ``paged_decode_step``
 the phase-separated steps over it (attention through K1 in all three).  One block body
 (``_apply_block``) serves them all.  The JAX package scans each segment over
@@ -21,7 +22,8 @@ applies the shared attention block.  ``params_from_numpy``,
 Params: ``{"embed": {"table"}, "final_norm": {"scale"}, "layers": [layer
 dict, ...]}`` (+ ``"head"`` for untied embeddings, + ``"shared_attn"`` for
 zamba2, whose layer dicts of the shared-attention applications are empty,
-as in the JAX package); each layer dict has the JAX leaf names and layouts.
+as in the JAX package); each layer dict has the JAX leaf names and layouts
+(an ``attn_moe`` layer's ``"moe"`` subtree keeps its router in f32).
 Pools and caches: a list with one dict per layer, updated in place by the
 step that uses them.
 """
@@ -36,8 +38,9 @@ from .config import LayerSpec, ModelConfig
 from .layers import (dtype_of, embed_init, embed_lookup, rmsnorm,
                      rmsnorm_init, softcap, unembed)
 from .mlp import mlp, mlp_init
+from .moe import moe, moe_init
 
-_PORTED_KINDS = {"attn_mlp", "mamba", "shared_attn"}
+_PORTED_KINDS = {"attn_mlp", "attn_moe", "mamba", "shared_attn"}
 
 
 def layer_specs(cfg: ModelConfig) -> list[LayerSpec]:
@@ -66,10 +69,10 @@ def _check_ported(cfg: ModelConfig, *, paged: bool = False) -> None:
     kinds = {s.kind for s in layer_specs(cfg)}
     if cfg.input_mode != "tokens" or not kinds <= _PORTED_KINDS:
         raise NotImplementedError(
-            f"config {cfg.name}: the port runs token models of attn_mlp, "
-            f"mamba and shared_attn layers; {sorted(kinds)} / input_mode="
-            f"{cfg.input_mode!r}: attn_moe layers join with the MoE slice "
-            f"and input_mode='embeds' with the embeds slice (ROADMAP P9)")
+            f"config {cfg.name}: the port runs token models of "
+            f"{sorted(_PORTED_KINDS)} layers; {sorted(kinds)} / input_mode="
+            f"{cfg.input_mode!r}: input_mode='embeds' joins with the embeds "
+            f"slice (ROADMAP P9b)")
     if paged and not supports_paged(cfg):
         raise ValueError(f"config {cfg.name} cannot use the paged KV pool: "
                          f"its {sorted(kinds)} layers carry state that "
@@ -90,7 +93,10 @@ def _block_init(generator, cfg: ModelConfig, spec: LayerSpec, device) -> dict:
     if cfg.post_norm:
         p["post_norm_attn"] = rmsnorm_init(d, device)
         p["post_norm_mlp"] = rmsnorm_init(d, device)
-    p["mlp"] = mlp_init(generator, cfg, device)
+    if spec.kind == "attn_moe":
+        p["moe"] = moe_init(generator, cfg, device)
+    else:
+        p["mlp"] = mlp_init(generator, cfg, device)
     return p
 
 
@@ -108,8 +114,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 device="cuda") -> dict:
     """Seeded random weights, made directly on ``device``.  Same
     distributions as the JAX initialisers (N(0,1) embedding table, dense
-    weights N(0, 1/fan_in), zero norm scales, A_log = dt_bias = 0, D = 1);
-    the draws differ, since the two frameworks' generators differ."""
+    weights N(0, 1/fan_in), zero norm scales, A_log = dt_bias = 0, D = 1,
+    the MoE router in f32); the draws differ, since the two frameworks'
+    generators differ."""
     _check_ported(cfg)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -299,20 +306,22 @@ def _apply_block(p, x, positions, *, cfg: ModelConfig, spec: LayerSpec,
                  mode: str = "score", cache=None, shared=None, embeds0=None,
                  max_len: int | None = None, pool=None, block_table=None,
                  row_ids=None):
-    """One layer.  Returns (x, the layer's new cache or None).
+    """One layer.  Returns (x, the layer's new cache or None, the MoE aux
+    loss of an attn_moe layer or None).
 
     ``mode`` is "score" (whole sequences x (B, T, d), no cache), "prefill"
     (builds the layer's dense cache for ``max_len`` positions; a mamba layer
     starts from ``cache``'s state), "decode" (one token per row against
     ``cache``), or "paged" (against ``pool``, updated in place; attn_mlp
-    layers only): the packed row x (T, d) with ``row_ids``, or x (B, T, d)
-    with ``row_ids`` None, row b on ``block_table`` row b.  ``shared`` holds zamba2's
-    shared-attention parameters, ``embeds0`` the stack's input embeddings
-    that its block reads beside the hidden state."""
+    and attn_moe layers only): the packed row x (T, d) with ``row_ids``, or
+    x (B, T, d) with ``row_ids`` None, row b on ``block_table`` row b.
+    ``shared`` holds zamba2's shared-attention parameters, ``embeds0`` the
+    stack's input embeddings that its block reads beside the hidden
+    state."""
     if spec.kind == "mamba":
         y, new_cache = mamba_mod.mamba_block(p["mamba"], rmsnorm(p["norm"], x),
                                              cfg=cfg, cache=cache)
-        return x + y, new_cache
+        return x + y, new_cache, None
 
     if spec.kind == "shared_attn":
         u = torch.cat([x, embeds0], dim=-1)
@@ -321,7 +330,8 @@ def _apply_block(p, x, positions, *, cfg: ModelConfig, spec: LayerSpec,
                                cache=cache, max_len=max_len)
         x = x + y
         v = torch.cat([x, embeds0], dim=-1)
-        return x + mlp(shared["mlp"], rmsnorm(shared["norm_mlp"], v)), new_cache
+        return (x + mlp(shared["mlp"], rmsnorm(shared["norm_mlp"], v)),
+                new_cache, None)
 
     h = rmsnorm(p["norm_attn"], x)
     if mode == "paged":
@@ -335,18 +345,23 @@ def _apply_block(p, x, positions, *, cfg: ModelConfig, spec: LayerSpec,
     if cfg.post_norm:
         y = rmsnorm(p["post_norm_attn"], y)
     x = x + y
-    y = mlp(p["mlp"], rmsnorm(p["norm_mlp"], x))
+    h = rmsnorm(p["norm_mlp"], x)
+    aux = None
+    if spec.kind == "attn_moe":
+        y, aux = moe(p["moe"], h, cfg=cfg)
+    else:
+        y = mlp(p["mlp"], h)
     if cfg.post_norm:
         y = rmsnorm(p["post_norm_mlp"], y)
-    return x + y, new_cache
+    return x + y, new_cache, aux
 
 
 def forward(params, inputs, positions, cfg: ModelConfig, *,
             mode: str = "score"):
     """Full-sequence forward (no caches): inputs (B, S) int32 tokens,
     positions (B, S) int32 (contiguous 0..S-1: K2 assumes them).  Returns
-    (f32 logits (B, S, V), aux) with aux a zero f32 scalar (the MoE aux loss
-    of attn_moe layers, which join with the MoE slice).
+    (f32 logits (B, S, V), aux): aux is the f32 sum of the attn_moe layers'
+    aux losses, in layer order (zero without MoE layers).
 
     ``mode="train"`` computes the same forward: the JAX package differs only
     by rematerialising blocks for its backward, and the port has no backward
@@ -356,10 +371,13 @@ def forward(params, inputs, positions, cfg: ModelConfig, *,
         raise ValueError(f"mode must be 'score' or 'train', got {mode!r}")
     x = _embed_inputs(params, inputs, cfg)                     # (B, S, d)
     embeds0 = x
-    for spec, p in zip(layer_specs(cfg), params["layers"]):
-        x, _ = _apply_block(p, x, positions, cfg=cfg, spec=spec,
-                            shared=params.get("shared_attn"), embeds0=embeds0)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for spec, p in zip(layer_specs(cfg), params["layers"]):
+        x, _, layer_aux = _apply_block(p, x, positions, cfg=cfg, spec=spec,
+                                       shared=params.get("shared_attn"),
+                                       embeds0=embeds0)
+        if layer_aux is not None:
+            aux = aux + layer_aux
     return _head(params, x, cfg), aux
 
 
@@ -375,10 +393,10 @@ def prefill(params, inputs, positions, cfg: ModelConfig, *, max_len: int):
     for spec, p in zip(layer_specs(cfg), params["layers"]):
         start = (mamba_mod.mamba_cache_init(cfg, x.shape[0], device=x.device)
                  if spec.kind == "mamba" else None)
-        x, nc = _apply_block(p, x, positions, cfg=cfg, spec=spec,
-                             mode="prefill", cache=start,
-                             shared=params.get("shared_attn"),
-                             embeds0=embeds0, max_len=max_len)
+        x, nc, _ = _apply_block(p, x, positions, cfg=cfg, spec=spec,
+                                mode="prefill", cache=start,
+                                shared=params.get("shared_attn"),
+                                embeds0=embeds0, max_len=max_len)
         caches.append(nc)
     return _head(params, x[:, -1:, :], cfg)[:, 0, :], caches
 
@@ -393,10 +411,10 @@ def decode_step(params, caches, inputs, positions, cfg: ModelConfig):
     x = _embed_inputs(params, inputs, cfg)
     embeds0 = x
     for spec, p, cache in zip(layer_specs(cfg), params["layers"], caches):
-        x, nc = _apply_block(p, x, positions, cfg=cfg, spec=spec,
-                             mode="decode", cache=cache,
-                             shared=params.get("shared_attn"),
-                             embeds0=embeds0)
+        x, nc, _ = _apply_block(p, x, positions, cfg=cfg, spec=spec,
+                                mode="decode", cache=cache,
+                                shared=params.get("shared_attn"),
+                                embeds0=embeds0)
         if spec.kind == "mamba":
             for k, leaf in nc.items():
                 cache[k].copy_(leaf)
@@ -405,9 +423,9 @@ def decode_step(params, caches, inputs, positions, cfg: ModelConfig):
 
 def _paged_layers(params, pools, x, positions, block_tables, row_ids, cfg):
     for spec, p, pool in zip(layer_specs(cfg), params["layers"], pools):
-        x, _ = _apply_block(p, x, positions, cfg=cfg, spec=spec, mode="paged",
-                            pool=pool, block_table=block_tables,
-                            row_ids=row_ids)
+        x, _, _ = _apply_block(p, x, positions, cfg=cfg, spec=spec,
+                               mode="paged", pool=pool,
+                               block_table=block_tables, row_ids=row_ids)
     return x
 
 

@@ -86,10 +86,9 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels.decode_attention.quant import (is_quantized,
                                                         resolve_kv_dtype)
-from repro_torch.models import (decode_step, layer_specs, paged_mixed_step,
-                                prefill, sample_with_scores,
-                                speculative_verify, supports_paged,
-                                supports_speculative)
+from repro_torch.models import (decode_step, paged_mixed_step, prefill,
+                                sample_with_scores, speculative_verify,
+                                supports_paged, supports_speculative)
 from repro_torch.models.config import ModelConfig
 
 from .draft import DraftSource, default_draft_source
@@ -283,8 +282,6 @@ class ServeEngine:
                  preempt: bool = False,
                  mesh=None, device="cuda",
                  cuda_graphs: bool | None = None) -> None:
-        if "attn_moe" in {s.kind for s in layer_specs(cfg)}:
-            raise _later(f"MoE layers (config {cfg.name})", "MoE")
         if cfg.input_mode != "tokens":
             raise _later(f"input_mode={cfg.input_mode!r} (config "
                          f"{cfg.name})", "embeds")

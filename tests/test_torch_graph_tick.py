@@ -47,9 +47,10 @@ PAGED = dict(n_slots=4, max_len=96, block_size=4, token_budget=8)
 DENSE = dict(n_slots=3, max_len=40, paged=False)
 
 
-# gemma2 SMOKE serves paged (speculative or not), the SSM configs dense
-RUNS = [("gemma2-9b", 0), ("gemma2-9b", 2), ("mamba2-1.3b", 0),
-        ("zamba2-2.7b", 0)]
+# gemma2 and deepseek-moe SMOKE serve paged (speculative or not), the SSM
+# configs dense
+RUNS = [("gemma2-9b", 0), ("gemma2-9b", 2), ("deepseek-moe-16b", 0),
+        ("deepseek-moe-16b", 2), ("mamba2-1.3b", 0), ("zamba2-2.7b", 0)]
 ARCHS = ["gemma2-9b", "mamba2-1.3b", "zamba2-2.7b"]
 
 

@@ -96,7 +96,8 @@ def test_gemma2_layout_and_param_count_match_reference(smoke):
         [(s.repeat, [dataclasses.astuple(p) for p in s.pattern])
          for s in ref.layout()]
     assert ours.param_count() == ref.param_count()
-    assert ARCH_IDS == ("gemma3-4b", "gemma2-9b", "h2o-danube-1.8b",
+    assert ARCH_IDS == ("llama4-maverick-400b-a17b", "deepseek-moe-16b",
+                        "gemma3-4b", "gemma2-9b", "h2o-danube-1.8b",
                         "h2o-danube-3-4b", "mamba2-1.3b", "zamba2-2.7b")
     # flat layer order: copy r, pattern position i -> layer 2r + i, so the
     # window sits on the even (local) layers only
@@ -429,14 +430,14 @@ def test_two_chunk_mixed_step_reproduces_prefill_then_decode():
                                atol=1e-4, rtol=1e-4)
 
 
-def test_unported_layer_kinds_raise():
-    """MoE layers and embeds inputs wait for their slices; a config with
-    Mamba-2 layers has no paged pool."""
+def test_moe_configs_build_and_embeds_and_mamba_pools_raise():
+    """MoE layers build their params and paged pools; embeds inputs wait
+    for their slice; a config with Mamba-2 layers has no paged pool."""
     moe = PCFG.replace(n_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError, match="attn_mlp"):
-        P.init_paged_pools(moe, 4, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        P.init_params(moe, device="cpu")
+    pools = P.init_paged_pools(moe, 4, 4, device="cpu")
+    params = P.init_params(moe, device="cpu")
+    assert len(pools) == len(params["layers"]) == moe.n_layers
+    assert all("moe" in p and "mlp" not in p for p in params["layers"])
     with pytest.raises(NotImplementedError, match="embeds slice"):
         P.init_params(PCFG.replace(input_mode="embeds"), device="cpu")
     with pytest.raises(ValueError, match="paged"):
