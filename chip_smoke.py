@@ -53,7 +53,10 @@ on the first phase that fails (exit code != 0):
                   computing the same function (library_ms:
                   scaled_dot_product_attention, causal or with a band mask,
                   or compiled flex_attention where there is a softcap; the
-                  port never calls them).
+                  port never calls them); the embeds configs' shapes
+                  (H=K=32, D=64 and 96) at S=8192 and at each (B, S) the
+                  embeds phases send (4 x 2048, 4500, 1000, 300, 17,
+                  8 x 1000, 8 x 1032).
 4. ssd_kernel   — K3, the SSD chunked scan: first what the compiler made of
                   its stage kernels (ptxas registers, stack, spills; HMMA
                   count in SASS, which the chunk scan must have), then
@@ -74,9 +77,11 @@ on the first phase that fails (exit code != 0):
                   50, at every cache dtype; llama4-maverick's widths (H=40,
                   K=8, D=128: G=5) in bf16 and int8 and h2o-danube-1.8b's
                   (H=32, K=8, D=80: G=4) on a 4096 ring; a row with nothing
-                  visible; times as for K2 (library: SDPA with a mask of the
-                  invisible slots, or compiled flex_attention), and each
-                  case's span count and workspace bytes.
+                  visible; the embeds configs' MHA (8 rows of 8192 slots,
+                  H=K=32, D=64 and 96); times as for K2 (library: SDPA with
+                  a mask of the invisible slots, or compiled
+                  flex_attention), and each case's span count and
+                  workspace bytes.
 6. score_check  — gemma2-9b at full width cut to 2 layers: ``forward`` with
                   K2 against the same forward with the plain attention on
                   2048 tokens, and ``forward``'s logits on a 512-token prompt
@@ -212,7 +217,35 @@ on the first phase that fails (exit code != 0):
                   alike held within 2e-2 of the logits' scale, at least 0.9
                   of them), then three requests served captured and eagerly
                   (equal streams, K1 launches == ticks x 2).
-17. score       — ``forward`` at full width and full depth, bf16, seeded
+17. embeds      — musicgen-large and phi-3-vision-4.2b (full width and
+                  depth, bf16, seeded weights, N(0, 1) f32 input
+                  embeddings), one at a time.  score_embeds: ``forward``
+                  over B=1, S=8192 (K2 == n_layers; wall s, tokens/s, peak
+                  memory).  embeds_check: ``prefill`` of 1000 embeddings
+                  over 8 slots of 8192, 32 ``decode_step``s (K4 ==
+                  n_layers x 32), the prefill's and the last step's logits
+                  within 2e-2 of the scale of ``forward``'s over the same
+                  1032.  serve_embeds: the dense ``ServeEngine`` (8 slots
+                  of 8192) on the serve_dense lengths as (S, d) prompts,
+                  one token each: first tokens == a direct prefill's
+                  argmax, host_syncs == prefill_batches == 5, K2 ==
+                  n_layers x 5, TTFT p50 / p99, and a 4-token request
+                  rejected naming ROADMAP F12.  musicgen-large then through
+                  ``ServeCluster(n_replicas=1)`` (4 slots of 4608): answers
+                  == a direct engine of that shape, the queue wait, F12
+                  through the store.  phi-3-vision-4.2b then drives the
+                  device fast path (``core/fastpath.py``): three light
+                  stages on a (1, 2048, 3072) bf16 activation fused (one
+                  CUDA graph), chained and brokered, 200 runs each,
+                  bit-equal, p50 / p99 a run, the hop alone and the
+                  brokered run over the chained one per hop; ten fused
+                  calls under torch.profiler are ten graph launches and
+                  no kernel launch; the donation contract; a capture
+                  cache of two graphs evicting the first of three shapes
+                  without holding more memory; then a frontend
+                  into the full backbone chained, brokered and fused:
+                  bit-equal logits, the hop's share.
+18. score       — ``forward`` at full width and full depth, bf16, seeded
                   random weights, B=1: gemma2-9b, gemma3-4b, h2o-danube-1.8b,
                   mamba2-1.3b, zamba2-2.7b and deepseek-moe-16b at S=8192,
                   h2o-danube-3-4b at S=9216 (past its 8192 window); finite
@@ -220,7 +253,7 @@ on the first phase that fails (exit code != 0):
                   layers and K3 launches == mamba layers per forward, the
                   aux loss >= 1 - 1e-3 with experts and 0 without; wall
                   time, tokens/s, peak memory.
-18. score_trace — one gemma2-9b score forward under torch.profiler
+19. score_trace — one gemma2-9b score forward under torch.profiler
                   (informational).
 
 It prints one JSON line per phase, then each phase's seconds, then the
@@ -988,9 +1021,15 @@ def trace_phase(cfg, params, dev, cuda_graphs: bool, groups=None) -> dict:
 # (arch, B, S, H, K, D, dtype, window, softcap): gemma2-9b's attention at
 # S = 8192 in both dtypes with and without its window and softcap, one case
 # at each other config's shapes and window (zamba2-2.7b's shared attention:
-# D = 160, MHA; the MoE configs' D = 128, G = 1 and 5), a ragged S, and the
+# D = 160, MHA; the MoE configs' D = 128, G = 1 and 5), a ragged S, the
 # shapes zamba2-2.7b's dense prefill sends in serve_dense (4 x 2048
-# batched, and 17 and 300 tokens)
+# batched, and 17 and 300 tokens), and the embeds configs' MHA at D = 64
+# (musicgen-large) and D = 96 (phi-3-vision-4.2b): their score forward's
+# S = 8192 and the (B, S) shapes the embeds paths send (serve_embeds' and
+# the node's prefills: 4 x 2048, 4500, 1000, 300, 17; embeds_check's
+# prefill, 8 x 1000, and its forward, 8 x 1032), ragged tails included
+EMBEDS_FLASH_SHAPES = ((4, 2048), (1, 4500), (1, 1000), (1, 300), (1, 17),
+                       (8, 1000), (8, 1032))
 FLASH_CASES = (
     [("gemma2-9b", 1, 8192, 16, 8, 256, dt, w, c)
      for dt in (torch.float32, torch.bfloat16)
@@ -1005,7 +1044,10 @@ FLASH_CASES = (
         None, None),
        ("gemma2-9b", 1, 8000, 16, 8, 256, torch.bfloat16, 4096, 50.0)]
     + [("zamba2-2.7b", B, S, 32, 32, 160, torch.bfloat16, None, None)
-       for B, S in ((4, 2048), (1, 17), (1, 300))])
+       for B, S in ((4, 2048), (1, 17), (1, 300))]
+    + [(arch, B, S, 32, 32, D_, torch.bfloat16, None, None)
+       for arch, D_ in (("musicgen-large", 64), ("phi-3-vision-4.2b", 96))
+       for B, S in ((1, 8192), *EMBEDS_FLASH_SHAPES)])
 FLASH_BOUND = (
     "max(bytes / 3.35e12 B/s, flops / peak[dtype]); bytes = (q + out) "
     "B*S*H*D + (k + v) B*S*K*D, times the itemsize; flops = 4*D*H per "
@@ -1332,7 +1374,8 @@ K4_KERNELS = ("decode_span_kernel", "decode_combine_kernel")
 # slots, each at every cache dtype; llama4-maverick's widths (H 40, K 8,
 # D 128: G = 5) and h2o-danube-1.8b's (H 32, K 8, D 80: G = 4, its 4096
 # window on a 4096-slot ring), the GQA groups that do not divide 8 or that
-# no other case has
+# no other case has; the embeds configs' MHA at D = 64 and 96 over 8192
+# slots
 FILLS = (8192, 4532, 2080, 2080, 1332, 332, 49, 7000)
 RING_LAST = (9000, 5000, 4200, 4096, 4095, 3000, 100, 20)
 DECODE_CASES = [
@@ -1345,6 +1388,10 @@ DECODE_CASES = [
     ("llama4-maverick-400b-a17b", 8, 8192, 40, 8, 128, None, None, "partial",
      ("bfloat16", "int8")),
     ("h2o-danube-1.8b", 8, 4096, 32, 8, 80, 4096, None, "ring",
+     ("bfloat16",)),
+    ("musicgen-large", 8, 8192, 32, 32, 64, None, None, "partial",
+     ("bfloat16",)),
+    ("phi-3-vision-4.2b", 8, 8192, 32, 32, 96, None, None, "partial",
      ("bfloat16",))]
 DECODE_BOUND = (
     "max(bytes / 3.35e12 B/s, flops / peak[q dtype]); bytes = the visible "
@@ -2877,6 +2924,543 @@ def moe_check_phase(dev, smi: str, S=2048) -> dict:
     return res
 
 
+# ================================================================= embeds
+# the embeds configs: a frontend (musicgen's EnCodec, phi-3-vision's CLIP
+# tower; stubbed, as in the reference) hands (B, S, d) activations to the
+# decoder, which takes them as they are
+EMBEDS_ARCHS = ("musicgen-large", "phi-3-vision-4.2b")
+EMBEDS_SCORE_S = 8192
+# the node's engine: 4 slots x 4608 positions of musicgen-large's 48 layers
+# (7.25 GB of cache) fit beside the weights, and 4608 holds the traffic's
+# longest prompt (4500)
+NODE_EMBEDS = dict(n_slots=4, max_len=4608, paged=False)
+F12_NEW_TOKENS = 4
+
+
+def _embeddings(shape, seed, dev):
+    """Seeded N(0, 1) frontend embeddings, f32, made on the card (the
+    reference's synthetic embeds batches are N(0, 1) f32)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev)
+
+
+def embeds_requests(d: int, new: int = 1):
+    """The dense serve's prompt lengths (four of 2048, one batched prefill;
+    then 4500, 17, 300 and 1000) as (S, d) f32 N(0, 1) embeddings, made
+    with numpy in bulk; ``new`` tokens each."""
+    from repro_torch.serving.scheduler import Request
+
+    rng = np.random.default_rng(13)
+    flat = rng.standard_normal((sum(DENSE_PROMPTS), d), dtype=np.float32)
+    cuts = np.cumsum(DENSE_PROMPTS)[:-1]
+    return [Request(request_id=f"e{i}", session_key=f"e{i}", prompt=p,
+                    max_new_tokens=new)
+            for i, p in enumerate(np.split(flat, cuts))]
+
+
+def score_embeds(cfg, params, dev, smi: str, S=EMBEDS_SCORE_S) -> dict:
+    """``forward`` over B = 1, S embeddings at full width and depth: a first
+    forward checks the output, a second is timed and launches K2 once per
+    layer (and no other kernel of the port)."""
+    from repro_torch.models import forward
+
+    x = _embeddings((1, S, cfg.d_model), 11, dev)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+    logits, aux = forward(params, x, pos, cfg)
+    assert logits.shape == (1, S, cfg.vocab_size), logits.shape
+    assert logits.dtype == torch.float32 and float(aux) == 0.0
+    assert bool(torch.isfinite(logits).all()), cfg.name
+    del logits
+    counters = _kernel_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.monotonic()
+    logits, _ = forward(params, x, pos, cfg)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    assert launches == {"K2": cfg.n_layers, "K3": 0, "K4": 0}, launches
+    assert bool(torch.isfinite(logits).all()), cfg.name
+    res = {"phase": "score_embeds", "arch": cfg.name, "card": smi,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "head_dim": cfg.head_dim, "B": 1, "S": S, "dtype": cfg.dtype,
+           "k2_launches": launches["K2"], "wall_s": wall,
+           "tokens_per_s": S / wall,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    del logits, x
+    emit(res)
+    return res
+
+
+def embeds_check(cfg, params, dev, smi: str, S=1000, steps=32, B=8,
+                 max_len=8192) -> dict:
+    """``prefill`` of S embeddings over B slots of ``max_len``, then
+    ``steps`` ``decode_step``s on further (B, 1, d) embeddings (K4 over the
+    dense caches); the last step's logits against ``forward`` over all
+    S + steps embeddings (K2), within 2e-2 of the logits' scale (bf16
+    activations: one rounding of an attention output carried through the
+    layers, as ``ssm_check`` holds them), and the prefill's logits against
+    ``forward``'s at position S - 1."""
+    from repro_torch.models import decode_step, forward, prefill
+
+    x = _embeddings((B, S + steps, cfg.d_model), 12, dev)
+    pos = torch.arange(S + steps, dtype=torch.int32, device=dev).repeat(B, 1)
+    counters = _kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    first, caches = prefill(params, x[:, :S], pos[:, :S], cfg,
+                            max_len=max_len)
+    k2 = counters["K2"].launches
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for t in range(S, S + steps):
+        stepped, _ = decode_step(params, caches, x[:, t:t + 1],
+                                 pos[:, t:t + 1], cfg)
+    torch.cuda.synchronize()
+    step_s = (time.monotonic() - t0) / steps
+    launches = {k: fn.launches for k, fn in counters.items()}
+    assert k2 == cfg.n_layers, k2
+    assert launches == {"K2": cfg.n_layers, "K3": 0,
+                        "K4": cfg.n_layers * steps}, launches
+    cache_bytes = sum(t.numel() * t.element_size() for c in caches
+                      for t in c.values())
+    del caches
+    whole = forward(params, x, pos, cfg)[0]
+    res = {"phase": "embeds_check", "arch": cfg.name, "card": smi, "B": B,
+           "prefill": S, "decode_steps": steps, "max_len": max_len,
+           "cache_bytes": cache_bytes, "decode_step_s": step_s,
+           "launches": launches}
+    for name, got, want in (("prefill", first, whole[:, S - 1]),
+                            ("last_step", stepped, whole[:, -1])):
+        assert bool(torch.isfinite(got).all()), (cfg.name, name)
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        assert err <= 2e-2 * scale, (cfg.name, name, err, scale)
+        res[name] = {"max_abs_err": err, "logit_scale": scale,
+                     "argmax_equal_rows": int((got.argmax(-1)
+                                               == want.argmax(-1)).sum())}
+    del whole, x
+    emit(res)
+    return res
+
+
+def direct_first_tokens(cfg, params, reqs, dev, max_len: int) -> dict:
+    """The argmax of a direct ``prefill`` of each request's prompt, the
+    prompts grouped as one admission of the dense engine groups them
+    (contiguous runs of equal length, one batched prefill each)."""
+    from repro_torch.models import prefill
+
+    out, i = {}, 0
+    while i < len(reqs):
+        j = i
+        while j < len(reqs) and reqs[j].prompt.shape == reqs[i].prompt.shape:
+            j += 1
+        group = reqs[i:j]
+        S = group[0].prompt.shape[0]
+        x = torch.from_numpy(np.stack([r.prompt for r in group])).to(dev)
+        pos = torch.arange(S, dtype=torch.int32, device=dev).repeat(j - i, 1)
+        logits, caches = prefill(params, x, pos, cfg, max_len=max_len)
+        for r, tok in zip(group, logits.argmax(-1).tolist()):
+            out[r.request_id] = [tok]
+        del logits, caches, x
+        i = j
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_embeds(cfg, params, dev, smi: str) -> dict:
+    """The dense ``ServeEngine`` (8 slots of 8192) on the embeds traffic,
+    one greedy token each: every first token equals the argmax of a direct
+    prefill grouped alike; host_syncs == prefill_batches (no decode tick);
+    K2 == n_layers x prefill_batches; then a request for
+    ``F12_NEW_TOKENS`` tokens is rejected naming F12 and the engine stays
+    idle."""
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.scheduler import Request, Scheduler
+
+    reqs = embeds_requests(cfg.d_model)
+    want = direct_first_tokens(cfg, params, reqs, dev, 8192)
+    base = allocated_outside_workspaces()
+    eng = ServeEngine(cfg, params, n_slots=8, max_len=8192,
+                      scheduler=Scheduler(prefill_budget=8), device=dev)
+    assert not eng.paged
+    done = []
+    eng.on_complete = done.append
+    counters = _kernel_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.monotonic()
+    with syncs_forbidden(eng):
+        for r in reqs:
+            r.arrived_s = time.monotonic()     # made before the direct runs
+            eng.submit(r)
+        eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    s = eng.stats
+    got = {r.request_id: list(r.tokens) for r in done}
+    assert len(done) == len(reqs) and all(r.error is None for r in done)
+    assert got == want, {rid: (got[rid], want[rid]) for rid in got
+                         if got[rid] != want[rid]}
+    assert s.prefill_batches == 5 and s.decode_ticks == 0, s
+    assert s.host_syncs == s.prefill_batches, s
+    assert launches == {"K2": cfg.n_layers * s.prefill_batches, "K3": 0,
+                        "K4": 0}, launches
+    assert all(np.isfinite(r.scores).all() for r in done)
+    res = {"phase": "serve_embeds", "arch": cfg.name, "card": smi,
+           "n_layers": cfg.n_layers, "n_slots": 8, "max_len": 8192,
+           "prompts": list(DENSE_PROMPTS), "prefill_batches":
+           s.prefill_batches, "host_syncs": s.host_syncs,
+           "launches": launches, "first_tokens_equal_direct_prefill": True,
+           "wall_s": wall, "ttft_p50_s": statistics.median(s.ttft_s),
+           "ttft_p99_s": float(np.percentile(s.ttft_s, 99)),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    f12 = Request(request_id="f12", session_key="f12",
+                  prompt=reqs[5].prompt, max_new_tokens=F12_NEW_TOKENS)
+    ticks = s.ticks
+    eng.submit(f12)
+    assert done[-1] is f12 and "F12" in str(f12.error), f12.error
+    assert f12.tokens == [] and eng.idle() and eng.stats.ticks == ticks
+    res["f12_rejected"] = f12.error
+    ref = graph_ref(eng)
+    del eng, done
+    res["kept_after_delete_bytes"] = check_dropped(ref, base)
+    res["tokens"] = got
+    emit(res)
+    return res
+
+
+def serve_embeds_node(cfg, params, dev, smi: str, engine_tokens: dict
+                      ) -> dict:
+    """``ServeCluster(musicgen-large, n_replicas=1)`` on the same traffic:
+    each (S, d) f32 prompt crosses the node's host store; the answers equal
+    a direct engine's of the same shape (``NODE_EMBEDS``, the same
+    admission), host_syncs == prefill_batches, K2 == n_layers x
+    prefill_batches, and a multi-token request comes back with the F12
+    error; the queue wait from client submit to issue is reported."""
+    from repro_torch.serving.cluster import ServeCluster
+
+    reqs = embeds_requests(cfg.d_model)
+    cluster = ServeCluster(cfg, params, n_replicas=1, device=dev,
+                           **NODE_EMBEDS)
+    eng = cluster.engines[0]
+    counters = _kernel_counters()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.monotonic()
+    with syncs_forbidden(eng):
+        receipts = [cluster.submit(r.session_key, r.request_id, r.prompt,
+                                   max_new_tokens=1) for r in reqs]
+        wait_all(receipts)             # one queue, as the direct engine had
+        node_drain(cluster.node, receipts)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    st = cluster.stats()
+    answers = {r.request_id: cluster.result(r.request_id).tolist()
+               for r in reqs}
+    waits = sorted(w for ws in eng.stats.queue_wait_s.values() for w in ws)
+    cluster.submit("f12", "f12", reqs[5].prompt,
+                   max_new_tokens=F12_NEW_TOKENS).wait()
+    node_drain(cluster.node)
+    f12 = cluster.error("f12")
+    assert "F12" in str(f12), f12
+    assert cluster.result("f12").size == 0         # refused: no token
+    res = {"phase": "serve_embeds_node", "arch": cfg.name, "card": smi,
+           **NODE_EMBEDS, "ticks": st["ticks"],
+           "prefill_batches": st["prefill_batches"],
+           "host_syncs": st["host_syncs"], "launches": launches,
+           "largest_prompt_bytes": max(r.prompt.nbytes for r in reqs),
+           "wall_s": wall, "queue_wait_p50_s": statistics.median(waits),
+           "ttft_p50_s": st["ttft_p50_s"], "f12_error": str(f12),
+           "equal_to_serve_embeds": answers == engine_tokens}
+    cluster.close()
+    del cluster, eng, receipts
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert st["host_syncs"] == st["prefill_batches"] + st["decode_ticks"]
+    assert st["decode_ticks"] == 0, st
+    assert launches == {"K2": cfg.n_layers * st["prefill_batches"],
+                        "K3": 0, "K4": 0}, launches
+    direct = direct_streams(cfg, params, dev,
+                            {r.request_id: (r.prompt, 1) for r in reqs},
+                            **NODE_EMBEDS)
+    assert answers == direct, {rid: (answers[rid], direct[rid])
+                               for rid in answers
+                               if answers[rid] != direct[rid]}
+    res["equal_to_direct_engine"] = True
+    emit(res)
+    return res
+
+
+# fastpath (1): three light stages on one phi-3-vision prompt's activations
+FASTPATH_SHAPE = (1, 2048, 3072)
+FASTPATH_RUNS = 200
+
+
+def _light_stages():
+    from repro_torch.core.fastpath import Stage
+
+    return [Stage("scale", lambda x: x * 2.0),
+            Stage("shift", lambda x: x + 1.0),
+            Stage("squash", torch.tanh)]
+
+
+def _brokered(stages):
+    """The chain with a ``broker_hop`` at each stage boundary."""
+    from repro_torch.core.fastpath import broker_hop
+
+    def run(x):
+        for i, st in enumerate(stages):
+            x = st.fn(broker_hop(x) if i else x)
+        return x
+    return run
+
+
+def _synced_ms(fn, *args) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(*args)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _pct(xs, q) -> float:
+    return float(np.percentile(xs, q))
+
+
+def _profiled_calls(fn, x, n: int):
+    """n calls of ``fn(x)`` under torch.profiler: the CUDA runtime calls by
+    name, and the device time by group with the idle share."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(n):
+            fn(x)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    calls = Counter(ev.name for ev in prof.events()
+                    if ev.name.startswith("cu"))
+    return calls, _device_time(prof, wall, {"memcpy": ("memcpy",)})
+
+
+def fastpath_single_dispatch(fused, chained, x, n=10) -> dict:
+    """After its first call, one call of the fused rung is one CUDA graph
+    launch: under ``torch.profiler`` n calls make n graph launches, no
+    kernel launch outside the graph, and the copies in and out; the
+    replay counter moves by n.  The chained rung's n calls beside it, for
+    where each rung's time goes on the device."""
+    replays = fused.replays
+    calls, device = _profiled_calls(fused, x, n)
+    graph = sum(c for k, c in calls.items() if "GraphLaunch" in k)
+    kernel = sum(c for k, c in calls.items() if "LaunchKernel" in k)
+    res = {"calls": n, "replays": fused.replays - replays,
+           "graph_launches": graph, "kernel_launches_outside_graph": kernel,
+           "runtime_calls": dict(calls), "fused_device": device}
+    assert res["replays"] == n and graph == n and kernel == 0, res
+    calls, device = _profiled_calls(chained, x, n)
+    res["chained_runtime_calls"] = dict(calls)
+    res["chained_device"] = device
+    return res
+
+
+def fastpath_donation(dev) -> dict:
+    """On the card: a donated group's graph reads the first input it was
+    given (no buffer of its own), later inputs are copied into it; an
+    undonated group keeps its own buffer and the caller's input
+    unchanged."""
+    from repro_torch.core.fastpath import fuse_stages
+
+    x = _embeddings(FASTPATH_SHAPE, 16, dev).to(torch.bfloat16)
+    y = _embeddings(FASTPATH_SHAPE, 17, dev).to(torch.bfloat16)
+    want_y = torch.tanh(y * 2.0 + 1.0)
+    kept = fuse_stages(_light_stages(), donate=False)
+    x0 = x.clone()
+    kept(x)
+    (cap,) = kept._graphs.values()
+    assert cap.inputs[0] is not x and torch.equal(x, x0)
+    assert torch.equal(kept(y), want_y) and torch.equal(x, x0)
+    donated = fuse_stages(_light_stages(), donate=True)
+    before = torch.cuda.memory_allocated()
+    donated(x)
+    (cap,) = donated._graphs.values()
+    assert cap.inputs[0] is x
+    alloc = torch.cuda.memory_allocated() - before
+    # the documented cost of donation: the tensor first donated is the
+    # graph's input buffer, so it now holds the later call's input
+    assert torch.equal(donated(y), want_y) and torch.equal(x, y)
+    return {"undonated_input_untouched": True,
+            "donated_input_is_graph_buffer": True,
+            "donated_input_overwritten_by_later_call": True,
+            "donated_first_call_alloc_bytes": alloc}
+
+
+def fastpath_capture_cache(dev) -> dict:
+    """A fused group keeps at most ``max_graphs`` captures.  Three input
+    shapes of one size through a group that keeps two: the third capture
+    evicts the first, so the memory the group holds (allocated, and
+    reserved after emptying the cache) stays that of two captures; the
+    evicted shape is captured again and still gives the right output."""
+    from repro_torch.core.fastpath import fuse_stages
+
+    shapes = [(1, 2048, 3072), (2, 1024, 3072), (4, 512, 3072)]
+    xs = [_embeddings(sh, 20 + i, dev).to(torch.bfloat16)
+          for i, sh in enumerate(shapes)]
+    fused = fuse_stages(_light_stages(), donate=False, max_graphs=2)
+    alloc, reserved = [], []
+    for x in xs:
+        fused(x)
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        alloc.append(torch.cuda.memory_allocated())
+        reserved.append(torch.cuda.memory_reserved())
+    assert (fused.captures, fused.evictions) == (3, 1), fused.__dict__
+    assert [k[0][1] for k in fused._graphs] == shapes[1:]
+    assert alloc[2] <= alloc[1], alloc      # the first capture's buffers went
+    assert torch.equal(fused(xs[0]), torch.tanh(xs[0] * 2.0 + 1.0))
+    assert (fused.captures, fused.evictions) == (4, 2)
+    return {"max_graphs": 2, "shapes": [list(sh) for sh in shapes],
+            "allocated_bytes_after_each": alloc,
+            "reserved_bytes_after_each": reserved,
+            "captures": fused.captures, "evictions": fused.evictions}
+
+
+def fastpath_phase(cfg, params, dev, smi: str) -> dict:
+    """The device fast path's rungs on the card.  (1) Three light stages on
+    a (1, 2048, 3072) bf16 activation (one phi-3-vision prompt, 12.6 MB),
+    fused (one CUDA graph), chained and with a ``broker_hop`` at each of the
+    two boundaries, ``FASTPATH_RUNS`` runs each in turns (host clock around
+    a synchronized run): bit-equal outputs, each rung's p50 / p99 a run,
+    the hop timed alone and what the brokered run adds to the chained one
+    per hop, the single-dispatch check, the donation contract and the
+    bounded capture cache.  (2) A frontend (a projection of (1, 2048,
+    1024) patch features to d = 3072) into phi-3-vision's ``forward`` at
+    full depth, chained, with the broker hop between the two, and fused
+    (the whole pipeline, backbone included, one CUDA graph): bit-equal
+    logits, each rung's end-to-end time and the hop's share of the
+    brokered run."""
+    from repro_torch.core.fastpath import (Stage, broker_hop, chain_stages,
+                                           fuse_stages)
+    from repro_torch.models import forward
+
+    stages = _light_stages()
+    x = _embeddings(FASTPATH_SHAPE, 15, dev).to(torch.bfloat16)
+    rungs = {"fused": fuse_stages(stages, donate=False),
+             "chained": chain_stages(stages), "broker": _brokered(stages)}
+    outs = {name: fn(x) for name, fn in rungs.items()}
+    outs["fused_replay"] = rungs["fused"](x)
+    assert all(torch.equal(o, outs["chained"]) for o in outs.values()), \
+        "the rungs' outputs differ"
+    times = {name: [] for name in rungs}
+    for _ in range(FASTPATH_RUNS):
+        for name, fn in rungs.items():
+            times[name].append(_synced_ms(fn, x))
+    hop = [_synced_ms(broker_hop, x) for _ in range(FASTPATH_RUNS)]
+    light = {name: {"run_ms_p50": _pct(t, 50), "run_ms_p99": _pct(t, 99)}
+             for name, t in times.items()}
+    res = {"phase": "fastpath", "card": smi, "shape": list(FASTPATH_SHAPE),
+           "dtype": "bfloat16", "bytes": x.numel() * x.element_size(),
+           "runs": FASTPATH_RUNS, "bit_equal": True, "rungs": light,
+           # what the two broker hops add to the chained run, per hop
+           "broker_over_chained_ms_p50_per_hop": (
+               light["broker"]["run_ms_p50"]
+               - light["chained"]["run_ms_p50"]) / 2,
+           "broker_over_chained_ms_p99_per_hop": (
+               light["broker"]["run_ms_p99"]
+               - light["chained"]["run_ms_p99"]) / 2,
+           "hop_ms_p50": _pct(hop, 50), "hop_ms_p99": _pct(hop, 99),
+           "fused_minus_chained_ms_p50": light["fused"]["run_ms_p50"]
+           - light["chained"]["run_ms_p50"],
+           "captures": rungs["fused"].captures,
+           "single_dispatch": fastpath_single_dispatch(
+               rungs["fused"], rungs["chained"], x),
+           "donation": fastpath_donation(dev),
+           "capture_cache": fastpath_capture_cache(dev)}
+    del outs, rungs
+
+    feats = _embeddings((1, 2048, 1024), 18, dev).to(torch.bfloat16)
+    proj = (_embeddings((1024, cfg.d_model), 19, dev)
+            * 1024 ** -0.5).to(torch.bfloat16)
+    pos = torch.arange(2048, dtype=torch.int32, device=dev)[None]
+    frontend = Stage("frontend", lambda f: f @ proj)
+    backbone = Stage("backbone", lambda e: forward(params, e, pos, cfg)[0])
+    pipes = {"chained": chain_stages([frontend, backbone]),
+             "broker": _brokered([frontend, backbone]),
+             "fused": fuse_stages([frontend, backbone], donate=False)}
+    k2 = _kernel_counters()["K2"]
+    k2.launches = 0
+    logits = {name: fn(feats) for name, fn in pipes.items()}
+    assert k2.launches == 3 * cfg.n_layers, k2.launches
+    logits["fused_replay"] = pipes["fused"](feats)
+    # a replay adds the launches its capture holds
+    assert k2.launches == 4 * cfg.n_layers, k2.launches
+    assert all(torch.equal(v, logits["chained"]) for v in logits.values()), \
+        "frontend -> backbone: the rungs' logits differ"
+    del logits
+    e2e = {name: [] for name in pipes}
+    for _ in range(5):
+        for name, fn in pipes.items():
+            e2e[name].append(_synced_ms(fn, feats))
+    act = frontend.fn(feats)
+    hop2 = [_synced_ms(broker_hop, act) for _ in range(5)]
+    res["frontend_backbone"] = {
+        "arch": cfg.name, "tokens": 2048, "bit_equal": True,
+        "k2_launches_per_call": cfg.n_layers,
+        "chained_ms_p50": statistics.median(e2e["chained"]),
+        "broker_ms_p50": statistics.median(e2e["broker"]),
+        "fused_ms_p50": statistics.median(e2e["fused"]),
+        "fused_captures": pipes["fused"].captures,
+        "hop_ms_p50": statistics.median(hop2),
+        "hop_share_of_broker_e2e": statistics.median(hop2)
+        / statistics.median(e2e["broker"])}
+    del act, feats, proj, pipes
+    emit(res)
+    return res
+
+
+def embeds_phases(dev, smi: str) -> dict:
+    """score_embeds, embeds_check and serve_embeds for each embeds config
+    at full width and depth (bf16, seeded weights with N(0, 1/d) embedding
+    rows), one model at a time; then musicgen-large through the node and
+    the fast path with phi-3-vision's backbone."""
+    from repro_torch.configs.registry import get_config
+
+    out = {}
+    for arch in EMBEDS_ARCHS:
+        cfg = get_config(arch)
+        t0 = time.monotonic()
+        params = _seeded_params(cfg, dev, 0)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in _leaves(params))
+        assert n_params == cfg.param_count(), (n_params, cfg.param_count())
+        run = {"params": n_params, "init_s": time.monotonic() - t0,
+               "score": score_embeds(cfg, params, dev, smi),
+               "check": embeds_check(cfg, params, dev, smi)}
+        run["serve"] = serve_embeds(cfg, params, dev, smi)
+        if arch == "musicgen-large":
+            run["node"] = serve_embeds_node(cfg, params, dev, smi,
+                                            run["serve"]["tokens"])
+        else:
+            run["fastpath"] = fastpath_phase(cfg, params, dev, smi)
+        out[arch] = run
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 # ================================================================== score
 def _seeded_params(cfg, dev, seed):
     """Seeded random weights with N(0, 1/d) embedding rows, as the serve
@@ -3135,6 +3719,7 @@ def main() -> int:
     timed("cluster", cluster_phase, dev, smi, main_run)
     moe = timed("serve_moe", serve_moe_phase, dev, smi)
     timed("moe_check", moe_check_phase, dev, smi)
+    embeds = timed("embeds", embeds_phases, dev, smi)
     scores = timed("score", score_phase, dev, smi)
     # where the script's run time goes, for the next phase's budget
     emit({"phase": "seconds", **seconds})
@@ -3157,6 +3742,17 @@ def main() -> int:
         "arch", "H", "K", "S", "kernel_ms", "bound_ms", "bound_by",
         "plain_ms", "library_ms", "max_abs_err")} for c in cases
         if c.get("D") == 128]
+    # K2 and K4 at the embeds configs' head_dims (64, 96), and their
+    # launches on the embeds paths
+    embeds_cases = lambda cases: [{k: c.get(k) for k in (
+        "arch", "B", "S", "H", "K", "D", "kernel_ms", "bound_ms", "bound_by",
+        "plain_ms", "library_ms", "max_abs_err")} for c in cases
+        if c["arch"] in EMBEDS_ARCHS]
+    embeds_launches = {arch: {
+        "score_embeds_k2": run["score"]["k2_launches"],
+        "embeds_check": run["check"]["launches"],
+        "serve_embeds_k2": run["serve"]["launches"]["K2"]}
+        for arch, run in embeds.items()}
     print(smi)
     emit({"kernels": [{
         "name": "ragged_paged_attention", "id": "K1", "route": "cuda",
@@ -3184,7 +3780,8 @@ def main() -> int:
                         "never calls it",
         "shape": "B=1 S=8192 H=16 K=8 D=256, bf16, causal, no window, "
                  "softcap 50 (gemma2-9b's global layers)",
-        "d128": d128(flash)}, {
+        "d128": d128(flash), "d64_d96": embeds_cases(flash),
+        "launches_embeds": embeds_launches}, {
         "name": "ssd", "id": "K3", "route": "cuda",
         "source": K3_SRC, "replaces": K3_TPU,
         "tpu": "kernels/ssd/kernel.py:ssd_fwd",
@@ -3210,7 +3807,11 @@ def main() -> int:
                         "mask of the invisible slots; the port never calls "
                         "it",
         "shape": "B=8 S=8192 H=K=32 D=160, bf16, rows filled to 49..8192 "
-                 "slots (zamba2-2.7b's shared attention)"}]})
+                 "slots (zamba2-2.7b's shared attention)",
+        "d64_d96": embeds_cases(decode),
+        "launches_embeds": {arch: launches["embeds_check"]["K4"]
+                            for arch, launches in embeds_launches.items()}
+        }]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

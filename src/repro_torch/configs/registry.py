@@ -1,9 +1,9 @@
 """Architecture registry of the port.
 
-``ARCH_IDS`` lists only the configs the port runs end to end, in the JAX
-package's registry order: its two MoE configs, its four pure-attention
-token configs and the SSM and hybrid configs; the embeds configs join in
-their own slice of the port.
+``ARCH_IDS`` lists every config of the JAX package's registry, in its
+order: the two embeds configs (a frontend's embeddings in), the two MoE
+configs, the four pure-attention token configs and the SSM and hybrid
+configs.
 """
 from __future__ import annotations
 
@@ -12,6 +12,8 @@ from importlib import import_module
 from repro_torch.models.config import ModelConfig
 
 _MODULES = {
+    "musicgen-large": "musicgen_large",
+    "phi-3-vision-4.2b": "phi_3_vision_4_2b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "deepseek-moe-16b": "deepseek_moe_16b",
     "gemma3-4b": "gemma3_4b",

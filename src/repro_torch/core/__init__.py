@@ -2,12 +2,15 @@
 pools, placement, the dispatcher, the store with its ``SpillPool``, the
 path trie, the DFG, the lambda API, ``CascadeService`` and the broker
 baseline, copied from the JAX package's plain-Python modules (whose package
-``__init__`` imports jax), and a torch ``DeviceStore``.  The device fast
-path (``fastpath``) is not ported yet."""
+``__init__`` imports jax), a torch ``DeviceStore`` and the device fast path
+(``fastpath``: fused stages as one CUDA graph, chained stages, the
+device-to-device handoff and the broker hop it is measured against)."""
 from .baseline import Broker, BrokerPipeline
 from .devstore import DeviceStore
 from .dfg import DFG, Vertex
 from .dispatcher import Dispatcher, LambdaHandle, UpcallEvent, UpcallThreadPool
+from .fastpath import (FastPathPipeline, Stage, broker_hop, chain_stages,
+                       fuse_stages, handoff)
 from .lambda_api import CascadeContext, wrap_lambda
 from .log import PersistentLog
 from .objects import INVALID_VERSION, CascadeObject
@@ -20,6 +23,8 @@ from .versioning import SeqlockCell, VersionChain
 
 __all__ = [
     "Broker", "BrokerPipeline", "DeviceStore", "DFG", "Vertex", "Dispatcher",
+    "FastPathPipeline", "Stage", "broker_hop", "chain_stages", "fuse_stages",
+    "handoff",
     "LambdaHandle", "UpcallEvent", "UpcallThreadPool", "CascadeContext",
     "wrap_lambda", "PersistentLog", "INVALID_VERSION", "CascadeObject",
     "LRUCache", "RoundRobin", "ShardMap", "build_shard_map",

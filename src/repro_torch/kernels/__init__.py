@@ -61,6 +61,30 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in _counted().items()}
 
 
+def capture(graph: torch.cuda.CUDAGraph, stream: torch.cuda.Stream,
+            step) -> tuple[list[torch.Tensor], dict[str, int]]:
+    """Capture ``step()`` into ``graph`` on ``stream``.  Returns the
+    workspaces the graph's kernels point into (the graph's owner keeps them
+    as long as the graph) and the launches the capture counted, which are
+    taken back here since nothing ran: each replay adds them again
+    (``add_launches``).
+
+    ``capture_begin`` / ``capture_end``, not ``torch.cuda.graph()``: that
+    also empties the allocator's cache, which would send every later eager
+    allocation back to cudaMalloc."""
+    before = launch_counts()
+    with holding() as held, torch.cuda.stream(stream):
+        graph.capture_begin()
+        try:
+            step()
+        finally:
+            graph.capture_end()
+    after = launch_counts()
+    launches = {k: after[k] - before[k] for k in after}
+    add_launches({k: -n for k, n in launches.items()})
+    return held, launches
+
+
 def add_launches(counts: dict[str, int]) -> None:
     """Add ``counts`` (by wrapper name) to the wrappers' ``launches``: a
     replayed graph launches what its capture counted, while the wrappers'

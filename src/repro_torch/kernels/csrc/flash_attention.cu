@@ -31,11 +31,11 @@
 //   64-key K tile and one V tile each (as many as fit in 227 KB: 2 at
 //   D = 256, 3 at 160, 4 at 128 and below).  Every tile is a row of
 //   64-column boxes in TMA's 128-byte swizzle; the head_dim is padded to DP,
-//   a multiple of 64, by TMA's zero fill past D (D = 80, 120, 160 read as
-//   128, 128, 192), so one layout serves every D that is a multiple of 8
-//   (TMA wants 16-byte strides).  P·V is PN = D columns wide for the
-//   configs' D = 80, 120 and 160 (wgmma's N steps by 8 across the boxes),
-//   DP for any other D; Q·Kᵀ takes ceil(D/16) k-steps.  Full barriers
+//   a multiple of 64, by TMA's zero fill past D (D = 80, 96, 120, 160 read
+//   as 128, 128, 128, 192), so one layout serves every D that is a multiple
+//   of 8 (TMA wants 16-byte strides).  P·V is PN = D columns wide for the
+//   configs' D = 80, 96, 120 and 160 (wgmma's N steps by 8 across the
+//   boxes), DP for any other D; Q·Kᵀ takes ceil(D/16) k-steps.  Full barriers
 //   (K and V apart, so Q·Kᵀ starts before V lands) and empty barriers
 //   (one arrival per consumer warp) pace the ring.
 // - S = Q·Kᵀ: wgmma m64n64k16 from shared memory, K-major A and B,
@@ -382,6 +382,7 @@ __device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
                                          uint64_t db) {
   if constexpr (PN == 64) hopper::wgmma_rs_n64(o, a, db, 1);
   else if constexpr (PN == 80) hopper::wgmma_rs_n80(o, a, db, 1);
+  else if constexpr (PN == 96) hopper::wgmma_rs_n96(o, a, db, 1);
   else if constexpr (PN == 120) hopper::wgmma_rs_n120(o, a, db, 1);
   else if constexpr (PN == 128) hopper::wgmma_rs_n128(o, a, db, 1);
   else if constexpr (PN == 160) hopper::wgmma_rs_n160(o, a, db, 1);
@@ -700,6 +701,7 @@ int run(const void* q, const void* k, const void* v, void* out, int B, int S,
   maps, B, S, H, K, ksteps, stages, smem, scale, softcap, window, stream
   switch (D) {                 // the configs' head_dims that are no DP
     case 80: return launch<2, 80>(FA_ARGS);
+    case 96: return launch<2, 96>(FA_ARGS);
     case 120: return launch<2, 120>(FA_ARGS);
     case 160: return launch<3, 160>(FA_ARGS);
   }

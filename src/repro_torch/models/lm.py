@@ -1,9 +1,12 @@
 """Decoder LM over the segment/pattern layout: the full-sequence forward,
 the dense prefill / decode steps and the paged serving step.
 
-Port of the JAX package's ``models/lm.py`` for token models of ``attn_mlp``,
+Port of the JAX package's ``models/lm.py`` for models of ``attn_mlp``,
 ``attn_moe``, ``mamba`` and ``shared_attn`` layers (the pure-attention
-configs, the MoE configs, mamba2 and zamba2).  ``forward`` scores whole
+configs, the MoE configs, mamba2 and zamba2) and for both input modes:
+token ids, or a frontend's embeddings (``input_mode="embeds"``: musicgen's
+EnCodec frames, phi-3-vision's patch and text embeddings) that enter the
+stack as they are, cast to the model's dtype.  ``forward`` scores whole
 sequences (attention through K2, the flash-attention kernel; the SSD scan
 through K3); ``prefill`` and ``decode_step`` run the dense per-slot caches
 (prefill through K2 and K3, decode attention through K4);
@@ -23,7 +26,9 @@ Params: ``{"embed": {"table"}, "final_norm": {"scale"}, "layers": [layer
 dict, ...]}`` (+ ``"head"`` for untied embeddings, + ``"shared_attn"`` for
 zamba2, whose layer dicts of the shared-attention applications are empty,
 as in the JAX package); each layer dict has the JAX leaf names and layouts
-(an ``attn_moe`` layer's ``"moe"`` subtree keeps its router in f32).
+(an ``attn_moe`` layer's ``"moe"`` subtree keeps its router in f32).  An
+embeds config keeps the ``"embed"`` table too, as the reference does: tied,
+it is musicgen's head; untied, phi-3-vision's is never read.
 Pools and caches: a list with one dict per layer, updated in place by the
 step that uses them.
 """
@@ -67,12 +72,10 @@ def supports_speculative(cfg: ModelConfig) -> bool:
 
 def _check_ported(cfg: ModelConfig, *, paged: bool = False) -> None:
     kinds = {s.kind for s in layer_specs(cfg)}
-    if cfg.input_mode != "tokens" or not kinds <= _PORTED_KINDS:
+    if not kinds <= _PORTED_KINDS:
         raise NotImplementedError(
-            f"config {cfg.name}: the port runs token models of "
-            f"{sorted(_PORTED_KINDS)} layers; {sorted(kinds)} / input_mode="
-            f"{cfg.input_mode!r}: input_mode='embeds' joins with the embeds "
-            f"slice (ROADMAP P9b)")
+            f"config {cfg.name}: the port runs models of "
+            f"{sorted(_PORTED_KINDS)} layers, not {sorted(kinds)}")
     if paged and not supports_paged(cfg):
         raise ValueError(f"config {cfg.name} cannot use the paged KV pool: "
                          f"its {sorted(kinds)} layers carry state that "
@@ -280,8 +283,13 @@ def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 # ==================================================================== blocks
-def _embed_inputs(params, tokens, cfg: ModelConfig):
-    return embed_lookup(params["embed"], tokens, scale=cfg.embed_scale,
+def _embed_inputs(params, inputs, cfg: ModelConfig):
+    """(B, S, d) activations: token ids looked up (and scaled, where the
+    config says so), or a frontend's embeddings cast to the model's dtype,
+    with no lookup and no scale, as in the JAX package."""
+    if cfg.input_mode == "embeds":
+        return inputs.to(dtype_of(cfg))
+    return embed_lookup(params["embed"], inputs, scale=cfg.embed_scale,
                         d=cfg.d_model)
 
 
@@ -358,9 +366,10 @@ def _apply_block(p, x, positions, *, cfg: ModelConfig, spec: LayerSpec,
 
 def forward(params, inputs, positions, cfg: ModelConfig, *,
             mode: str = "score"):
-    """Full-sequence forward (no caches): inputs (B, S) int32 tokens,
-    positions (B, S) int32 (contiguous 0..S-1: K2 assumes them).  Returns
-    (f32 logits (B, S, V), aux): aux is the f32 sum of the attn_moe layers'
+    """Full-sequence forward (no caches): inputs (B, S) int32 tokens or
+    (B, S, d) embeddings (``input_mode="embeds"``), positions (B, S) int32
+    (contiguous 0..S-1: K2 assumes them).  Returns (f32 logits (B, S, V),
+    aux): aux is the f32 sum of the attn_moe layers'
     aux losses, in layer order (zero without MoE layers).
 
     ``mode="train"`` computes the same forward: the JAX package differs only
@@ -383,8 +392,8 @@ def forward(params, inputs, positions, cfg: ModelConfig, *,
 
 def prefill(params, inputs, positions, cfg: ModelConfig, *, max_len: int):
     """Run the prompt and build the dense decode caches: inputs (B, S)
-    int32 tokens, positions (B, S) int32 (0..S-1, as the dense engine
-    passes them).  Returns (f32 last-token logits (B, V), caches: one dict
+    int32 tokens or (B, S, d) embeddings, positions (B, S) int32 (0..S-1,
+    as the dense engine passes them).  Returns (f32 last-token logits (B, V), caches: one dict
     per layer, each for ``max_len`` positions)."""
     _check_ported(cfg)
     x = _embed_inputs(params, inputs, cfg)
@@ -402,11 +411,12 @@ def prefill(params, inputs, positions, cfg: ModelConfig, *, max_len: int):
 
 
 def decode_step(params, caches, inputs, positions, cfg: ModelConfig):
-    """One decode step: inputs (B,) or (B, 1) int32 tokens, positions
-    (B, 1) int32.  Returns (f32 logits (B, V), caches).  ``caches`` (one
-    dict per layer, from ``prefill`` or ``init_decode_caches``) is updated
-    in place, where the JAX package returns new trees."""
-    if inputs.dim() == 1:
+    """One decode step: inputs (B,) or (B, 1) int32 tokens, or (B, 1, d)
+    embeddings, positions (B, 1) int32.  Returns (f32 logits (B, V),
+    caches).  ``caches`` (one dict per layer, from ``prefill`` or
+    ``init_decode_caches``) is updated in place, where the JAX package
+    returns new trees."""
+    if cfg.input_mode == "tokens" and inputs.dim() == 1:
         inputs = inputs[:, None]
     x = _embed_inputs(params, inputs, cfg)
     embeds0 = x

@@ -1,8 +1,9 @@
 """The serving engine: the paged unified token-budget tick and the dense
 slot tick.
 
-Port of the JAX package's ``serving/engine.py`` for token models of
-attention, Mamba-2 and shared-attention layers.
+Port of the JAX package's ``serving/engine.py`` for models of attention,
+MoE, Mamba-2 and shared-attention layers, over token prompts or (dense
+mode only) a frontend's embeddings.
 
 **Paged mode** (pure-attention configs, the default for them): every tick
 is ONE mixed step.  The scheduler admits work against a per-tick TOKEN
@@ -24,14 +25,21 @@ K1, the ragged paged-attention kernel, at every layer — followed by
 - **Fixed shapes**: the packed batch is always ``token_budget`` lanes and
   the block-table operand always (n_slots, max_blocks).
 
-**Dense mode** (``paged=False``; the default for the SSM and hybrid
-configs): each tick first admits waiting requests in contiguous groups of
-equal prompt length, each group ONE batched ``models.prefill`` (K2 and K3)
-whose caches are copied into the group's slots, then decodes every slot in
-ONE ``models.decode_step`` (K4 for attention, the plain SSM step for mamba
-layers) masked to the live ones: an inactive slot keeps its last token.
+**Dense mode** (``paged=False``; the default for the SSM, hybrid and
+embeds configs): each tick first admits waiting requests in contiguous
+groups of equal prompt length, each group ONE batched ``models.prefill``
+(K2 and K3) whose caches are copied into the group's slots, then decodes
+every slot in ONE ``models.decode_step`` (K4 for attention, the plain SSM
+step for mamba layers) masked to the live ones: an inactive slot keeps its
+last token.
 Every dispatch is followed by one host pull, so ``stats.host_syncs ==
-stats.decode_ticks + stats.prefill_batches``.
+stats.decode_ticks + stats.prefill_batches``.  An embeds prompt is an
+(S, d) array; equal-length ones share a prefill as token prompts do.  The
+decode tick feeds each slot's sampled token id back as its next input,
+which an embeds model cannot take: the reference crashes there (ROADMAP
+F12), so ``submit`` rejects an embeds request with ``max_new_tokens > 1``
+through the completion path, and one-token requests are served exactly as
+the reference serves them (prefill only).
 
 **CUDA graphs** (``cuda_graphs``; on by default on the card): the paged
 mixed tick and the dense decode tick are each captured ONCE per engine and
@@ -247,20 +255,9 @@ class _GraphTick:
         graph = torch.cuda.CUDAGraph()
         if self.generator is not None:
             graph.register_generator_state(self.generator)
-        before = kernels.launch_counts()
-        # not torch.cuda.graph(): it also empties the allocator's cache,
-        # which would send every later tick's eager allocations back to
-        # cudaMalloc in the middle of serving
-        with kernels.holding() as held, torch.cuda.stream(self.stream):
-            graph.capture_begin()
-            try:
-                step()
-            finally:
-                graph.capture_end()
-        after = kernels.launch_counts()
-        self._launches = {k: after[k] - before[k] for k in after}
-        kernels.add_launches({k: -n for k, n in self._launches.items()})
-        self.graph, self._held = graph, held
+        self._held, self._launches = kernels.capture(graph, self.stream,
+                                                     step)
+        self.graph = graph
         self.stats.graph_captures += 1
         self.stats.graph_capture_s += time.monotonic() - t0
 
@@ -282,9 +279,6 @@ class ServeEngine:
                  preempt: bool = False,
                  mesh=None, device="cuda",
                  cuda_graphs: bool | None = None) -> None:
-        if cfg.input_mode != "tokens":
-            raise _later(f"input_mode={cfg.input_mode!r} (config "
-                         f"{cfg.name})", "embeds")
         self.paged = supports_paged(cfg) if paged is None else paged
         if self.paged and not supports_paged(cfg):
             raise ValueError(f"config {cfg.name} cannot use the paged cache")
@@ -420,6 +414,12 @@ class ServeEngine:
         S = len(self._norm_prompt(req.prompt))
         if S > self.cm.max_len:
             return f"prompt of {S} tokens exceeds max_len={self.cm.max_len}"
+        if self.cfg.input_mode == "embeds" and req.max_new_tokens > 1:
+            return (f"embeds request with max_new_tokens="
+                    f"{req.max_new_tokens}: a decode step would feed the "
+                    f"sampled token ids back as embeddings, which the "
+                    f"reference engine crashes on (ROADMAP F12); embeds "
+                    f"requests are served one token each, from the prefill")
         if not self.paged:
             return None
         S_eff = S - req.replay_offset
@@ -487,7 +487,8 @@ class ServeEngine:
 
     @staticmethod
     def _norm_prompt(prompt) -> np.ndarray:
-        """(S,) tokens; squeeze a legacy leading batch dim."""
+        """(S,) tokens or (S, d) embeds; squeeze a legacy leading batch
+        dim."""
         p = np.asarray(prompt)
         if p.ndim >= 2 and p.shape[0] == 1:
             p = p[0]

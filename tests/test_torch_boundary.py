@@ -58,7 +58,10 @@ def test_engine_import_pulls_in_no_jax():
             "repro_torch.configs.h2o_danube_1_8b, "
             "repro_torch.configs.h2o_danube_3_4b, "
             "repro_torch.configs.mamba2_1_3b, "
-            "repro_torch.configs.zamba2_2_7b; "
+            "repro_torch.configs.zamba2_2_7b, "
+            "repro_torch.configs.musicgen_large, "
+            "repro_torch.configs.phi_3_vision_4_2b, "
+            "repro_torch.core.fastpath; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -96,7 +96,8 @@ def test_gemma2_layout_and_param_count_match_reference(smoke):
         [(s.repeat, [dataclasses.astuple(p) for p in s.pattern])
          for s in ref.layout()]
     assert ours.param_count() == ref.param_count()
-    assert ARCH_IDS == ("llama4-maverick-400b-a17b", "deepseek-moe-16b",
+    assert ARCH_IDS == ("musicgen-large", "phi-3-vision-4.2b",
+                        "llama4-maverick-400b-a17b", "deepseek-moe-16b",
                         "gemma3-4b", "gemma2-9b", "h2o-danube-1.8b",
                         "h2o-danube-3-4b", "mamba2-1.3b", "zamba2-2.7b")
     # flat layer order: copy r, pattern position i -> layer 2r + i, so the
@@ -430,16 +431,23 @@ def test_two_chunk_mixed_step_reproduces_prefill_then_decode():
                                atol=1e-4, rtol=1e-4)
 
 
-def test_moe_configs_build_and_embeds_and_mamba_pools_raise():
-    """MoE layers build their params and paged pools; embeds inputs wait
-    for their slice; a config with Mamba-2 layers has no paged pool."""
+def test_moe_and_embeds_configs_build_and_mamba_pools_raise():
+    """MoE layers build their params and paged pools; an embeds config
+    builds the reference's tree (the embedding table, and a head when
+    untied) but no paged pool; a config with Mamba-2 layers has no paged
+    pool."""
     moe = PCFG.replace(n_experts=4, top_k=2)
     pools = P.init_paged_pools(moe, 4, 4, device="cpu")
     params = P.init_params(moe, device="cpu")
     assert len(pools) == len(params["layers"]) == moe.n_layers
     assert all("moe" in p and "mlp" not in p for p in params["layers"])
-    with pytest.raises(NotImplementedError, match="embeds slice"):
-        P.init_params(PCFG.replace(input_mode="embeds"), device="cpu")
+    embeds = PCFG.replace(input_mode="embeds", tie_embeddings=False)
+    eparams = P.init_params(embeds, device="cpu")
+    assert eparams["embed"]["table"].shape == \
+        eparams["head"]["table"].shape == (embeds.vocab_size, embeds.d_model)
+    assert len(eparams["layers"]) == embeds.n_layers
+    with pytest.raises(ValueError, match="paged"):
+        P.init_paged_pools(embeds, 4, 4, device="cpu")
     with pytest.raises(ValueError, match="paged"):
         P.init_paged_pools(get_config("mamba2-1.3b", smoke=True), 4, 4,
                            device="cpu")
@@ -509,8 +517,12 @@ def test_forward_modes_and_unported_inputs():
     assert torch.equal(score, train)             # remat only, in JAX
     with pytest.raises(ValueError, match="mode"):
         P.forward(pp, toks, pos, PCFG, mode="prefill")
-    with pytest.raises(NotImplementedError, match="input_mode"):
-        P.forward(pp, toks, pos, PCFG.replace(input_mode="embeds"))
+    # input_mode="embeds": the looked-up embeddings, fed in as (B, S, d),
+    # give the token forward's logits (this config scales no embedding)
+    x = pp["embed"]["table"][toks.long()]
+    embedded, _ = P.forward(pp, x, pos, PCFG.replace(input_mode="embeds"))
+    assert embedded.shape == (1, 9, PCFG.vocab_size)
+    assert torch.equal(embedded, score)
 
 
 def test_forward_logits_equal_a_packed_paged_prefill():
