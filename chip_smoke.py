@@ -117,8 +117,9 @@ on the first phase that fails (exit code != 0):
                   that deleting the engine frees its graph.
 10. trace       — the main serve run again under torch.profiler, captured
                   and eagerly: device time by kernel, the device's idle
-                  share, and K1's launches as the trace counts them (==
-                  ticks x 42).  Then one ``graphs`` line: captured against
+                  share, and K1's launches by its wrapper's count (==
+                  ticks x 42) and as the trace counts them (at most 1 % of
+                  the records dropped, ``records_dropped``).  Then one ``graphs`` line: captured against
                   eager (TTFT p50, TPOT p50, tokens/s, peak memory, idle
                   share).
 11. serve_dense — ``ServeEngine(paged=False)`` serving mamba2-1.3b and
@@ -134,8 +135,9 @@ on the first phase that fails (exit code != 0):
                   shared-attention applications x prefill_batches and x
                   decode_ticks, one decode capture per captured engine and
                   a replay at every decode tick after the first; then each
-                  model under torch.profiler, captured and eagerly (K3's
-                  and K4's launches counted in the trace too), and its
+                  model under torch.profiler, captured and eagerly (the
+                  wrappers' counts held again, and K3's and K4's counted in
+                  the trace too, at most 1 % of them dropped), and its
                   ``graphs`` line.
 12. preempt     — gemma2-9b at full width and depth, bf16, captured ticks,
                   8 slots, 512-token budget, prefix cache off: six batch
@@ -255,10 +257,39 @@ on the first phase that fails (exit code != 0):
                   time, tokens/s, peak memory.
 19. score_trace — one gemma2-9b score forward under torch.profiler
                   (informational).
+20. grad_kernel — (after dropping the libraries' caches and checking that
+                  no earlier phase left device memory allocated: no CUDA
+                  tensor outside the kernels' workspaces, at most 4 MiB of
+                  library state) K2 and K3
+                  under autograd at zamba2-2.7b's training shapes (K2: B 2,
+                  S 2048, H = K = 32, D 160; K3: H 80, P 64, N 64, chunk
+                  256; bf16): the Function's forward bit-equal to a direct
+                  kernel call, two calls bit-equal, one launch per forward,
+                  its grads bit-equal to the plain version's autograd grads;
+                  forward and backward times.
+21. train_check — zamba2-2.7b at full width cut to 6 layers (one group),
+                  B 1 x S 2048: the loss and every gradient leaf with the
+                  kernels against the plain versions swapped into the
+                  wrappers' CUDA route; f32: loss within 1e-5 relative,
+                  each leaf within 2e-4 of its max-abs; bf16: the global
+                  gradient norm within 2e-2 relative, every leaf's cosine.
+22. train       — zamba2-2.7b at full width and depth, bf16, AdamW (lr
+                  1e-3, warmup 1), max_grad_norm 1, remat, B 2 x S 2048, 6
+                  steps: finite losses and norms, the last loss below the
+                  first, K2 == 18 and K3 == 108 launches a step, peak
+                  memory under 60 GB; step time p50, tokens/s and the
+                  step's share of its model-FLOPs bound.
+23. train_ft    — zamba2-2.7b cut to 6 layers, Adafactor, B 1 x S 1024,
+                  ``FaultTolerantLoop`` over a ``CheckpointManager`` in a
+                  temporary directory, checkpoints at steps 2 and 3 (bytes,
+                  seconds): a new loop resumes at step 3 bit for bit, the
+                  next step's loss bit-equal from both states, a
+                  time-travel restore returns step 2.
 
 It prints one JSON line per phase, then each phase's seconds, then the
 card's name and power limit as nvidia-smi gives them, then the kernels line
-(K1-K4), and last
+(K1-K4, with K2's and K3's launches per train step and their autograd
+times), and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -981,15 +1012,34 @@ def kernel_launches(prof, names) -> int:
                and any(n in ev.key for n in names))
 
 
+# the profiler may drop a few kernel records of a long traced run (one run
+# counted 1,754 of 1,764 K1 combines; its rerun all of them): the wrappers'
+# own counts are held exactly, the trace's within this share
+TRACE_DROP_SHARE = 0.01
+
+
+def traced_records(launched: dict, traced: dict) -> dict:
+    """Hold each kernel's count of profiler records to at most its launches
+    (the wrappers' count) and at least 99 % of them.  Returns the records
+    dropped per kernel."""
+    dropped = {}
+    for k, n in launched.items():
+        dropped[k] = n - traced[k]
+        assert 0 <= dropped[k] <= TRACE_DROP_SHARE * n, (k, n, traced[k])
+    return dropped
+
+
 def trace_phase(cfg, params, dev, cuda_graphs: bool, groups=None) -> dict:
     """Where the time goes: the main serve run again under torch.profiler,
     device time by kernel (self time, summed over launches, in ``groups``:
     K1 and the dense products unless given) and the device's busy share of
-    the wall time, and K1's launches as the trace counts them (one combine
-    kernel per call).  The timings above come from runs without the
-    profiler."""
+    the wall time.  K1's launches by its wrapper's count (== ticks x
+    layers, exactly) and as the trace counts them (one combine kernel per
+    call; at most 1 % of the records dropped, ``records_dropped``).  The
+    timings above come from runs without the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels.decode_attention import ops
     from repro_torch.serving.engine import ServeEngine
 
     base = allocated_outside_workspaces()
@@ -997,6 +1047,7 @@ def trace_phase(cfg, params, dev, cuda_graphs: bool, groups=None) -> dict:
                       num_blocks=1024, device=dev, cuda_graphs=cuda_graphs)
     for r in serve_requests(cfg.vocab_size):
         eng.submit(r)
+    ops.ragged_paged_attention.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
@@ -1004,10 +1055,13 @@ def trace_phase(cfg, params, dev, cuda_graphs: bool, groups=None) -> dict:
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     ticks = eng.stats.ticks
+    launches = ops.ragged_paged_attention.launches
+    assert launches == ticks * cfg.n_layers, (launches, ticks)
     traced = kernel_launches(prof, ("ragged_combine_kernel",))
-    assert traced == ticks * cfg.n_layers, (traced, ticks)
+    dropped = traced_records({"K1": launches}, {"K1": traced})
     res = {"phase": "trace", "cuda_graphs": cuda_graphs, "ticks": ticks,
-           "k1_launches_traced": traced,
+           "k1_launches": launches, "k1_launches_traced": traced,
+           "records_dropped": dropped,
            **_device_time(prof, wall, groups or {"K1": K1_KERNELS,
                                                  "gemm": GEMM_KEYS})}
     emit(res)
@@ -1762,9 +1816,11 @@ def serve_dense_once(cfg, params, dev, smi: str, reqs=None, **kw) -> dict:
 
 def serve_dense_trace(cfg, params, dev, cuda_graphs: bool) -> dict:
     """The dense serve again under torch.profiler: device time by kernel
-    group, the device's idle share, and K3's and K4's launches as the trace
-    counts them (one pass kernel per K3 call, one combine kernel per K4
-    call)."""
+    group, the device's idle share, and K2's, K3's and K4's launches by
+    their wrappers' counts (held exactly: mamba layers x prefill_batches,
+    shared-attention applications x prefill_batches and x decode_ticks) and
+    K3's and K4's as the trace counts them (one pass kernel per K3 call,
+    one combine kernel per K4 call; at most 1 % of the records dropped)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import layer_specs
@@ -1777,6 +1833,9 @@ def serve_dense_trace(cfg, params, dev, cuda_graphs: bool) -> dict:
                       cuda_graphs=cuda_graphs)
     for r in dense_requests(cfg.vocab_size):
         eng.submit(r)
+    counters = _kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
@@ -1784,14 +1843,19 @@ def serve_dense_trace(cfg, params, dev, cuda_graphs: bool) -> dict:
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     s = eng.stats
+    launches = {k: fn.launches for k, fn in counters.items()}
     kinds = [spec.kind for spec in layer_specs(cfg)]
+    n_mamba, n_attn = kinds.count("mamba"), kinds.count("shared_attn")
+    assert launches == {"K2": n_attn * s.prefill_batches,
+                        "K3": n_mamba * s.prefill_batches,
+                        "K4": n_attn * s.decode_ticks}, (launches, s)
     traced = {"K3": kernel_launches(prof, ("ssd_pass_kernel",)),
               "K4": kernel_launches(prof, ("decode_combine_kernel",))}
-    assert traced["K3"] == kinds.count("mamba") * s.prefill_batches, traced
-    assert traced["K4"] == kinds.count("shared_attn") * s.decode_ticks, traced
+    dropped = traced_records({k: launches[k] for k in traced}, traced)
     res = {"phase": "serve_dense_trace", "arch": cfg.name,
            "cuda_graphs": cuda_graphs, "ticks": s.ticks,
-           "launches_traced": traced,
+           "launches": launches, "launches_traced": traced,
+           "records_dropped": dropped,
            **_device_time(prof, wall, {"K2": ("flash_attention",),
                                        "K3": ("ssd_",),
                                        "K4": K4_KERNELS,
@@ -3677,6 +3741,617 @@ def _leaves(tree):
         yield tree
 
 
+# ================================================================ training
+# zamba2-2.7b runs both kernels on the training path: its shared attention
+# through K2 (B 2, S 2048, H = K = 32, D 160, bf16; 9 applications) and its
+# 54 Mamba-2 layers through K3 (H 80, P 64, N 64, chunk 256); with remat
+# each runs again in the backward's recompute
+TRAIN_ARCH = "zamba2-2.7b"
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 2048, 6
+TRAIN_PEAK_LIMIT = 60e9               # bytes: the full-depth step's peak
+TRAIN_F32_LOSS_RTOL = 1e-5
+# of the leaf's max-abs: between train_check's lower reading (the plain
+# versions off by one f32 unit in the last place) and its upper readings
+# (a kernel on bf16-rounded operands), both measured in every run
+TRAIN_F32_LEAF_TOL = 2e-4
+TRAIN_BF16_NORM_RTOL = 2e-2
+TRAIN_BF16_MIN_COSINE = 0.995
+TRAIN_BOUND = ("6 * params * tokens / 989e12 (bf16 tensor cores): the "
+               "model-FLOPs bound of one step, forward and backward, "
+               "without remat's recompute")
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Same dtype, shape and bits (a bf16 leaf compared as its bits)."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(_bits(a), _bits(b)))
+
+
+def _named_tensors(tree) -> dict:
+    """name → tensor of a state tree, named as its checkpoint names it."""
+    from repro_torch.tree import named_leaves
+
+    return dict(named_leaves(tree))
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in _named_tensors(tree).values())
+
+
+def _grad_case(name, fn, plain, counter, inputs, dout, reps, hold) -> dict:
+    """One kernel under autograd against its plain version: ``fn(*t)`` the
+    wrapper's output that the model uses, ``plain(*t)`` the plain
+    version's; ``hold(out, plain_out, inputs)`` asserts the kernel's
+    forward against the plain forward on the same inputs, at the kernel
+    phases' tolerance, and returns its readings."""
+    with torch.no_grad():
+        direct, again = fn(*inputs), fn(*inputs)
+    assert bit_equal(direct, again), (name, "two calls differ")
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    counter.launches = 0
+    out = fn(*leaves)
+    assert counter.launches == 1, (name, counter.launches)
+    assert out.grad_fn is not None and bit_equal(out.detach(), direct), name
+    grads = torch.autograd.grad(out, leaves, dout, retain_graph=True)
+    assert all(bool(torch.isfinite(t).all()) for t in grads), name
+    ref_leaves = [t.detach().requires_grad_() for t in inputs]
+    ref_out = plain(*ref_leaves)
+    held = hold(out.detach(), ref_out.detach(), inputs)
+    want = torch.autograd.grad(ref_out, ref_leaves, dout, retain_graph=True)
+    equal = [bit_equal(a, b) for a, b in zip(grads, want)]
+    assert all(equal), (name, equal)
+    del grads, want
+    res = {"name": name, "forward_vs_plain": held,
+           "forward_equals_direct_call": True,
+           "two_calls_equal": True, "grads_bit_equal": equal,
+           "launches_per_forward": 1,
+           "forward_ms": cuda_ms(lambda: fn(*leaves), reps[0]),
+           "backward_ms": cuda_ms(lambda: torch.autograd.grad(
+               out, leaves, dout, retain_graph=True), reps[1]),
+           "plain_forward_ms": cuda_ms(lambda: plain(*ref_leaves), reps[1]),
+           "plain_backward_ms": cuda_ms(lambda: torch.autograd.grad(
+               ref_out, ref_leaves, dout, retain_graph=True), reps[1])}
+    return res
+
+
+def unembed_grad_check(cfg, dev, T, g) -> dict:
+    """The bf16 head product's backward on the card (``torch.mm`` with an
+    f32 out has none; ``layers._UnembedF32`` gives it the upcast
+    product's): its grads bit-equal to the upcast product's autograd
+    grads at the model's head shapes."""
+    from repro_torch.models import layers
+
+    x = (torch.randn((T, cfg.d_model), generator=g, device=dev)
+         ).to(torch.bfloat16).requires_grad_()
+    table = (torch.randn((cfg.vocab_size, cfg.d_model), generator=g,
+                         device=dev) * cfg.d_model ** -0.5
+             ).to(torch.bfloat16).requires_grad_()
+    dout = torch.randn((T, cfg.vocab_size), generator=g, device=dev)
+    out = layers.unembed({"table": table}, x)
+    assert out.dtype == torch.float32 and out.grad_fn is not None
+    got = torch.autograd.grad(out, (x, table), dout)
+    want = torch.autograd.grad(torch.mm(x.float(), table.float().t()),
+                               (x, table), dout)
+    equal = [bit_equal(a, b) for a, b in zip(got, want)]
+    assert all(equal), equal
+    return {"T": T, "V": cfg.vocab_size, "d": cfg.d_model,
+            "grads_bit_equal_to_upcast_product": equal}
+
+
+def grad_kernel_phase(dev, B=TRAIN_B, S=TRAIN_S, reps=(10, 3)) -> dict:
+    """K2 and K3 under autograd at zamba2-2.7b's training shapes (bf16 q,
+    k, v; bf16 x, B, C and f32 dt, A; y's grad only, as the model uses
+    y): the Function's forward bit-equal to a direct call of the kernel
+    and held to the plain forward on the same inputs at the kernel phases'
+    tolerances (K2 within one bf16 rounding of the f32 plain value, K3's y
+    within ``SSD_TOL``), two direct calls bit-equal (the forward is
+    deterministic), one launch per forward, and its grads (dq, dk, dv; dx, ddt, dA, dB_, dC_) finite
+    and bit-equal to the plain version's autograd grads on the same
+    inputs: the backward is that same plain recompute.  Times (CUDA
+    events, median): forward and backward through the Function, and the
+    plain version's.  First the head product's backward
+    (``unembed_grad_check``)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.ssd import ops as so
+    from repro_torch.kernels.ssd import ref as so_ref
+
+    cfg = get_config(TRAIN_ARCH)
+    g = torch.Generator(device=dev).manual_seed(300)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    bf = torch.bfloat16
+    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    Hs, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    scale = D ** -0.5
+
+    def hold_k2(out, plain_out, qkv):
+        # as flash_kernel_phase holds K2's bf16 output: within 2e-2 of the
+        # plain bf16 output, and each element within one bf16 rounding of
+        # the plain f32 value on the same inputs
+        err = (out.float() - plain_out.float()).abs().max().item()
+        want32 = fa_ref.attention_ref(*(t.float() for t in qkv), scale=scale)
+        over = ((out.float() - want32).abs()
+                / (want32.abs() * ROUND_BF16 + F32_TOL)).max().item()
+        assert err <= 2e-2 and over <= 1.0, ("flash_attention", err, over)
+        return {"max_abs_err": err, "tol": 2e-2,
+                "err_over_rounding_bound": over}
+
+    def hold_k3(y, plain_y, _):
+        # as ssd_kernel_phase holds K3's y: |y - plain| <= atol + rtol|plain|
+        atol, rtol = SSD_TOL
+        err = (y - plain_y).abs()
+        over = (err / (atol + rtol * plain_y.abs())).max().item()
+        assert over <= 1.0, ("ssd", over)
+        return {"max_abs_err": err.max().item(), "tol": SSD_TOL,
+                "err_over_tol": over}
+
+    attn = _grad_case(
+        "flash_attention", lambda q, k, v: fa.flash_attention(q, k, v),
+        lambda q, k, v: fa_ref.attention_ref(q, k, v, scale=scale),
+        fa.flash_attention,
+        [rnd(B, S, H, D).to(bf), rnd(B, S, K, D).to(bf),
+         rnd(B, S, K, D).to(bf)], rnd(B, S, H, D).to(bf), reps, hold_k2)
+    chunk = cfg.ssm_chunk
+    scan = _grad_case(
+        "ssd", lambda *t: so.ssd(*t, chunk=chunk)[0],
+        lambda *t: so_ref.ssd_chunked_ref(*t, chunk=chunk)[0], so.ssd,
+        [rnd(B, S, Hs, P).to(bf), F.softplus(rnd(B, S, Hs)),
+         -torch.exp(rnd(Hs) * 0.5), (rnd(B, S, N) / N ** 0.5).to(bf),
+         (rnd(B, S, N) / N ** 0.5).to(bf)], rnd(B, S, Hs, P), reps, hold_k3)
+    res = {"phase": "grad_kernel", "arch": cfg.name,
+           "unembed": unembed_grad_check(cfg, dev, B * S, g),
+           "K2": dict(attn, shape=f"B={B} S={S} H=K={H} D={D} bf16"),
+           "K3": dict(scan, shape=f"B={B} S={S} H={Hs} P={P} N={N} chunk "
+                                  f"{chunk}, bf16 x/B/C")}
+    emit(res)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _flip_last_bit(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with each element's lowest mantissa bit flipped: every f32
+    element one unit in the last place away, the same way on every call."""
+    return (_bits(t) ^ 1).view(t.dtype)
+
+
+def cuda_routes() -> dict:
+    """Stand-ins for K2's and K3's CUDA routes (``ops._launch``), by name:
+    ``plain`` the plain versions; ``plain_ulp`` the plain versions with
+    every output element moved by one unit in its last place
+    (``_flip_last_bit``): f32 rounding error and nothing else; and
+    ``bf16_operands`` the kernels on operands rounded to bf16 (q, k, v; x,
+    B, C), a kernel off by one bf16 rounding of its inputs."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.ssd import ops as so
+    from repro_torch.kernels.ssd import ref as so_ref
+
+    k2, k3 = fa._launch, so._launch
+    bf = torch.bfloat16
+
+    def plain_k2(q, k, v, window, softcap, scale):
+        return fa_ref.attention_ref(q, k, v, window=window, softcap=softcap,
+                                    scale=scale)
+
+    def plain_k3(x, dt, A, B_, C_, D, h0, chunk):
+        return so_ref.ssd_chunked_ref(x, dt, A, B_, C_, D, chunk=chunk, h0=h0)
+
+    return {
+        "plain": (plain_k2, plain_k3),
+        "plain_ulp": (
+            lambda *a: _flip_last_bit(plain_k2(*a)),
+            lambda *a: tuple(map(_flip_last_bit, plain_k3(*a)))),
+        "bf16_operands": (
+            lambda q, k, v, *a: k2(q.to(bf), k.to(bf), v.to(bf), *a).to(
+                q.dtype),
+            lambda x, dt, A, B_, C_, *a: k3(x.to(bf), dt, A, B_.to(bf),
+                                            C_.to(bf), *a))}
+
+
+@contextlib.contextmanager
+def swapped_routes(k2=None, k3=None):
+    """K2's and / or K3's CUDA route replaced by ``k2`` / ``k3`` (their
+    autograd Functions, whose backward is the plain version, and
+    everything else unchanged)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd import ops as so
+
+    saved = fa._launch, so._launch
+    fa._launch, so._launch = k2 or fa._launch, k3 or so._launch
+    try:
+        yield
+    finally:
+        fa._launch, so._launch = saved
+
+
+def _leaf_errors(a: dict, b: dict) -> dict:
+    """Each gradient leaf's largest error over its max-abs, ``a`` against
+    ``b`` (name -> tensor)."""
+    out = {}
+    for n in b:
+        scale = b[n].abs().max().item()
+        err = (a[n] - b[n]).abs().max().item()
+        out[n] = err / scale if scale else err
+    return out
+
+
+def train_check_phase(dev, n_layers=6, S=TRAIN_S) -> dict:
+    """zamba2-2.7b at full width cut to one group (``reduced``: n_layers 54
+    -> 6: six Mamba-2 layers and one shared-attention application), B 1,
+    S 2048, ``synthetic_batch`` seed 0: the loss and every gradient leaf
+    through the port with the kernels (K2 and K3 in the forward and again
+    in remat's recompute), and again with the plain versions in the
+    wrappers' CUDA route.  Tolerances: at f32 (the kernels' FMA routes)
+    the loss within 1e-5 relative and each gradient leaf within
+    ``TRAIN_F32_LEAF_TOL`` of that leaf's max-abs; at bf16 the global
+    gradient norm within 2e-2 relative and every leaf's cosine at least
+    ``TRAIN_BF16_MIN_COSINE``.
+
+    At f32 the same comparison is also read with one kernel at a time
+    (the other plain), and for the two stand-ins of ``cuda_routes``: the
+    plain versions off by one unit in the last place (the lower reading:
+    what f32 rounding of the kernels' outputs alone does to the
+    gradients), and each kernel on bf16-rounded operands in turn (the
+    upper readings, which must exceed the limit: the check tells such a
+    kernel from a right one)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import layer_specs
+    from repro_torch.training import (DataConfig, ShardedBatcher,
+                                      make_loss_fn, value_and_grad)
+
+    full = get_config(TRAIN_ARCH)
+    small = full.replace(n_layers=n_layers)
+    kinds = [s.kind for s in layer_specs(small)]
+    n_mamba, n_attn = kinds.count("mamba"), kinds.count("shared_attn")
+    batch = next(ShardedBatcher(small, DataConfig(batch=1, seq_len=S),
+                                device=dev))
+    routes = cuda_routes()
+    plain_k2, plain_k3 = routes["plain"]
+    res = {"phase": "train_check", "arch": small.name,
+           "reduced": {"n_layers": [full.n_layers, n_layers]}, "B": 1,
+           "S": S, "tolerances": {
+               "float32": {"loss_rtol": TRAIN_F32_LOSS_RTOL,
+                           "leaf_atol_of_max_abs": TRAIN_F32_LEAF_TOL},
+               "bfloat16": {"grad_norm_rtol": TRAIN_BF16_NORM_RTOL,
+                            "min_cosine": TRAIN_BF16_MIN_COSINE}}}
+    for dtype in ("float32", "bfloat16"):
+        cfg = small.replace(dtype=dtype)
+        params = _seeded_params(cfg, dev, 7)
+        loss_fn = make_loss_fn(cfg)
+        counters = _kernel_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        (loss, _), grads = value_and_grad(loss_fn, params, batch)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        # remat: each kernel again in the backward's recompute
+        assert launches == {"K2": 2 * n_attn, "K3": 2 * n_mamba, "K4": 0}, \
+            launches
+        with swapped_routes(plain_k2, plain_k3):
+            (loss_p, _), grads_p = value_and_grad(loss_fn, params, batch)
+        a, b = _named_tensors(grads), _named_tensors(grads_p)
+        assert a.keys() == b.keys()
+        finite = [n for n in b if not (bool(torch.isfinite(a[n]).all())
+                                       and bool(torch.isfinite(b[n]).all()))]
+        assert not finite, ("gradient leaves not finite", dtype, finite)
+        loss, loss_p = float(loss), float(loss_p)
+        assert math.isfinite(loss) and math.isfinite(loss_p), (loss, loss_p)
+        norm = math.sqrt(sum(float(t.float().square().sum())
+                             for t in a.values()))
+        norm_p = math.sqrt(sum(float(t.float().square().sum())
+                               for t in b.values()))
+        out = {"loss": loss, "loss_plain": loss_p,
+               "loss_rel_err": abs(loss - loss_p) / abs(loss_p),
+               "grad_norm": norm, "grad_norm_plain": norm_p,
+               "grad_norm_rel_err": abs(norm - norm_p) / norm_p,
+               "launches": launches, "leaves": len(a)}
+        if dtype == "float32":
+            ratio = _leaf_errors(a, b)
+            worst = sorted(ratio, key=ratio.get, reverse=True)
+            out["err_over_max_abs"] = {n: ratio[n] for n in worst[:8]}
+            out["leaves_over_tol"] = [n for n in worst
+                                      if ratio[n] > TRAIN_F32_LEAF_TOL]
+            ok = (out["loss_rel_err"] <= TRAIN_F32_LOSS_RTOL
+                  and not out["leaves_over_tol"])
+            del a, grads
+            # the same reading for each stand-in: (K2's route, K3's route)
+            readings = {}
+            for name, (r2, r3) in {
+                    "kernel_K2_only": (None, plain_k3),
+                    "kernel_K3_only": (plain_k2, None),
+                    "plain_ulp": routes["plain_ulp"],
+                    "K2_bf16_operands": (routes["bf16_operands"][0],
+                                         plain_k3),
+                    "K3_bf16_operands": (plain_k2,
+                                         routes["bf16_operands"][1])
+                    }.items():
+                with swapped_routes(r2, r3):
+                    (loss_r, _), grads_r = value_and_grad(loss_fn, params,
+                                                          batch)
+                ratio = _leaf_errors(_named_tensors(grads_r), b)
+                n = max(ratio, key=ratio.get)
+                readings[name] = {
+                    "loss_rel_err": abs(float(loss_r) - loss_p) / abs(loss_p),
+                    "worst_leaf": n, "worst_err_over_max_abs": ratio[n],
+                    "in_proj_err_over_max_abs": max(
+                        v for k, v in ratio.items() if "in_proj" in k)}
+                del grads_r
+            out["readings"] = readings
+            # the check tells a kernel off by one bf16 rounding of its
+            # operands from a right one
+            ok = ok and all(
+                readings[k]["worst_err_over_max_abs"] > TRAIN_F32_LEAF_TOL
+                for k in ("K2_bf16_operands", "K3_bf16_operands"))
+        else:
+            cos = {n: float(torch.nn.functional.cosine_similarity(
+                a[n].float().flatten(), b[n].float().flatten(), dim=0))
+                for n in b}
+            out["cosine"] = cos
+            out["min_cosine"] = min(cos.values())
+            ok = (out["grad_norm_rel_err"] <= TRAIN_BF16_NORM_RTOL
+                  and out["min_cosine"] >= TRAIN_BF16_MIN_COSINE)
+            del a, grads
+        res[dtype] = dict(out, within_tolerance=ok)
+        del params, grads_p, b
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(res)
+    assert res["float32"]["within_tolerance"], res["float32"]
+    assert res["bfloat16"]["within_tolerance"], {
+        k: v for k, v in res["bfloat16"].items() if k != "cosine"}
+    return res
+
+
+def train_trace(step, state, batch) -> dict:
+    """One more train step under torch.profiler (informational): device
+    time by group (K2's and K3's forward kernels, the dense products,
+    which include the plain backwards' einsums, and the rest) and the
+    device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    return _device_time(prof, wall, {"K2": ("flash_attention",),
+                                     "K3": ("ssd_",), "gemm": GEMM_KEYS})
+
+
+def train_phase(dev, smi: str, B=TRAIN_B, S=TRAIN_S,
+                steps=TRAIN_STEPS) -> dict:
+    """zamba2-2.7b at full width and depth, bf16, seeded weights (N(0, 1/d)
+    embedding rows), AdamW (its ``cfg.optimizer``; lr 1e-3, warmup_steps 1,
+    weight decay 0.1), ``max_grad_norm`` 1.0, remat on, ``synthetic_batch``
+    seed 0, B 2 x S 2048, ``steps`` steps.  Every loss and gradient norm
+    finite, the norm above 0, the last loss below the first; each step
+    launches K2 2 x 9 times and K3 2 x 54 times (forward and recompute);
+    the peak memory under 60 GB.  Step time (host clock around a step that
+    ends in synchronize), tokens/s, peak memory and the step's share of its
+    model-FLOPs bound (``TRAIN_BOUND``); then one more step traced
+    (``train_trace``)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import layer_specs, stacked_leaves
+    from repro_torch.training import (DataConfig, ShardedBatcher, TrainState,
+                                      get_optimizer, make_train_step)
+
+    cfg = get_config(TRAIN_ARCH)
+    assert cfg.remat and cfg.optimizer == "adamw"
+    kinds = [s.kind for s in layer_specs(cfg)]
+    n_mamba, n_attn = kinds.count("mamba"), kinds.count("shared_attn")
+    opt = get_optimizer(cfg.optimizer, lr=1e-3, warmup_steps=1)
+    t0 = time.monotonic()
+    params = _seeded_params(cfg, dev, 0)
+    n_params = sum(t.numel() for t in _leaves(params))
+    assert n_params == cfg.param_count(), (n_params, cfg.param_count())
+    state = TrainState(params, opt.init(stacked_leaves(params, cfg)))
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    step = make_train_step(cfg, opt, max_grad_norm=1.0)
+    batches = ShardedBatcher(cfg, DataConfig(batch=B, seq_len=S, seed=0),
+                             device=dev)
+    counters = _kernel_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s, launches, metrics = [], [], []
+    for _ in range(steps):
+        batch = next(batches)
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.monotonic()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t0)
+        launches.append({k: fn.launches for k, fn in counters.items()})
+        metrics.append(m)
+    peak = torch.cuda.max_memory_allocated()
+    traced = train_trace(step, state, next(batches))
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    assert all(map(math.isfinite, losses + norms)), (losses, norms)
+    assert min(norms) > 0, norms
+    assert losses[-1] < losses[0], losses
+    assert int(metrics[-1]["step"]) == steps
+    want = {"K2": 2 * n_attn, "K3": 2 * n_mamba, "K4": 0}
+    assert all(l == want for l in launches), (launches, want)
+    assert peak < TRAIN_PEAK_LIMIT, peak
+    p50 = statistics.median(step_s)
+    bound_s = 6 * n_params * B * S / PEAK[torch.bfloat16]
+    res = {"phase": "train", "arch": cfg.name, "card": smi,
+           "params": n_params, "dtype": cfg.dtype, "optimizer": opt.name,
+           "lr": 1e-3, "warmup_steps": 1, "max_grad_norm": 1.0,
+           "remat": cfg.remat, "B": B, "S": S, "steps": steps,
+           "losses": losses, "grad_norms": norms,
+           "launches_per_step": launches[-1], "init_s": init_s,
+           "step_s": step_s, "step_p50_s": p50,
+           "tokens_per_s": B * S / p50,
+           "state_bytes": {"params": _tree_bytes(state.params),
+                           "moments": _tree_bytes(state.opt_state.mu)
+                           + _tree_bytes(state.opt_state.nu)},
+           "peak_mem_bytes": peak, "bound_ms": bound_s * 1e3,
+           "bound": TRAIN_BOUND, "share_of_bound": bound_s / p50,
+           "trace": traced}
+    emit(res)
+    del state, params, metrics, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_ft_phase(dev, n_layers=6, S=1024, steps=3) -> dict:
+    """zamba2-2.7b at full width cut to one group (``reduced``: n_layers 54
+    -> 6), bf16, Adafactor, B 1 x S 1024, through ``FaultTolerantLoop``
+    with a ``CheckpointManager`` over a persistent log in a temporary
+    directory (removed at the end), ``ckpt_every`` 2, 3 steps: saves at
+    steps 2 (asynchronous) and 3 (the final stable one), each save's bytes
+    and seconds.  A new loop over the same log resumes at step 3 with
+    every leaf bit-equal to the first loop's final state; the next step's
+    loss from both states is bit-equal (the forward is deterministic); a
+    time-travel restore to a time between the two saves returns step 2."""
+    import tempfile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.objects import monotonic_ns
+    from repro_torch.kernels import build
+    from repro_torch.models import stacked_leaves
+    from repro_torch.training import (CheckpointManager, DataConfig,
+                                      FaultTolerantLoop, ShardedBatcher,
+                                      TrainState, clone_state,
+                                      get_optimizer, make_train_step)
+
+    full = get_config(TRAIN_ARCH)
+    cfg = full.replace(n_layers=n_layers)
+    opt = get_optimizer("adafactor")
+    step = make_train_step(cfg, opt)
+    dcfg = DataConfig(batch=1, seq_len=S)
+
+    def fresh(seed):
+        params = _seeded_params(cfg, dev, seed)
+        return TrainState(params, opt.init(stacked_leaves(params, cfg)))
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        path = os.path.join(tmp, "ckpt.log")
+        ck = CheckpointManager(path)
+        saves, marks = [], {}
+        save = ck.save
+
+        def timed_save(at, tree, *, wait=True):
+            t0 = time.monotonic()
+            save(at, tree, wait=wait)
+            saves.append({"step": at, "bytes": _tree_bytes(tree),
+                          "wait_stable": wait,
+                          "seconds": time.monotonic() - t0})
+
+        ck.save = timed_save
+        loop = FaultTolerantLoop(step, fresh(0), ckpt=ck, ckpt_every=2)
+        final = loop.run(ShardedBatcher(cfg, dcfg, device=dev), steps,
+                         metrics_cb=lambda s, m, dt: marks.setdefault(
+                             s, (monotonic_ns(), float(m["loss"]), dt)))
+        assert [s["step"] for s in saves] == [2, 3], saves
+        kept = clone_state(final)
+        # between the two saves: the step-2 checkpoint
+        back, old = ck.restore(kept, at_time_ns=marks[3][0])
+        assert back == 2 and int(old.opt_state.step) == 2, back
+        del old
+        ck.close()
+        log_bytes = os.path.getsize(path)
+        ck2 = CheckpointManager(path)
+        t0 = time.monotonic()
+        loop2 = FaultTolerantLoop(step, fresh(1), ckpt=ck2, ckpt_every=2)
+        restore_s = time.monotonic() - t0
+        assert loop2.step == steps, loop2.step
+        a, b = _named_tensors(loop2.state), _named_tensors(kept)
+        assert a.keys() == b.keys()
+        differ = [n for n in b if not bit_equal(a[n], b[n])]
+        assert not differ, differ
+        nxt = ShardedBatcher(cfg, dcfg, device=dev)
+        nxt.step = steps
+        batch = next(nxt)
+        _, m_kept = step(kept, batch)
+        _, m_back = step(loop2.state, batch)
+        assert bit_equal(m_kept["loss"], m_back["loss"]), (
+            float(m_kept["loss"]), float(m_back["loss"]))
+        ck2.close()
+    res = {"phase": "train_ft", "arch": cfg.name,
+           "reduced": {"n_layers": [full.n_layers, n_layers]},
+           "params": sum(t.numel() for t in _leaves(final.params)),
+           "optimizer": opt.name, "B": 1, "S": S, "steps": steps,
+           "losses": [marks[s][1] for s in sorted(marks)],
+           "step_s": [marks[s][2] for s in sorted(marks)],
+           "saves": saves, "log_bytes": log_bytes, "restore_s": restore_s,
+           "resumed_at": loop2.step, "leaves_bit_equal": len(b),
+           "next_loss": float(m_back["loss"]), "next_loss_bit_equal": True,
+           "time_travel_step": back}
+    emit(res)
+    del final, kept, loop, loop2, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# device bytes the libraries may keep for the process once their caches
+# are dropped: torch's cuBLASLt workspace (1 MiB by default, no API frees
+# it), generator states and the allocator's rounding of the kernels'
+# workspaces; a phase's leftovers are held to zero on their own
+LIBRARY_STATE_BYTES = 4 << 20
+
+
+def _live_cuda_tensors() -> dict:
+    """Storage bytes of the real CUDA tensors Python still reaches (not
+    the kernels' workspaces, not a compiler's fake tensors), by data_ptr."""
+    from repro_torch import kernels
+
+    skip = {b.data_ptr() for b in kernels._workspaces.values()}
+    live = {}
+    for o in gc.get_objects():
+        if type(o) in (torch.Tensor, torch.nn.Parameter) and o.is_cuda:
+            ptr = o.untyped_storage().data_ptr()
+            if ptr not in skip:
+                live[ptr] = (o.untyped_storage().nbytes(), str(o.dtype),
+                             tuple(o.shape))
+    return live
+
+
+def nothing_left_allocated() -> None:
+    """Before the training phases: no earlier phase left device memory
+    allocated.  The kernels' shared workspaces aside, Python reaches no
+    CUDA tensor, and once the libraries' caches an earlier phase filled are
+    dropped (cuBLAS's workspaces, one per handle and stream; the compiled
+    flex_attention of the library timings) at most the libraries' own state
+    (``LIBRARY_STATE_BYTES``) stays allocated."""
+    import torch._dynamo
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = allocated_outside_workspaces()
+    _compiled_flex.cache_clear()
+    torch._dynamo.reset()
+    torch._C._cuda_clearCublasWorkspaces()
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = allocated_outside_workspaces()
+    live = _live_cuda_tensors()
+    emit({"phase": "training_start",
+          "allocated_outside_workspaces": before,
+          "after_dropping_library_caches": left,
+          "live_tensors": len(live),
+          "live_tensor_bytes": sum(v[0] for v in live.values()),
+          "largest_live": sorted(live.values(), reverse=True)[:8]})
+    assert not live, sorted(live.values(), reverse=True)[:8]
+    assert left <= LIBRARY_STATE_BYTES, left
+
+
 # =================================================================== main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3721,7 +4396,15 @@ def main() -> int:
     timed("moe_check", moe_check_phase, dev, smi)
     embeds = timed("embeds", embeds_phases, dev, smi)
     scores = timed("score", score_phase, dev, smi)
-    # where the script's run time goes, for the next phase's budget
+    nothing_left_allocated()
+    grads = timed("grad_kernel", grad_kernel_phase, dev)
+    timed("train_check", train_check_phase, dev)
+    train = timed("train", train_phase, dev, smi)
+    timed("train_ft", train_ft_phase, dev)
+    # where the script's run time goes, for the next phase's budget (the
+    # four training phases: 120 s)
+    seconds["training"] = sum(seconds[k] for k in (
+        "grad_kernel", "train_check", "train", "train_ft"))
     emit({"phase": "seconds", **seconds})
     rep = next(c for c in cases if c["kv_dtype"] == "bfloat16"
                and c["window"] is None and c["softcap"] == 50.0)
@@ -3781,7 +4464,9 @@ def main() -> int:
         "shape": "B=1 S=8192 H=16 K=8 D=256, bf16, causal, no window, "
                  "softcap 50 (gemma2-9b's global layers)",
         "d128": d128(flash), "d64_d96": embeds_cases(flash),
-        "launches_embeds": embeds_launches}, {
+        "launches_embeds": embeds_launches,
+        "launches_train_step": train["launches_per_step"]["K2"],
+        "autograd": grads["K2"]}, {
         "name": "ssd", "id": "K3", "route": "cuda",
         "source": K3_SRC, "replaces": K3_TPU,
         "tpu": "kernels/ssd/kernel.py:ssd_fwd",
@@ -3793,7 +4478,9 @@ def main() -> int:
         "library_ms": None,
         "shape": "B=1 S=4500 H=64 P=64 N=128 chunk 256, bf16 x/B/C, f32 y "
                  "and h_final, h0 given, no D (a mamba2-1.3b layer's "
-                 "prefill)"}, {
+                 "prefill)",
+        "launches_train_step": train["launches_per_step"]["K3"],
+        "autograd": grads["K3"]}, {
         "name": "decode_attention", "id": "K4", "route": "cuda",
         "source": K4_SRC, "replaces": K4_TPU,
         "tpu": "kernels/decode_attention/kernel.py:decode_attention_fwd",

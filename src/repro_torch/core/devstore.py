@@ -24,10 +24,12 @@ from __future__ import annotations
 import threading
 from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import Any, Callable
+from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.tree import tree_leaves, tree_map
 
 from .objects import monotonic_ns
 from .placement import LRUCache
@@ -41,32 +43,16 @@ class _DevEntry:
     latest: int = -1
 
 
-def _map(value: Any, fn: Callable[[Any], Any]) -> Any:
-    """``value`` with ``fn`` applied to every leaf (lists, tuples and dicts
-    are the inner nodes)."""
-    if isinstance(value, dict):
-        return {k: _map(v, fn) for k, v in value.items()}
-    if isinstance(value, (list, tuple)):
-        return type(value)(_map(v, fn) for v in value)
-    return fn(value)
-
-
-def _leaves(value: Any) -> list:
-    out: list = []
-    _map(value, out.append)
-    return out
-
-
 def _tree_nbytes(value: Any) -> int:
     return sum(leaf.numel() * leaf.element_size()
                if isinstance(leaf, torch.Tensor)
                else int(getattr(leaf, "nbytes", 0))
-               for leaf in _leaves(value))
+               for leaf in tree_leaves(value))
 
 
 def _tree_placed(value: Any, device: torch.device) -> bool:
     """True iff every leaf is already a tensor on ``device``."""
-    leaves = _leaves(value)
+    leaves = tree_leaves(value)
     return bool(leaves) and all(
         isinstance(leaf, torch.Tensor) and leaf.device == device
         for leaf in leaves)
@@ -145,8 +131,8 @@ class DeviceStore:
             with self._lock:
                 self.donate_hits += 1
         else:
-            arr = _map(value, lambda leaf: torch.as_tensor(leaf).to(
-                dst, copy=True))
+            arr = tree_map(lambda leaf: torch.as_tensor(leaf).to(
+                dst, copy=True), value)
             if donate:
                 with self._lock:
                     self.donate_misses += 1
@@ -231,5 +217,5 @@ class DeviceStore:
             if key.startswith(prefix):
                 arr = self.get(key)
                 if arr is not None:
-                    out[key] = _map(arr, _to_numpy)
+                    out[key] = tree_map(_to_numpy, arr)
         return out

@@ -15,8 +15,15 @@ the ``.cu`` file for the design.  The dtype alone picks the CUDA kernel:
 bf16 runs both products on the tensor cores (wgmma, TMA, head_dim a
 multiple of 8 up to 256), f32 runs f32 FMAs (head_dim 1..256).
 ``launch_plan`` computes, in Python, the tiling and shared memory the C
-entry point is given.  Forward only: the JAX package has no backward for
-this kernel either, so an input that requires grad raises.
+entry point is given.
+
+Gradients: the kernel is forward only, as the TPU kernel is (the JAX
+package differentiates its plain XLA attention instead).  Every call goes
+through ``_FlashAttention``, a ``torch.autograd.Function`` whose forward is
+the routed call (on CUDA it launches the kernel and counts; under no_grad,
+or with no input that requires grad, it records no graph and is all there
+is) and whose backward re-runs the plain version (``ref.attention_ref``) on
+the saved inputs and differentiates it.
 
 ``flash_attention.launches`` counts kernel launches (never plain calls), so
 a run can show that its main path went through the kernel.
@@ -91,11 +98,6 @@ def launch_plan(D: int, dtype: torch.dtype) -> Plan:
 def _check(q, k, v, window, softcap):
     named = {"q": q, "k": k, "v": v}
     for n, x in named.items():
-        if x.requires_grad:
-            raise NotImplementedError(
-                f"{n} requires grad: flash attention is forward only, as in "
-                f"the JAX package; gradients come with the training slice "
-                f"(ROADMAP P12)")
         if x.device != q.device:
             raise ValueError(f"{n} is on {x.device}, q on {q.device}")
         if not x.is_contiguous():
@@ -120,20 +122,8 @@ def _check(q, k, v, window, softcap):
         raise ValueError(f"softcap must be positive or None, got {softcap}")
 
 
-def flash_attention(q, k, v, *, positions=None, window: int | None = None,
-                    softcap: float | None = None, scale: float | None = None):
-    """Causal flash attention.  q: (B,S,H,D); k,v: (B,S,K,D), float32 or
-    bfloat16, all one dtype.  Returns (B,S,H,D) in q's dtype.
-
-    ``positions`` is accepted for interface parity with the JAX package, but
-    like its kernel this one assumes contiguous positions 0..S-1."""
-    del positions
-    _check(q, k, v, window, softcap)
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    if not q.is_cuda:
-        return attention_ref(q, k, v, window=window, softcap=softcap,
-                             scale=scale)
+def _launch(q, k, v, window, softcap, scale):
+    """The CUDA kernel on checked CUDA operands; counts the launch."""
     B, S, H, D = q.shape
     plan = launch_plan(D, q.dtype)
     out = torch.empty_like(q)
@@ -155,6 +145,50 @@ def flash_attention(q, k, v, *, positions=None, window: int | None = None,
         raise RuntimeError(f"flash_attention kernel launch failed: {what}")
     flash_attention.launches += 1
     return out
+
+
+def _routed(q, k, v, window, softcap, scale):
+    """The plain version for CPU tensors, the kernel for CUDA tensors."""
+    if not q.is_cuda:
+        return attention_ref(q, k, v, window=window, softcap=softcap,
+                             scale=scale)
+    return _launch(q, k, v, window, softcap, scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K2 under autograd: the routed forward; the backward differentiates
+    the plain version re-run on the saved q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, softcap, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (window, softcap, scale)
+        return _routed(q, k, v, window, softcap, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        window, softcap, scale = ctx.args
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = attention_ref(*qkv, window=window, softcap=softcap,
+                                scale=scale)
+            grads = torch.autograd.grad(out, qkv, dout)
+        return (*grads, None, None, None)
+
+
+def flash_attention(q, k, v, *, positions=None, window: int | None = None,
+                    softcap: float | None = None, scale: float | None = None):
+    """Causal flash attention.  q: (B,S,H,D); k,v: (B,S,K,D), float32 or
+    bfloat16, all one dtype.  Returns (B,S,H,D) in q's dtype, differentiable
+    in q, k and v (``_FlashAttention``).
+
+    ``positions`` is accepted for interface parity with the JAX package, but
+    like its kernel this one assumes contiguous positions 0..S-1."""
+    del positions
+    _check(q, k, v, window, softcap)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return _FlashAttention.apply(q, k, v, window, softcap, scale)
 
 
 flash_attention.launches = 0

@@ -21,6 +21,14 @@ allocates only its outputs and needs no host sync.  See the source note in
 the ``.cu`` file for the design.  y and h_final are float32 whatever x's
 dtype: the Mamba-2 block adds its D-term in f32 and rounds once.
 
+Gradients: the kernels are forward only, as the TPU kernel is (the JAX
+package differentiates its pure-JAX chunked SSD instead).  Every call goes
+through ``_SSD``, a ``torch.autograd.Function`` whose forward is the routed
+call (on CUDA it launches the kernels and counts; under no_grad, or with no
+operand that requires grad, it records no graph and is all there is) and
+whose backward re-runs the plain version (``ref.ssd_chunked_ref``) on the
+saved operands and differentiates it.
+
 ``ssd.launches`` counts calls that launched the kernels (the stages of one
 call count once; plain calls never count), so a run can show that its main
 path went through the kernel.
@@ -93,11 +101,6 @@ def _check(x, dt, A, B_, C_, D, h0, chunk):
             raise ValueError(f"{n} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{n} must be contiguous")
-        if t.requires_grad:
-            raise NotImplementedError(
-                f"{n} requires grad: the SSD scan is forward only, as in the "
-                f"JAX package; gradients come with the training slice "
-                f"(ROADMAP P12)")
     if x.dtype not in _CODES or B_.dtype != x.dtype or C_.dtype != x.dtype:
         raise TypeError(f"x, B_, C_ dtypes {x.dtype}/{B_.dtype}/{C_.dtype} "
                         f"must match and be one of {list(_CODES)}")
@@ -127,16 +130,8 @@ def _check(x, dt, A, B_, C_, D, h0, chunk):
         raise ValueError(f"chunk must be positive, got {chunk}")
 
 
-def ssd(x, dt, A, B_, C_, D=None, *, chunk: int = 128, h0=None):
-    """Chunked SSD scan.  x: (B,S,H,P) float32 or bfloat16; dt: (B,S,H)
-    float32, already softplus'd; A: (H,) float32, negative; B_, C_: (B,S,N)
-    in x's dtype, shared by every head; D: optional (H,) float32, added as
-    ``D·x`` (the Mamba-2 block passes none and adds it itself); h0: optional
-    (B,H,P,N) float32 initial state.  Returns (y (B,S,H,P), h_final
-    (B,H,P,N)), both float32."""
-    _check(x, dt, A, B_, C_, D, h0, chunk)
-    if not x.is_cuda:
-        return ssd_chunked_ref(x, dt, A, B_, C_, D, chunk=chunk, h0=h0)
+def _launch(x, dt, A, B_, C_, D, h0, chunk):
+    """The CUDA kernels on checked CUDA operands; counts the call."""
     Bb, S, H, P = x.shape
     N = B_.shape[-1]
     Q = min(chunk, S) if S else 1
@@ -161,6 +156,51 @@ def ssd(x, dt, A, B_, C_, D=None, *, chunk: int = 128, h0=None):
         raise RuntimeError(f"ssd kernel launch failed: CUDA error {err}")
     ssd.launches += 1
     return y, h_final
+
+
+def _routed(x, dt, A, B_, C_, D, h0, chunk):
+    """The plain version for CPU tensors, the kernels for CUDA tensors."""
+    if not x.is_cuda:
+        return ssd_chunked_ref(x, dt, A, B_, C_, D, chunk=chunk, h0=h0)
+    return _launch(x, dt, A, B_, C_, D, h0, chunk)
+
+
+class _SSD(torch.autograd.Function):
+    """K3 under autograd: the routed forward; the backward differentiates
+    the plain version re-run on the saved operands.  A grad that is not
+    needed (h_final's, when only y is used) arrives as None."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B_, C_, D, h0, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, B_, C_, D, h0)
+        ctx.chunk = chunk
+        return _routed(x, dt, A, B_, C_, D, h0, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        with torch.enable_grad():
+            ops = [t if t is None else t.detach().requires_grad_()
+                   for t in ctx.saved_tensors]
+            y, h_final = ssd_chunked_ref(*ops[:6], chunk=ctx.chunk,
+                                         h0=ops[6])
+            outs, douts = zip(*[(o, g) for o, g in ((y, dy), (h_final, dh))
+                                if g is not None])
+            given = [t for t in ops if t is not None]
+            grads = iter(torch.autograd.grad(outs, given, douts,
+                                             allow_unused=True))
+        return (*(None if t is None else next(grads) for t in ops), None)
+
+
+def ssd(x, dt, A, B_, C_, D=None, *, chunk: int = 128, h0=None):
+    """Chunked SSD scan.  x: (B,S,H,P) float32 or bfloat16; dt: (B,S,H)
+    float32, already softplus'd; A: (H,) float32, negative; B_, C_: (B,S,N)
+    in x's dtype, shared by every head; D: optional (H,) float32, added as
+    ``D·x`` (the Mamba-2 block passes none and adds it itself); h0: optional
+    (B,H,P,N) float32 initial state.  Returns (y (B,S,H,P), h_final
+    (B,H,P,N)), both float32, differentiable in every operand (``_SSD``)."""
+    _check(x, dt, A, B_, C_, D, h0, chunk)
+    return _SSD.apply(x, dt, A, B_, C_, D, h0, chunk)
 
 
 ssd.launches = 0

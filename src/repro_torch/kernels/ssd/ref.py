@@ -49,13 +49,18 @@ def ssd_chunked_ref(x, dt, A, B_, C_, D=None, *, chunk: int, h0=None):
     cum_a = torch.cumsum(dtc * A.float(), dim=2)            # (B,NC,Q,H)
     dtx = dtc[..., None] * xc                                # (B,NC,Q,H,P)
 
-    # intra-chunk: decay exp(cum_i - cum_j) selected on j <= i (above the
-    # diagonal exp may overflow to inf, which the select drops)
+    # intra-chunk: decay exp(cum_i - cum_j) on j <= i.  Above the diagonal
+    # rel is a sum of -dt·A > 0 that may pass exp's range; it is zeroed
+    # before the exp, not only selected away after it: an inf there would
+    # make the gradient 0·inf = NaN (the JAX package's selects after the
+    # exp and gets NaN gradients once a chunk's decay passes e^88: ROADMAP
+    # F13).  The values are the same either way.
     CB = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)             # (B,NC,Q,Q)
     rel = cum_a[:, :, :, None, :] - cum_a[:, :, None, :, :]  # (B,NC,Q,Q,H)
     causal = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
-    decay = torch.where(causal[None, None, :, :, None], torch.exp(rel),
-                        torch.zeros((), device=x.device))
+    keep = causal[None, None, :, :, None]
+    zero = torch.zeros((), device=x.device)
+    decay = torch.where(keep, torch.exp(torch.where(keep, rel, zero)), zero)
     y = torch.einsum("bcqk,bcqkh,bckhp->bcqhp", CB, decay, dtx)
 
     # per-chunk states, then the sequential scan over chunks

@@ -4,7 +4,8 @@ from .lm import (caches_from_numpy, caches_to_numpy, decode_step, forward,
                  layer_specs, paged_decode_step, paged_mixed_step,
                  paged_prefill, params_from_numpy, pools_from_numpy,
                  pools_to_numpy, prefill, spilled_from_numpy,
-                 spilled_to_numpy, supports_paged, supports_speculative)
+                 spilled_to_numpy, stacked_leaves, supports_paged,
+                 supports_speculative)
 from .moe import moe, moe_init
 from .sampling import sample_with_scores, speculative_verify
 
@@ -14,5 +15,5 @@ __all__ = ["LayerSpec", "ModelConfig", "Segment", "caches_from_numpy",
            "paged_decode_step", "paged_mixed_step", "paged_prefill",
            "params_from_numpy", "pools_from_numpy", "pools_to_numpy",
            "prefill", "sample_with_scores", "speculative_verify",
-           "spilled_from_numpy", "spilled_to_numpy", "supports_paged",
-           "supports_speculative"]
+           "spilled_from_numpy", "spilled_to_numpy", "stacked_leaves",
+           "supports_paged", "supports_speculative"]

@@ -69,17 +69,41 @@ def embed_lookup(params: dict, tokens: torch.Tensor, *, scale: bool,
     return x
 
 
+class _UnembedF32(torch.autograd.Function):
+    """``torch.mm(x2, table.T, out_dtype=float32)``, which has no
+    derivative, under autograd.  The backward is the upcast product's:
+    each grad computed in f32 from the f32 logits' grad and rounded once
+    to its operand's dtype (as the JAX package's transpose of its f32-out
+    dot rounds it)."""
+
+    @staticmethod
+    def forward(ctx, x2, table):
+        ctx.save_for_backward(x2, table)
+        return torch.mm(x2, table.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, table = ctx.saved_tensors
+        dx = dtable = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.mm(g, table.float()).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            dtable = torch.mm(x2.float().t(), g).t().to(table.dtype)
+        return dx, dtable
+
+
 def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
     """Tied head: logits = x @ table.T, f32 out.
 
     On the card a bf16 product goes through ``torch.mm(..., out_dtype=
     float32)`` (f32 accumulation, f32 result: no bf16 rounding of the
-    logits); on the CPU, and for f32 operands, the operands are upcast."""
+    logits), as ``_UnembedF32`` for its backward; on the CPU, and for f32
+    operands, the operands are upcast."""
     table = params["table"]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x.is_cuda and x.dtype != torch.float32:
-        out = torch.mm(x2, table.t(), out_dtype=torch.float32)
+        out = _UnembedF32.apply(x2, table)
     else:
         out = torch.mm(x2.float(), table.float().t())
     return out.reshape(*lead, table.shape[0])

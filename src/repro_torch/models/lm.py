@@ -8,7 +8,8 @@ token ids, or a frontend's embeddings (``input_mode="embeds"``: musicgen's
 EnCodec frames, phi-3-vision's patch and text embeddings) that enter the
 stack as they are, cast to the model's dtype.  ``forward`` scores whole
 sequences (attention through K2, the flash-attention kernel; the SSD scan
-through K3); ``prefill`` and ``decode_step`` run the dense per-slot caches
+through K3) and, in train mode under grad, is what the training step
+differentiates; ``prefill`` and ``decode_step`` run the dense per-slot caches
 (prefill through K2 and K3, decode attention through K4);
 ``paged_mixed_step`` runs one packed tick
 against the paged KV pool, and ``paged_prefill`` / ``paged_decode_step``
@@ -36,6 +37,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
+
+from repro_torch.tree import named_leaves, tree_map
 
 from . import attention as attn_mod
 from . import mamba2 as mamba_mod
@@ -165,12 +169,6 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
-
-
 def _unstack(segments, cfg: ModelConfig, fn) -> list:
     """Per-layer trees, in ``layer_specs`` order, from the JAX package's
     tuple (segment) of tuples (pattern position) of stacked trees."""
@@ -178,24 +176,48 @@ def _unstack(segments, cfg: ModelConfig, fn) -> list:
     for seg, seg_tree in zip(cfg.layout(), segments):
         for r in range(seg.repeat):
             for i in range(len(seg.pattern)):
-                out.append(_map(seg_tree[i], lambda a, r=r: fn(a[r])))
+                out.append(tree_map(lambda a, r=r: fn(a[r]), seg_tree[i]))
+    return out
+
+
+def _copies_by_position(layers: list, cfg: ModelConfig) -> list:
+    """The layers grouped as the JAX package stacks them: a list per
+    segment of a list per pattern position of that position's ``repeat``
+    layers, in repeat order."""
+    out, li = [], 0
+    for seg in cfg.layout():
+        n = len(seg.pattern)
+        out.append([[layers[li + r * n + i] for r in range(seg.repeat)]
+                    for i in range(n)])
+        li += seg.n_layers
     return out
 
 
 def _restack(layers: list[dict], cfg: ModelConfig):
     """The inverse of ``_unstack`` to numpy: tuple per segment of tuple per
     pattern position of dicts of stacked numpy leaves (see ``_to_numpy``)."""
-    out, li = [], 0
-    for seg in cfg.layout():
-        n = len(seg.pattern)
-        per_pos = []
-        for i in range(n):
-            copies = [layers[li + r * n + i] for r in range(seg.repeat)]
-            per_pos.append({k: np.stack([_to_numpy(c[k]) for c in copies])
-                            for k in copies[0]})
-        out.append(tuple(per_pos))
-        li += seg.n_layers
-    return tuple(out)
+    return tuple(
+        tuple({k: np.stack([_to_numpy(c[k]) for c in copies])
+               for k in copies[0]} for copies in seg)
+        for seg in _copies_by_position(layers, cfg))
+
+
+def stacked_leaves(tree, cfg: ModelConfig) -> dict:
+    """The JAX package's params tree, flattened, over a port tree of the
+    params' layout (params, grads or anything shaped alike): leaf name (the
+    JAX path: ``embed/table``, ``segments/<s>/<i>/mamba/in_proj``, ...) →
+    the port's tensor, or, for a leaf the JAX package stacks on a segment's
+    ``repeat`` axis, the tuple of the port's per-layer tensors in repeat
+    order.  In the JAX package's flatten order: dict keys sorted, segments
+    and pattern positions in order."""
+    segments = tuple(tuple(tree_map(lambda *ts: ts, *copies)
+                           for copies in seg)
+                     for seg in _copies_by_position(tree["layers"], cfg))
+    top = {k: v for k, v in tree.items() if k != "layers"}
+    top["segments"] = segments
+    stacked = lambda node: isinstance(node, tuple) and bool(node) and \
+        isinstance(node[0], torch.Tensor)
+    return dict(named_leaves(top, is_leaf=stacked))
 
 
 def params_from_numpy(tree, cfg: ModelConfig, device="cuda") -> dict:
@@ -204,12 +226,12 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda") -> dict:
     axis into the flat layer order."""
     _check_ported(cfg)
     conv = lambda a: _to_torch(a, device)
-    params = {"embed": _map(tree["embed"], conv),
-              "final_norm": _map(tree["final_norm"], conv),
+    params = {"embed": tree_map(conv, tree["embed"]),
+              "final_norm": tree_map(conv, tree["final_norm"]),
               "layers": _unstack(tree["segments"], cfg, conv)}
     for key in ("head", "shared_attn"):
         if key in tree:
-            params[key] = _map(tree[key], conv)
+            params[key] = tree_map(conv, tree[key])
     return params
 
 
@@ -364,6 +386,16 @@ def _apply_block(p, x, positions, *, cfg: ModelConfig, spec: LayerSpec,
     return x + y, new_cache, aux
 
 
+def _copies(cfg: ModelConfig):
+    """(first layer, pattern) of every pattern copy, in layer order: the
+    bodies of the JAX package's scans over each segment's repeat axis."""
+    li = 0
+    for seg in cfg.layout():
+        for _ in range(seg.repeat):
+            yield li, seg.pattern
+            li += len(seg.pattern)
+
+
 def forward(params, inputs, positions, cfg: ModelConfig, *,
             mode: str = "score"):
     """Full-sequence forward (no caches): inputs (B, S) int32 tokens or
@@ -372,21 +404,38 @@ def forward(params, inputs, positions, cfg: ModelConfig, *,
     aux): aux is the f32 sum of the attn_moe layers'
     aux losses, in layer order (zero without MoE layers).
 
-    ``mode="train"`` computes the same forward: the JAX package differs only
-    by rematerialising blocks for its backward, and the port has no backward
-    yet (the training slice)."""
+    ``mode="train"`` computes the same values.  Under grad with
+    ``cfg.remat``, each pattern copy runs inside
+    ``torch.utils.checkpoint`` (non-reentrant), as the JAX package wraps its
+    scan body in ``jax.checkpoint``: the backward recomputes the copy's
+    forward (K2 and K3 launch again) instead of keeping its activations.
+    The kernels' gradients are their plain versions' (see their wrappers)."""
     _check_ported(cfg)
     if mode not in ("score", "train"):
         raise ValueError(f"mode must be 'score' or 'train', got {mode!r}")
     x = _embed_inputs(params, inputs, cfg)                     # (B, S, d)
-    embeds0 = x
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for spec, p in zip(layer_specs(cfg), params["layers"]):
-        x, _, layer_aux = _apply_block(p, x, positions, cfg=cfg, spec=spec,
-                                       shared=params.get("shared_attn"),
-                                       embeds0=embeds0)
-        if layer_aux is not None:
-            aux = aux + layer_aux
+    shared = params.get("shared_attn")
+    remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
+
+    def run_copy(layers, pattern, x, aux, embeds0):
+        for spec, p in zip(pattern, layers):
+            x, _, layer_aux = _apply_block(p, x, positions, cfg=cfg,
+                                           spec=spec, shared=shared,
+                                           embeds0=embeds0)
+            if layer_aux is not None:
+                aux = aux + layer_aux
+        return x, aux
+
+    embeds0 = x
+    for li, pattern in _copies(cfg):
+        layers = params["layers"][li:li + len(pattern)]
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                run_copy, layers, pattern, x, aux, embeds0,
+                use_reentrant=False)
+        else:
+            x, aux = run_copy(layers, pattern, x, aux, embeds0)
     return _head(params, x, cfg), aux
 
 

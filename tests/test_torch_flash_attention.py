@@ -126,8 +126,11 @@ def test_wrapper_rejects_wrong_dtype_shape_and_grad():
                             k, v)
     with pytest.raises(ValueError, match="window"):
         ops.flash_attention(q, k, v, window=0)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        ops.flash_attention(q.requires_grad_(), k, v)
+    # an input that requires grad is no longer rejected: the call goes
+    # through the autograd Function, whose forward is the same call
+    out = ops.flash_attention(q.requires_grad_(), k, v)
+    assert out.grad_fn is not None
+    assert torch.equal(out.detach(), ops.flash_attention(q.detach(), k, v))
 
 
 def test_cpu_tensors_never_count_as_kernel_launches():
