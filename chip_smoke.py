@@ -119,7 +119,9 @@ on the first phase that fails (exit code != 0):
                   and eagerly: device time by kernel, the device's idle
                   share, and K1's launches by its wrapper's count (==
                   ticks x 42) and as the trace counts them (at most 1 % of
-                  the records dropped, ``records_dropped``).  Then one ``graphs`` line: captured against
+                  the records dropped, ``records_dropped``; a run that
+                  dropped more is run again, at most three runs).  Then
+                  one ``graphs`` line: captured against
                   eager (TTFT p50, TPOT p50, tokens/s, peak memory, idle
                   share).
 11. serve_dense — ``ServeEngine(paged=False)`` serving mamba2-1.3b and
@@ -285,11 +287,25 @@ on the first phase that fails (exit code != 0):
                   seconds): a new loop resumes at step 3 bit for bit, the
                   next step's loss bit-equal from both states, a
                   time-travel restore returns step 2.
+24. examples    — the six twins of ``examples/*.py`` in
+                  ``examples_torch/`` (quickstart, smart_farming,
+                  collision_detection, serve_lm, serve_cluster, train_lm),
+                  each run in this process at its defaults on the card
+                  (``runpy``, its kernel counts set to 0 just before):
+                  each must print ``OK`` last; K1 launches > 0 in serve_lm
+                  and serve_cluster, K3 in serve_cluster, K2 (under
+                  autograd) in train_lm.  First K1 (gemma2-9b SMOKE: H 4,
+                  K 2, D 16, f32, window 8 and none, softcap 50, a 32-lane
+                  tick), K2 (train_lm's lm100m: B 8 x S 256, H 8, K 4, D
+                  64, f32) and K3 (mamba2-1.3b SMOKE: H 8, P = N = 16,
+                  chunk 8, f32) against their plain versions at those
+                  shapes.  Budget 120 s; no tensor the twins made may
+                  stay reachable.
 
 It prints one JSON line per phase, then each phase's seconds, then the
 card's name and power limit as nvidia-smi gives them, then the kernels line
 (K1-K4, with K2's and K3's launches per train step and their autograd
-times), and last
+times, and each kernel's launches in each twin), and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -422,7 +438,7 @@ K1_WIDTHS = [("h2o-danube-1.8b", 32, 8, 80, 4096),
              ("llama4-maverick-400b-a17b", 40, 8, 128, None)]
 
 
-def kernel_inputs(dev, rng, h=H, kv=KV, d=D, reqs=KERNEL_ROWS):
+def kernel_inputs(dev, rng, h=H, kv=KV, d=D, reqs=KERNEL_ROWS, lanes=T):
     n_blocks = [-(-c // BS) for c, _ in reqs]
     N = 1 + sum(n_blocks) + 2
     nb = max(n_blocks)
@@ -432,15 +448,15 @@ def kernel_inputs(dev, rng, h=H, kv=KV, d=D, reqs=KERNEL_ROWS):
     for r, n in enumerate(n_blocks):
         bt[r, :n] = perm[i:i + n]
         i += n
-    rows = np.full(T, -1, np.int32)
-    pos = np.full(T, -1, np.int32)
+    rows = np.full(lanes, -1, np.int32)
+    pos = np.full(lanes, -1, np.int32)
     n = 0
     for r, (ctx, fed) in enumerate(reqs):
         rows[n:n + fed] = r
         pos[n:n + fed] = np.arange(ctx - fed, ctx)
         n += fed
     g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
-    q = torch.randn((T, h, d), generator=g, device=dev)
+    q = torch.randn((lanes, h, d), generator=g, device=dev)
     k = torch.randn((N, BS, kv, d), generator=g, device=dev)
     v = torch.randn((N, BS, kv, d), generator=g, device=dev)
     to = lambda a: torch.from_numpy(a).to(dev)
@@ -466,7 +482,7 @@ def work(bt, rows, pos, window, kv_item, q_item, quant, h=H, kv=KV, d=D):
         for j in range(lo // BS, hi // BS + 1):
             needed.add(max(int(bt[r, j]), 0))
     per_block = BS * kv * (2 * d * kv_item + (8 if quant else 0))
-    nbytes = (len(needed) * per_block + 2 * T * h * d * q_item
+    nbytes = (len(needed) * per_block + 2 * len(pos) * h * d * q_item
               + bt.size * 4 + 2 * len(pos) * 4)
     return nbytes, visible * h * 4 * d
 
@@ -1004,29 +1020,56 @@ def serve_phase(dev, smi: str) -> dict:
     return main
 
 
+def device_kernels(prof) -> dict:
+    """Device records of a profiled run by name: (count, total µs).  Read
+    from the raw Kineto events, as ``key_averages()`` sums them for device
+    records, without building its host-side event tree (tens of seconds
+    for a traced serve run)."""
+    out = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            n, us = out.get(ev.name(), (0, 0.0))
+            out[ev.name()] = (n + 1, us + ev.duration_ns() / 1e3)
+    return out
+
+
 def kernel_launches(prof, names) -> int:
     """Launches of the device kernels whose names hold one of ``names``, as
     the profiler recorded them."""
-    return sum(ev.count for ev in prof.key_averages()
-               if ev.device_type == torch.autograd.DeviceType.CUDA
-               and any(n in ev.key for n in names))
+    return sum(n for key, (n, _) in device_kernels(prof).items()
+               if any(p in key for p in names))
 
 
-# the profiler may drop a few kernel records of a long traced run (one run
-# counted 1,754 of 1,764 K1 combines; its rerun all of them): the wrappers'
-# own counts are held exactly, the trace's within this share
+# the profiler loses device records now and then, more often as the
+# process ages: 10 and 70 of a traced serve run's 1,764 K1 combines in two
+# runs of this script, a few records at a session's start, once a block of
+# thousands inside a run (``trace_records.py`` counts them session by
+# session).  The wrappers' own counts are held exactly; the trace's to at
+# most the launches and at least this share short of them, and a run that
+# fell shorter is run again
 TRACE_DROP_SHARE = 0.01
+TRACE_ATTEMPTS = 3
 
 
-def traced_records(launched: dict, traced: dict) -> dict:
-    """Hold each kernel's count of profiler records to at most its launches
-    (the wrappers' count) and at least 99 % of them.  Returns the records
-    dropped per kernel."""
-    dropped = {}
-    for k, n in launched.items():
-        dropped[k] = n - traced[k]
-        assert 0 <= dropped[k] <= TRACE_DROP_SHARE * n, (k, n, traced[k])
-    return dropped
+def retraced(trace_once) -> dict:
+    """Run ``trace_once`` (one profiled run: returns its result, and the
+    wrappers' launches and the trace's records per kernel) until every
+    kernel's records fall at most ``TRACE_DROP_SHARE`` short of its
+    launches, at most ``TRACE_ATTEMPTS`` times; each run's result is
+    emitted with its ``records_dropped`` and ``attempt``.  A record more
+    than the launches fails at once: a launch the wrapper did not count."""
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        res, launched, traced = trace_once()
+        dropped = {k: n - traced[k] for k, n in launched.items()}
+        assert min(dropped.values()) >= 0, (launched, traced)
+        res.update(records_dropped=dropped, attempt=attempt)
+        emit(res)
+        if all(d <= TRACE_DROP_SHARE * launched[k]
+               for k, d in dropped.items()):
+            return res
+    raise AssertionError(
+        f"the trace fell more than {TRACE_DROP_SHARE:.0%} short of the "
+        f"launches in {TRACE_ATTEMPTS} runs: {launched}, {traced}")
 
 
 def trace_phase(cfg, params, dev, cuda_graphs: bool, groups=None) -> dict:
@@ -1035,40 +1078,42 @@ def trace_phase(cfg, params, dev, cuda_graphs: bool, groups=None) -> dict:
     K1 and the dense products unless given) and the device's busy share of
     the wall time.  K1's launches by its wrapper's count (== ticks x
     layers, exactly) and as the trace counts them (one combine kernel per
-    call; at most 1 % of the records dropped, ``records_dropped``).  The
-    timings above come from runs without the profiler."""
+    call; at most 1 % of the records dropped, ``records_dropped``, else
+    the run again: ``retraced``).  The timings above come from runs
+    without the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.decode_attention import ops
     from repro_torch.serving.engine import ServeEngine
 
-    base = allocated_outside_workspaces()
-    eng = ServeEngine(cfg, params, n_slots=8, token_budget=512, max_len=8192,
-                      num_blocks=1024, device=dev, cuda_graphs=cuda_graphs)
-    for r in serve_requests(cfg.vocab_size):
-        eng.submit(r)
-    ops.ragged_paged_attention.launches = 0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        eng.run_until_drained()
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-    ticks = eng.stats.ticks
-    launches = ops.ragged_paged_attention.launches
-    assert launches == ticks * cfg.n_layers, (launches, ticks)
-    traced = kernel_launches(prof, ("ragged_combine_kernel",))
-    dropped = traced_records({"K1": launches}, {"K1": traced})
-    res = {"phase": "trace", "cuda_graphs": cuda_graphs, "ticks": ticks,
-           "k1_launches": launches, "k1_launches_traced": traced,
-           "records_dropped": dropped,
-           **_device_time(prof, wall, groups or {"K1": K1_KERNELS,
-                                                 "gemm": GEMM_KEYS})}
-    emit(res)
-    ref = graph_ref(eng)
-    del eng
-    check_dropped(ref, base)
-    return res
+    def trace_once():
+        base = allocated_outside_workspaces()
+        eng = ServeEngine(cfg, params, n_slots=8, token_budget=512,
+                          max_len=8192, num_blocks=1024, device=dev,
+                          cuda_graphs=cuda_graphs)
+        for r in serve_requests(cfg.vocab_size):
+            eng.submit(r)
+        ops.ragged_paged_attention.launches = 0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            eng.run_until_drained()
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        ticks = eng.stats.ticks
+        launches = ops.ragged_paged_attention.launches
+        assert launches == ticks * cfg.n_layers, (launches, ticks)
+        traced = kernel_launches(prof, ("ragged_combine_kernel",))
+        res = {"phase": "trace", "cuda_graphs": cuda_graphs, "ticks": ticks,
+               "k1_launches": launches, "k1_launches_traced": traced,
+               **_device_time(prof, wall, groups or {"K1": K1_KERNELS,
+                                                     "gemm": GEMM_KEYS})}
+        ref = graph_ref(eng)
+        del eng, prof
+        check_dropped(ref, base)
+        return res, {"K1": launches}, {"K1": traced}
+
+    return retraced(trace_once)
 
 
 # ============================================================ flash kernel
@@ -1323,15 +1368,15 @@ def ssd_stage_split(fn) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return {_ssd_label(ev.key): ev.self_device_time_total / 1e3
-            for ev in prof.key_averages()
-            if ev.device_type == torch.autograd.DeviceType.CUDA
-            and ev.self_device_time_total > 0 and "ssd_" in ev.key}
+    return {_ssd_label(key): us / 1e3
+            for key, (_, us) in device_kernels(prof).items()
+            if us > 0 and "ssd_" in key}
 
 
-def ssd_kernel_phase(dev, shapes=SSD_SHAPES, reps=(10, 3)) -> list[dict]:
-    """K3 against its plain version on the card: every shape in bf16 and
-    f32, with and without h0, with and without the D-term.  y and h_final
+def ssd_kernel_phase(dev, shapes=SSD_SHAPES, reps=(10, 3),
+                     dtypes=(torch.bfloat16, torch.float32)) -> list[dict]:
+    """K3 against its plain version on the card: every shape in each of
+    ``dtypes``, with and without h0, with and without the D-term.  y and h_final
     (f32 in both versions) are held element by element to the JAX suite's
     SSD tolerance, |out - plain| <= 5e-4 + 1e-3 |plain| (ratio
     ``err_over_tol`` <= 1), which is tighter than one bf16 rounding.  Each
@@ -1358,7 +1403,7 @@ def ssd_kernel_phase(dev, shapes=SSD_SHAPES, reps=(10, 3)) -> list[dict]:
         A = -torch.exp(rnd(H) * 0.5)
         D_ = rnd(H)
         h0_ = rnd(B, H, P, N) * 0.5
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes:
             x, Bm, Cm = (a.to(dtype) for a in (x32, B32, C32))
             for with_h0 in (True, False):
                 for with_d in (False, True):
@@ -1820,51 +1865,52 @@ def serve_dense_trace(cfg, params, dev, cuda_graphs: bool) -> dict:
     their wrappers' counts (held exactly: mamba layers x prefill_batches,
     shared-attention applications x prefill_batches and x decode_ticks) and
     K3's and K4's as the trace counts them (one pass kernel per K3 call,
-    one combine kernel per K4 call; at most 1 % of the records dropped)."""
+    one combine kernel per K4 call; at most 1 % of the records dropped,
+    else the run again: ``retraced``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import layer_specs
     from repro_torch.serving.engine import ServeEngine
     from repro_torch.serving.scheduler import Scheduler
 
-    base = allocated_outside_workspaces()
-    eng = ServeEngine(cfg, params, n_slots=8, max_len=8192, paged=False,
-                      scheduler=Scheduler(prefill_budget=8), device=dev,
-                      cuda_graphs=cuda_graphs)
-    for r in dense_requests(cfg.vocab_size):
-        eng.submit(r)
-    counters = _kernel_counters()
-    for fn in counters.values():
-        fn.launches = 0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        eng.run_until_drained()
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-    s = eng.stats
-    launches = {k: fn.launches for k, fn in counters.items()}
-    kinds = [spec.kind for spec in layer_specs(cfg)]
-    n_mamba, n_attn = kinds.count("mamba"), kinds.count("shared_attn")
-    assert launches == {"K2": n_attn * s.prefill_batches,
-                        "K3": n_mamba * s.prefill_batches,
-                        "K4": n_attn * s.decode_ticks}, (launches, s)
-    traced = {"K3": kernel_launches(prof, ("ssd_pass_kernel",)),
-              "K4": kernel_launches(prof, ("decode_combine_kernel",))}
-    dropped = traced_records({k: launches[k] for k in traced}, traced)
-    res = {"phase": "serve_dense_trace", "arch": cfg.name,
-           "cuda_graphs": cuda_graphs, "ticks": s.ticks,
-           "launches": launches, "launches_traced": traced,
-           "records_dropped": dropped,
-           **_device_time(prof, wall, {"K2": ("flash_attention",),
-                                       "K3": ("ssd_",),
-                                       "K4": K4_KERNELS,
-                                       "gemm": GEMM_KEYS})}
-    emit(res)
-    ref = graph_ref(eng)
-    del eng
-    check_dropped(ref, base)
-    return res
+    def trace_once():
+        base = allocated_outside_workspaces()
+        eng = ServeEngine(cfg, params, n_slots=8, max_len=8192, paged=False,
+                          scheduler=Scheduler(prefill_budget=8), device=dev,
+                          cuda_graphs=cuda_graphs)
+        for r in dense_requests(cfg.vocab_size):
+            eng.submit(r)
+        counters = _kernel_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            eng.run_until_drained()
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        s = eng.stats
+        launches = {k: fn.launches for k, fn in counters.items()}
+        kinds = [spec.kind for spec in layer_specs(cfg)]
+        n_mamba, n_attn = kinds.count("mamba"), kinds.count("shared_attn")
+        assert launches == {"K2": n_attn * s.prefill_batches,
+                            "K3": n_mamba * s.prefill_batches,
+                            "K4": n_attn * s.decode_ticks}, (launches, s)
+        traced = {"K3": kernel_launches(prof, ("ssd_pass_kernel",)),
+                  "K4": kernel_launches(prof, ("decode_combine_kernel",))}
+        res = {"phase": "serve_dense_trace", "arch": cfg.name,
+               "cuda_graphs": cuda_graphs, "ticks": s.ticks,
+               "launches": launches, "launches_traced": traced,
+               **_device_time(prof, wall, {"K2": ("flash_attention",),
+                                           "K3": ("ssd_",),
+                                           "K4": K4_KERNELS,
+                                           "gemm": GEMM_KEYS})}
+        ref = graph_ref(eng)
+        del eng, prof
+        check_dropped(ref, base)
+        return res, {k: launches[k] for k in traced}, traced
+
+    return retraced(trace_once)
 
 
 def serve_dense_phase(dev, smi: str) -> dict:
@@ -3700,10 +3746,8 @@ def _device_time(prof, wall, groups) -> dict:
     """Device self time by kernel group (a kernel counts in the first group
     one of whose patterns its name holds) and the busy / idle share of the
     host wall time of a profiled run."""
-    kernels = [(ev.self_device_time_total, ev.count, ev.key)
-               for ev in prof.key_averages()
-               if ev.device_type == torch.autograd.DeviceType.CUDA
-               and ev.self_device_time_total > 0]
+    kernels = [(us, n, key) for key, (n, us) in device_kernels(prof).items()
+               if us > 0]
     kernels.sort(reverse=True)
     busy_ms = sum(k[0] for k in kernels) / 1e3
     share = dict.fromkeys(groups, 0.0)
@@ -4300,6 +4344,119 @@ def train_ft_phase(dev, n_layers=6, S=1024, steps=3) -> dict:
     return res
 
 
+# =============================================================== examples
+EXAMPLES_DIR = Path(__file__).resolve().parent / "examples_torch"
+# the twins of examples/*.py, in the order they run
+EXAMPLES = ("quickstart", "smart_farming", "collision_detection", "serve_lm",
+            "serve_cluster", "train_lm")
+# the kernels each twin's path runs, which it must launch
+EXAMPLE_KERNELS = {"serve_lm": ("ragged_paged_attention",),
+                   "serve_cluster": ("ragged_paged_attention", "ssd"),
+                   "train_lm": ("flash_attention",)}
+EXAMPLES_BUDGET_S = 120.0
+# K1 at the light tier's tick (gemma2-9b SMOKE: H 4, K 2, D 16, f32 pool,
+# blocks of 16, 4 slots of 64, a 32-lane budget): a prefill chunk, decode
+# rows and a row three tokens into its prompt, as (ctx, fed)
+EXAMPLE_K1_ROWS = [(11, 11), (40, 1), (64, 1), (20, 3)]
+EXAMPLE_K1 = ("gemma2-9b SMOKE", 4, 2, 16, 32)          # arch, H, K, D, T
+# K2 at train_lm's lm100m (B 8 x S 256, H 8, K 4, D 64, f32, causal)
+EXAMPLE_K2 = ("lm100m", 8, 256, 8, 4, 64, torch.float32, None, None)
+# K3 at the heavy tier's prefills (mamba2-1.3b SMOKE: H 8, P 16, N 16,
+# chunk 8, f32): one 11-token prompt and a batch of four 8-token ones
+EXAMPLE_K3 = [("mamba2-1.3b SMOKE", 1, 11, 8, 16, 16, 8),
+              ("mamba2-1.3b SMOKE", 4, 8, 8, 16, 16, 8)]
+
+
+def example_kernel_phase(dev, reps=(10, 3)) -> dict:
+    """K1, K2 and K3 against their plain versions at the twins' shapes,
+    f32 (the twins' dtype), with the f32 tolerances of the kernel phases
+    (K2 and K3 through their kernel phases' code)."""
+    from repro_torch.kernels.decode_attention import ops as k1, ref as r1
+
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
+    out = {"K1": [], "K2": [], "K3": []}
+    arch, h, kv, d, lanes = EXAMPLE_K1
+    q, kp, vp, bt, rows, pos, n_valid, bt_np, rows_np, pos_np = \
+        kernel_inputs(dev, np.random.default_rng(16), h, kv, d,
+                      EXAMPLE_K1_ROWS, lanes)
+    assert bt.shape[1] == 4 and n_valid <= lanes
+    for window in (8, None):          # gemma2's local and global layers
+        kw = dict(window=window, softcap=50.0)
+        case, o = checked_case(
+            lambda: k1.ragged_paged_attention(q, kp, vp, bt, rows, pos, **kw),
+            lambda: r1.ragged_paged_attention_ref(q, kp, vp, bt, rows, pos,
+                                                  **kw),
+            F32_TOL, *work(bt_np, rows_np, pos_np, window, 4, 4, False, h,
+                           kv, d),
+            torch.float32, flush, reps, arch=arch, T=lanes, H=h, K=kv, D=d,
+            kv_dtype="float32", window=window, softcap=50.0,
+            library_ms=None, route=k1.ragged_paged_attention_route(q, kp))
+        assert bool((o[n_valid:] == 0).all()), "pad lanes not zero"
+        out["K1"].append(case)
+        emit({"phase": "examples_kernel", "kernel": "K1", **case})
+    del flush
+    out["K2"] = flash_kernel_phase(dev, [EXAMPLE_K2], reps)
+    out["K3"] = ssd_kernel_phase(dev, EXAMPLE_K3, reps, (torch.float32,))
+    return out
+
+
+def run_example(name: str) -> dict:
+    """Run one twin in this process as ``python examples_torch/<name>.py``
+    would (at its defaults, on the card), its kernel counts set to 0 just
+    before and read just after; it must print ``OK`` last."""
+    import io
+    import runpy
+
+    from repro_torch import kernels
+
+    path = EXAMPLES_DIR / f"{name}.py"
+    argv, sys.argv = sys.argv, [str(path)]
+    for fn in kernels._counted().values():
+        fn.launches = 0
+    out = io.StringIO()
+    t0 = time.monotonic()
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_path(str(path), run_name="__main__")
+    finally:
+        sys.argv = argv
+    seconds = time.monotonic() - t0
+    launches = kernels.launch_counts()
+    lines = out.getvalue().splitlines()
+    assert lines and lines[-1] == "OK", (name, lines[-5:])
+    for kernel in EXAMPLE_KERNELS.get(name, ()):
+        assert launches[kernel] > 0, (name, kernel, launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"seconds": seconds, "launches": launches, "said": lines[-4:-1]}
+
+
+def examples_phase(dev) -> dict:
+    """The six twins of ``examples/*.py`` (``examples_torch/``), each run
+    to ``OK`` on the card at its defaults after K1, K2 and K3 are held to
+    their plain versions at the twins' shapes; every engine, node and
+    model the twins made is gone when it returns."""
+    t0 = time.monotonic()
+    gc.collect()
+    live = set(_live_cuda_tensors())
+    checks = example_kernel_phase(dev)
+    runs = {}
+    for name in EXAMPLES:
+        runs[name] = run_example(name)
+        emit({"phase": "examples", "example": name, **runs[name]})
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = {p: v for p, v in _live_cuda_tensors().items() if p not in live}
+    seconds = time.monotonic() - t0
+    emit({"phase": "examples_total", "seconds": seconds,
+          "budget_s": EXAMPLES_BUDGET_S,
+          "allocated_outside_workspaces": allocated_outside_workspaces(),
+          "tensors_left": len(left)})
+    assert not left, sorted(left.values(), reverse=True)[:8]
+    assert seconds <= EXAMPLES_BUDGET_S, seconds
+    return {"checks": checks, "runs": runs}
+
+
 # device bytes the libraries may keep for the process once their caches
 # are dropped: torch's cuBLASLt workspace (1 MiB by default, no API frees
 # it), generator states and the allocator's rounding of the kernels'
@@ -4401,6 +4558,7 @@ def main() -> int:
     timed("train_check", train_check_phase, dev)
     train = timed("train", train_phase, dev, smi)
     timed("train_ft", train_ft_phase, dev)
+    examples = timed("examples", examples_phase, dev)
     # where the script's run time goes, for the next phase's budget (the
     # four training phases: 120 s)
     seconds["training"] = sum(seconds[k] for k in (
@@ -4436,6 +4594,10 @@ def main() -> int:
         "embeds_check": run["check"]["launches"],
         "serve_embeds_k2": run["serve"]["launches"]["K2"]}
         for arch, run in embeds.items()}
+    # each kernel's launches in each twin's run, and its cases at the
+    # twins' shapes
+    twin_launches = lambda name: {ex: run["launches"][name]
+                                  for ex, run in examples["runs"].items()}
     print(smi)
     emit({"kernels": [{
         "name": "ragged_paged_attention", "id": "K1", "route": "cuda",
@@ -4448,7 +4610,9 @@ def main() -> int:
         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
         "library_ms": None,
         "shape": "T=512 H=16 K=8 D=256 bs=16, bf16 q and pool, softcap 50",
-        "launches_serve_moe": moe["k1_launches"], "d128": d128(cases)}, {
+        "launches_serve_moe": moe["k1_launches"], "d128": d128(cases),
+        "launches_examples": twin_launches("ragged_paged_attention"),
+        "examples_cases": examples["checks"]["K1"]}, {
         "name": "flash_attention", "id": "K2", "route": "cuda",
         "source": K2_SRC, "replaces": K2_TPU,
         "tpu": "kernels/flash_attention/kernel.py:flash_attention_fwd",
@@ -4466,7 +4630,9 @@ def main() -> int:
         "d128": d128(flash), "d64_d96": embeds_cases(flash),
         "launches_embeds": embeds_launches,
         "launches_train_step": train["launches_per_step"]["K2"],
-        "autograd": grads["K2"]}, {
+        "autograd": grads["K2"],
+        "launches_examples": twin_launches("flash_attention"),
+        "examples_cases": examples["checks"]["K2"]}, {
         "name": "ssd", "id": "K3", "route": "cuda",
         "source": K3_SRC, "replaces": K3_TPU,
         "tpu": "kernels/ssd/kernel.py:ssd_fwd",
@@ -4480,7 +4646,9 @@ def main() -> int:
                  "and h_final, h0 given, no D (a mamba2-1.3b layer's "
                  "prefill)",
         "launches_train_step": train["launches_per_step"]["K3"],
-        "autograd": grads["K3"]}, {
+        "autograd": grads["K3"],
+        "launches_examples": twin_launches("ssd"),
+        "examples_cases": examples["checks"]["K3"]}, {
         "name": "decode_attention", "id": "K4", "route": "cuda",
         "source": K4_SRC, "replaces": K4_TPU,
         "tpu": "kernels/decode_attention/kernel.py:decode_attention_fwd",
@@ -4497,7 +4665,8 @@ def main() -> int:
                  "slots (zamba2-2.7b's shared attention)",
         "d64_d96": embeds_cases(decode),
         "launches_embeds": {arch: launches["embeds_check"]["K4"]
-                            for arch, launches in embeds_launches.items()}
+                            for arch, launches in embeds_launches.items()},
+        "launches_examples": twin_launches("decode_attention")
         }]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -125,6 +125,7 @@ def ragged_paged_attention_ref(q, k_pool, v_pool, block_tables, row_ids,
         return out.to(q.dtype)
     bt = block_tables[:, :n_live]
     valid = (row_ids >= 0) & (token_pos >= 0)
+    # lint: allow-sync(the plain version: the CPU route and card checks)
     for r in torch.unique(row_ids[valid]).tolist():
         sel = valid & (row_ids == r)
         k, v, cpos = densify_pool(k_pool, v_pool, bt[r:r + 1])

@@ -60,7 +60,7 @@ def timed_ms(fn, flush: torch.Tensor) -> float:
         fn()
         e.record()
         pairs.append((s, e))
-    torch.cuda.synchronize()
+    torch.cuda.synchronize()  # lint: allow-sync(a card probe; not on a tick)
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
@@ -78,7 +78,8 @@ def main() -> None:
         ops._lib_fn = fns[name]
         try:
             out = ops.flash_attention(q, k, v)
-            torch.cuda.synchronize()
+            torch.cuda.synchronize()  # lint: allow-sync(a card probe)
+            # lint: allow-sync(a card probe: the check reads one number)
             over = ((out.float() - want32).abs()
                     / (want32.abs() * ROUND_BF16 + F32_TOL)).max().item()
             assert over <= 1.0, (name, over)

@@ -161,6 +161,7 @@ def _to_torch(a, device) -> torch.Tensor:
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     """Tensor → numpy; bfloat16 and float8_e4m3fn leaves (which numpy
     lacks) come back as their raw bits (uint16 / uint8)."""
+    # lint: allow-sync(offline numpy conversion for tests; no tick calls it)
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)

@@ -472,6 +472,7 @@ class ServeEngine:
         self._dispatches += 1
         return self._gen.manual_seed(self._seed_base + self._dispatches)
 
+    # lint: sync-site(THE one per-tick device->host pull)
     def _to_host(self, flat: torch.Tensor, layout) -> list[np.ndarray]:
         """THE device→host sync point: ``flat`` (int32, from ``_flatten``)
         is pulled in ONE ``.cpu()``, then split into numpy arrays of

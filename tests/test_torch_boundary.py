@@ -1,10 +1,13 @@
 """The PyTorch port's import boundary and device default.
 
-``src/repro_torch/`` and ``chip_smoke.py`` import no jax and nothing of the
-JAX package ``repro`` (whose package ``__init__`` files pull in jax); the
-port's entry points run on the card unless the caller asks for the CPU.
+``src/repro_torch/``, ``chip_smoke.py``, ``trace_records.py`` and the
+example twins in ``examples_torch/`` import no jax and nothing of the JAX
+package ``repro`` (whose package ``__init__`` files pull in jax); the
+port's entry points and the twins run on the card unless the caller asks
+for the CPU.
 """
 import ast
+import importlib.util
 import os
 import subprocess
 import sys
@@ -16,8 +19,9 @@ import torch
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
+TWINS = sorted((ROOT / "examples_torch").glob("*.py"))
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "trace_records.py"] + TWINS
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -61,7 +65,8 @@ def test_engine_import_pulls_in_no_jax():
             "repro_torch.configs.zamba2_2_7b, "
             "repro_torch.configs.musicgen_large, "
             "repro_torch.configs.phi_3_vision_4_2b, "
-            "repro_torch.core.fastpath; "
+            "repro_torch.core.fastpath, repro_torch.analysis, "
+            "repro_torch.analysis.sanitizer; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -95,3 +100,16 @@ def test_entry_points_default_to_the_card():
         init_paged_pools(cfg, 4, 4)
     with pytest.raises((RuntimeError, AssertionError)):
         init_params(cfg)
+
+
+@pytest.mark.parametrize("path", TWINS, ids=lambda p: p.name)
+def test_twins_default_to_the_card(path):
+    """Each twin's ``--device`` defaults to cuda: with no card, its
+    ``main()`` raises before it does any work."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    spec = importlib.util.spec_from_file_location(f"_twin_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with pytest.raises(RuntimeError, match="cuda|CUDA"):
+        mod.main([])

@@ -10,7 +10,7 @@
    ``device="cpu"``, and ``init_params`` makes the JAX package's params
    and carries them across with ``params_from_numpy``, so each scenario
    serves the weights it serves in the JAX suite.  Each runs under the
-   reference's lock-order tracker, installed for the port's modules.
+   port's lock-order tracker and sync-site sanitizer.
 2. A JAX ``ServeNode`` and a port ``ServeNode(device="cpu")`` hosting
    gemma2-9b SMOKE (paged) and mamba2-1.3b SMOKE (dense) at f32, with the
    same params: FIFO chat sessions, then a cascade whose gate always trips
@@ -34,10 +34,10 @@ import pytest
 import torch
 
 import repro.models as J
-from repro.analysis.sanitizer import LockOrderTracker
 from repro.configs.registry import get_config as jget_config
 from repro.core.pools import DispatchPolicy as JPolicy
 from repro.serving import cluster as jcluster
+from repro_torch.analysis.sanitizer import LockOrderTracker, SyncSiteSanitizer
 import repro_torch.models as P
 from repro_torch.configs.registry import get_config
 from repro_torch.core.pools import DispatchPolicy
@@ -141,16 +141,21 @@ def _fixture(stem: str, name: str):
     return _FIXTURE_VALUES[key]
 
 
-@pytest.fixture
-def lock_order():
-    """The reference's lock-order tracker over the port's modules."""
-    tracker = LockOrderTracker()
-    tracker.install(module_prefixes=("repro_torch.",))
+@pytest.fixture(autouse=True)
+def port_sanitizers():
+    """The port's lock-order tracker and sync-site sanitizer around every
+    test: a lock-order inversion, or a host transfer from the fast path
+    outside ``ServeEngine._to_host``, fails it."""
+    tracker, sync = LockOrderTracker(), SyncSiteSanitizer()
+    tracker.install()
+    sync.install()
     try:
-        yield tracker
+        yield
     finally:
         tracker.uninstall()
+        sync.uninstall()
     assert not tracker.violations, "; ".join(tracker.violations)
+    assert not sync.violations, "; ".join(sync.violations)
 
 
 def test_scenarios_serve_through_the_port():
@@ -163,7 +168,7 @@ def test_scenarios_serve_through_the_port():
 
 @pytest.mark.parametrize("stem,name,kwargs", list(_cases()))
 def test_reference_scenario_on_the_port(stem, name, kwargs, tmp_path,
-                                        monkeypatch, lock_order):
+                                        monkeypatch):
     ns, fixtures = _SCENARIOS[stem]
     fn = ns[name]
     builtin = {"tmp_path": tmp_path, "monkeypatch": monkeypatch}
@@ -309,7 +314,7 @@ def _serve(mod, policy, tenants, pkg: str):
     return out
 
 
-def test_two_tenant_node_matches_the_jax_node(tenants, lock_order):
+def test_two_tenant_node_matches_the_jax_node(tenants):
     want = _serve(jcluster, JPolicy, tenants, "jax")
     got = _serve(pcluster, DispatchPolicy, tenants, "port")
     assert got["streams"] == want["streams"]
@@ -373,7 +378,7 @@ def _preempt_before_shed(mod, cfg, params, **kw):
                                     "spill_pool_blocks")})
 
 
-def test_preempt_before_shed_matches_the_jax_node(lock_order):
+def test_preempt_before_shed_matches_the_jax_node():
     jcfg, pcfg = J.ModelConfig(**_TINY), P.ModelConfig(**_TINY)
     jp = J.init_params(jax.random.PRNGKey(0), jcfg)
     jp["embed"]["table"] = jp["embed"]["table"] * jcfg.d_model ** -0.5

@@ -25,6 +25,7 @@ from repro.core.pools import PoolSpec as JPoolSpec
 from repro.serving import faults as jfaults
 from repro.serving import scheduler as jsched
 from repro.serving.engine import ServeEngine as JEngine
+from repro_torch.analysis.sanitizer import LockOrderTracker, SyncSiteSanitizer
 import repro_torch.models as P
 from repro_torch.core import DeviceStore
 from repro_torch.core.pools import Persistence, PoolSpec
@@ -33,6 +34,23 @@ from repro_torch.serving import scheduler as psched
 from repro_torch.serving.engine import ServeEngine
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def port_sanitizers():
+    """The port's lock-order tracker and sync-site sanitizer around every
+    test: a lock-order inversion, or a host transfer from the fast path
+    outside ``ServeEngine._to_host``, fails it."""
+    tracker, sync = LockOrderTracker(), SyncSiteSanitizer()
+    tracker.install()
+    sync.install()
+    try:
+        yield
+    finally:
+        tracker.uninstall()
+        sync.uninstall()
+    assert not tracker.violations, "; ".join(tracker.violations)
+    assert not sync.violations, "; ".join(sync.violations)
 
 
 class _Jax:

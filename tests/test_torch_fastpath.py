@@ -19,11 +19,30 @@ import pytest
 import torch
 
 from repro.core import fastpath as jfp
+from repro_torch.analysis.sanitizer import LockOrderTracker, SyncSiteSanitizer
 from repro_torch.core import (FastPathPipeline, Stage, broker_hop,
                               chain_stages, fuse_stages, handoff)
 from repro_torch.core import fastpath as pfp
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def port_sanitizers():
+    """The port's lock-order tracker and sync-site sanitizer around every
+    test: a lock-order inversion, or a host transfer from the fast path
+    outside ``ServeEngine._to_host``, fails it."""
+    tracker, sync = LockOrderTracker(), SyncSiteSanitizer()
+    tracker.install()
+    sync.install()
+    try:
+        yield
+    finally:
+        tracker.uninstall()
+        sync.uninstall()
+    assert not tracker.violations, "; ".join(tracker.violations)
+    assert not sync.violations, "; ".join(sync.violations)
+
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 X = np.random.default_rng(0).standard_normal(8).astype(np.float32)

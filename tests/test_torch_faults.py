@@ -16,6 +16,7 @@ import repro.models as J
 from repro.serving import faults as jfaults
 from repro.serving import scheduler as jsched
 from repro.serving.engine import ServeEngine as JEngine
+from repro_torch.analysis.sanitizer import LockOrderTracker, SyncSiteSanitizer
 import repro_torch.models as P
 from repro_torch.serving import faults as pfaults
 from repro_torch.serving import scheduler as psched
@@ -24,6 +25,24 @@ from repro_torch.serving.faults import (FaultInjector, FaultKind, FaultSpec,
                                         InjectedFault, ReplicaCrashed)
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def port_sanitizers():
+    """The port's lock-order tracker and sync-site sanitizer around every
+    test: a lock-order inversion, or a host transfer from the fast path
+    outside ``ServeEngine._to_host``, fails it."""
+    tracker, sync = LockOrderTracker(), SyncSiteSanitizer()
+    tracker.install()
+    sync.install()
+    try:
+        yield
+    finally:
+        tracker.uninstall()
+        sync.uninstall()
+    assert not tracker.violations, "; ".join(tracker.violations)
+    assert not sync.violations, "; ".join(sync.violations)
+
 
 _CFG = dict(name="t", family="dense", n_layers=2, d_model=32, n_heads=4,
             n_kv_heads=2, d_ff=64, vocab_size=128, dtype="float32",

@@ -9,8 +9,7 @@ scenarios of ``tests/test_store_core.py``, ``tests/test_dispatcher.py``,
 ``tests/test_dfg_service.py`` are read from those files and run here with
 every ``repro.`` import pointed at ``repro_torch.`` (``repro_torch.core``
 exports the names ``repro.core`` does, bar the device fast path).  Each
-scenario runs under the reference's lock-order tracker, installed for the
-port's modules.
+scenario runs under the port's lock-order tracker and sync-site sanitizer.
 """
 import ast
 import inspect
@@ -19,7 +18,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro.analysis.sanitizer import LockOrderTracker
+from repro_torch.analysis.sanitizer import LockOrderTracker, SyncSiteSanitizer
 
 torch.set_num_threads(1)
 
@@ -75,16 +74,21 @@ def _cases():
                                    id=f"{stem}::{name}[{v}]")
 
 
-@pytest.fixture
-def lock_order():
-    """The reference's lock-order tracker over the port's modules."""
-    tracker = LockOrderTracker()
-    tracker.install(module_prefixes=("repro_torch.",))
+@pytest.fixture(autouse=True)
+def port_sanitizers():
+    """The port's lock-order tracker and sync-site sanitizer around every
+    test: a lock-order inversion, or a host transfer from the fast path
+    outside ``ServeEngine._to_host``, fails it."""
+    tracker, sync = LockOrderTracker(), SyncSiteSanitizer()
+    tracker.install()
+    sync.install()
     try:
-        yield tracker
+        yield
     finally:
         tracker.uninstall()
+        sync.uninstall()
     assert not tracker.violations, "; ".join(tracker.violations)
+    assert not sync.violations, "; ".join(sync.violations)
 
 
 def test_scenarios_import_only_the_port():
@@ -96,8 +100,7 @@ def test_scenarios_import_only_the_port():
 
 
 @pytest.mark.parametrize("stem,name,kwargs", list(_cases()))
-def test_reference_scenario_on_the_port(stem, name, kwargs, tmp_path,
-                                        lock_order):
+def test_reference_scenario_on_the_port(stem, name, kwargs, tmp_path):
     fn = _SCENARIOS[stem][name]
     if "tmp_path" in inspect.signature(fn).parameters:
         kwargs = dict(kwargs, tmp_path=tmp_path)
