@@ -201,7 +201,32 @@ on the first phase that fails (exit code != 0):
                   ``stop()`` leaves no ``/kv/light`` key and, once its
                   engines and the store's read cache let go, the memory
                   falls by at least its two pools.
-15. serve_moe   — ``ServeEngine`` serving deepseek-moe-16b (CONFIG: full
+15. mesh        — gemma2-9b at full width and depth, bf16, on the serve
+                  traffic and 1,024 blocks: a one-device slice of a
+                  ``ServeNode`` deployment (``devices_per_replica=1``),
+                  then a model-2 slice of two logical devices on the card
+                  (``logical_devices(2, dev)``), captured and eagerly: K1
+                  == ticks x 84 (local H 8, K 4, D 256), host_syncs ==
+                  ticks, no donate miss, no allocation growth after the
+                  capture, captured bit-equal to eager, TPOT p50 of each
+                  run.  The model-2 first tick again, directly, with each
+                  of its 84 reductions within half a bf16 ulp of the f64
+                  sum of the shards' parts, and a control whose combine
+                  rounds each part first, which must fail that; the first
+                  tick's logits of the one device, the model-2 slice and
+                  the control against the same weights in f32 (reported:
+                  bf16 rounding at 42 layers hides the control there);
+                  the first tick's argmax equal to the one device's;
+                  greedy tokens equal before a first difference.  Then full width cut to 4
+                  layers at f32: the model-2 streams equal the one
+                  device's; an int8 spill off a model-2 slice adopted on
+                  a one-device slice round-trips bit for bit and its
+                  stream goes on as the uninterrupted one.  K1 at the shard widths (H 8 /
+                  K 4, H 4 / K 2, H 2 over kv head 2 of a 4-head pool read
+                  in place) against its plain version, bf16 and int8; and
+                  ``elastic_reshard`` of a zamba2-2.7b AdamW state (cut to
+                  6 layers) to a (1, 2) mesh and back, bit-equal.
+16. serve_moe   — ``ServeEngine`` serving deepseek-moe-16b (CONFIG: full
                   width, all 28 layers, 27 of them MoE with 64 routed
                   experts top-6 and 2 shared, bf16, seeded weights, 32.75
                   GB) the serve phase's 8 requests on 8 slots, a 512-token
@@ -214,14 +239,14 @@ on the first phase that fails (exit code != 0):
                   one captured run traced (device time in K1, gemm and an
                   approximate moe_dispatch group), and one tick's share of
                   (token, slot) entries that capacity drops.
-16. moe_check   — llama4-maverick-400b-a17b at full width cut to one period
+17. moe_check   — llama4-maverick-400b-a17b at full width cut to one period
                   of its pattern (n_layers 48 -> 2: a dense and a MoE layer
                   of 128 experts, 37.1 GB): ``forward`` on 2048 tokens with
                   K2 against the plain attention (the tokens both runs route
                   alike held within 2e-2 of the logits' scale, at least 0.9
                   of them), then three requests served captured and eagerly
                   (equal streams, K1 launches == ticks x 2).
-17. embeds      — musicgen-large and phi-3-vision-4.2b (full width and
+18. embeds      — musicgen-large and phi-3-vision-4.2b (full width and
                   depth, bf16, seeded weights, N(0, 1) f32 input
                   embeddings), one at a time.  score_embeds: ``forward``
                   over B=1, S=8192 (K2 == n_layers; wall s, tokens/s, peak
@@ -249,7 +274,7 @@ on the first phase that fails (exit code != 0):
                   without holding more memory; then a frontend
                   into the full backbone chained, brokered and fused:
                   bit-equal logits, the hop's share.
-18. score       — ``forward`` at full width and full depth, bf16, seeded
+19. score       — ``forward`` at full width and full depth, bf16, seeded
                   random weights, B=1: gemma2-9b, gemma3-4b, h2o-danube-1.8b,
                   mamba2-1.3b, zamba2-2.7b and deepseek-moe-16b at S=8192,
                   h2o-danube-3-4b at S=9216 (past its 8192 window); finite
@@ -257,9 +282,9 @@ on the first phase that fails (exit code != 0):
                   layers and K3 launches == mamba layers per forward, the
                   aux loss >= 1 - 1e-3 with experts and 0 without; wall
                   time, tokens/s, peak memory.
-19. score_trace — one gemma2-9b score forward under torch.profiler
+20. score_trace — one gemma2-9b score forward under torch.profiler
                   (informational).
-20. grad_kernel — (after dropping the libraries' caches and checking that
+21. grad_kernel — (after dropping the libraries' caches and checking that
                   no earlier phase left device memory allocated: no CUDA
                   tensor outside the kernels' workspaces, at most 4 MiB of
                   library state) K2 and K3
@@ -269,25 +294,25 @@ on the first phase that fails (exit code != 0):
                   kernel call, two calls bit-equal, one launch per forward,
                   its grads bit-equal to the plain version's autograd grads;
                   forward and backward times.
-21. train_check — zamba2-2.7b at full width cut to 6 layers (one group),
+22. train_check — zamba2-2.7b at full width cut to 6 layers (one group),
                   B 1 x S 2048: the loss and every gradient leaf with the
                   kernels against the plain versions swapped into the
                   wrappers' CUDA route; f32: loss within 1e-5 relative,
                   each leaf within 2e-4 of its max-abs; bf16: the global
                   gradient norm within 2e-2 relative, every leaf's cosine.
-22. train       — zamba2-2.7b at full width and depth, bf16, AdamW (lr
+23. train       — zamba2-2.7b at full width and depth, bf16, AdamW (lr
                   1e-3, warmup 1), max_grad_norm 1, remat, B 2 x S 2048, 6
                   steps: finite losses and norms, the last loss below the
                   first, K2 == 18 and K3 == 108 launches a step, peak
                   memory under 60 GB; step time p50, tokens/s and the
                   step's share of its model-FLOPs bound.
-23. train_ft    — zamba2-2.7b cut to 6 layers, Adafactor, B 1 x S 1024,
+24. train_ft    — zamba2-2.7b cut to 6 layers, Adafactor, B 1 x S 1024,
                   ``FaultTolerantLoop`` over a ``CheckpointManager`` in a
                   temporary directory, checkpoints at steps 2 and 3 (bytes,
                   seconds): a new loop resumes at step 3 bit for bit, the
                   next step's loss bit-equal from both states, a
                   time-travel restore returns step 2.
-24. examples    — the six twins of ``examples/*.py`` in
+25. examples    — the six twins of ``examples/*.py`` in
                   ``examples_torch/`` (quickstart, smart_farming,
                   collision_detection, serve_lm, serve_cluster, train_lm),
                   each run in this process at its defaults on the card
@@ -304,8 +329,9 @@ on the first phase that fails (exit code != 0):
 
 It prints one JSON line per phase, then each phase's seconds, then the
 card's name and power limit as nvidia-smi gives them, then the kernels line
-(K1-K4, with K2's and K3's launches per train step and their autograd
-times, and each kernel's launches in each twin), and last
+(K1-K4, with K1's launches per model-2 tick and its shard-width cases,
+K2's and K3's launches per train step and their autograd times, and each
+kernel's launches in each twin), and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -2396,6 +2422,7 @@ def preempt_phases(dev, smi: str) -> dict:
 # heavy model that share a 32,000-token vocabulary, so every id the light
 # model emits is in range for the heavy one's embedding
 CLUSTER_LIGHT, CLUSTER_HEAVY = "h2o-danube-1.8b", "zamba2-2.7b"
+LIGHT_BLOCK = 16                  # ServeEngine's default block_size
 LIGHT_ENGINE = dict(n_slots=8, max_len=8192, token_budget=512,
                     num_blocks=1024)
 HEAVY_ENGINE = dict(n_slots=4, max_len=4096, paged=False)
@@ -2814,6 +2841,511 @@ def cluster_phase(dev, smi: str, serve_main: dict) -> dict:
             "seconds": time.monotonic() - t0}
 
 
+# =================================================================== mesh
+MESH_ARCH = "gemma2-9b"
+# Each reduction of the model-2 tick, held against the exact (f64) sum of
+# the shards' f32 parts: rounded once to bf16, it lies within half a bf16
+# ulp of it (the f32 sum adds at most 2^-16 ulp).  A combine that rounds
+# each part first strays further, and its control run must fail this.
+# The first-tick logits cannot tell the two apart: against the same
+# weights in f32 the control strays as far as bf16 itself (PERF.md)
+MESH_COMBINE_ULPS = 0.5 + 2.0 ** -10
+# K1 at the shard widths of the sharded serve: gemma2-9b's heads over model
+# 2 and 4, and a shard's q heads over one kv head of a pool every shard
+# replicates (n_kv_heads % model != 0): (label, H, pool K, kv-head slice)
+MESH_K1_CASES = [("gemma2-9b model 2", 8, 4, None),
+                 ("gemma2-9b model 4", 4, 2, None),
+                 ("split q, replicated pool", 2, 4, (2, 3))]
+
+
+@contextlib.contextmanager
+def first_logits(out: list):
+    """Inside the block, the logits of the first mixed step any engine runs
+    (its first tick, eager) are cloned into ``out``, with clones of its
+    inputs (block tables, tokens, positions, rows, sample lanes)."""
+    import repro_torch.serving.engine as engine_mod
+
+    inner = engine_mod.paged_mixed_step
+
+    def spy(*a, **kw):
+        logits = inner(*a, **kw)
+        if not out:
+            out.append((logits.clone(), [t.clone() for t in a[2:7]]))
+        return logits
+
+    engine_mod.paged_mixed_step = spy
+    try:
+        yield out
+    finally:
+        engine_mod.paged_mixed_step = inner
+
+
+def mesh_serve(eng, reqs, label: str, smi: str, n_layers: int,
+               drive=None) -> dict:
+    """Serve ``reqs`` on ``eng`` (its K1 count set to 0 just before) under
+    the sync check, with the bytes allocated outside the workspaces read
+    after every tick: (the result line, streams, scores, first logits).
+    ``drive`` submits and drains instead (a deployment's node)."""
+    from repro_torch.kernels.decode_attention import ops
+
+    done: dict = {}
+    if drive is None:
+        eng.on_complete = lambda r: done.setdefault(r.request_id, r)
+    after_tick: list[int] = []
+    tick = eng.tick
+
+    def counted():
+        n = tick()
+        after_tick.append(allocated_outside_workspaces())
+        return n
+
+    eng.tick = counted
+    logits: list = []
+    torch.cuda.synchronize()
+    ops.ragged_paged_attention.launches = 0
+    t0 = time.monotonic()
+    try:
+        with first_logits(logits), syncs_forbidden(eng):
+            if drive is None:
+                for r in reqs:
+                    eng.submit(r)
+                eng.run_until_drained()
+            else:
+                done = drive(reqs)
+    finally:
+        del eng.tick
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = ops.ragged_paged_attention.launches
+    s = eng.stats
+    assert len(done) == len(reqs) and all(r.error is None
+                                          for r in done.values())
+    assert s.host_syncs == s.ticks, (label, s.host_syncs, s.ticks)
+    assert eng.cm.devstore.donate_misses == 0, label
+    shards = 1 if eng.mesh is None else eng.mesh.size
+    assert launches == s.ticks * n_layers * shards, (label, launches,
+                                                     s.ticks)
+    # no pool-sized allocation a tick: after the capture (tick 2) the bytes
+    # allocated outside the workspaces stay put from tick to tick
+    steady = after_tick[2:] or after_tick
+    growth = max(steady) - min(steady)
+    assert growth < eng.cm.pool_bytes() // n_layers, (label, growth)
+    res = {"phase": "mesh_serve", "run": label, "card": smi,
+           "shards": shards, "ticks": s.ticks, "host_syncs": s.host_syncs,
+           "k1_launches": launches, "k1_per_tick": launches // s.ticks,
+           **check_graphs(eng, s.ticks),
+           "donate_misses": eng.cm.devstore.donate_misses,
+           "donate_hits": eng.cm.devstore.donate_hits,
+           "pool_bytes": eng.cm.pool_bytes(),
+           "alloc_growth_after_capture_bytes": growth,
+           "tpot_p50_s": statistics.median(s.tpot_s),
+           "ttft_p50_s": statistics.median(s.ttft_s), "wall_s": wall}
+    streams = {rid: list(r.tokens) for rid, r in done.items()}
+    scores = {rid: list(r.scores) + list(r.entropies)
+              for rid, r in done.items()}
+    emit(res)
+    return res, streams, scores, logits[0]
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each value of ``x`` (8 significand bits)."""
+    _, e = torch.frexp(x)
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+@contextlib.contextmanager
+def combine_checked(out: list, control: bool = False):
+    """Inside the block, every split reduction of the paged layers
+    (``models.lm._combine``) is held against the f64 sum of the shards'
+    f32 parts: the largest distance, in bf16 ulps of that sum, is appended
+    to ``out``.  ``control``: the combine is given each part rounded to
+    the model's dtype first (the fault the check exists to catch)."""
+    import repro_torch.models.lm as lm
+
+    inner = lm._combine
+
+    def spy(ys, tp, split, dtype):
+        if not split:
+            return inner(ys, tp, split, dtype)
+        assert not isinstance(ys[0], list), "MoE parts: not checked here"
+        fed = [y.to(dtype).float() for y in ys] if control else ys
+        got = inner(fed, tp, split, dtype)
+        exact = ys[0].double()
+        for y in ys[1:]:
+            exact = exact + y.to(exact.device).double()
+        out.append(max(((y.double() - exact.to(d)).abs()
+                        / _bf16_ulp(exact.to(d))).max().item()
+                       for d, y in got.items()))
+        return got
+
+    lm._combine = spy
+    try:
+        yield out
+    finally:
+        lm._combine = inner
+
+
+def direct_first_tick(eng, inputs, control: bool) -> tuple:
+    """The first tick's logits of the (sliced) engine ``eng``, run once
+    eagerly on its fresh pool through ``paged_mixed_step`` with every
+    split reduction checked (``combine_checked``): (logits, the largest
+    distance of a reduction in ulps, the reductions checked)."""
+    from repro_torch.models import paged_mixed_step
+
+    ulps: list = []
+    with combine_checked(ulps, control):
+        logits = paged_mixed_step(eng._local_params, eng.cm.shard_pools,
+                                  *inputs, eng.cfg, tp=eng._tp)
+    torch.cuda.synchronize()
+    return logits, max(ulps), len(ulps)
+
+
+def f32_first_tick(cfg, params, inputs, dev) -> torch.Tensor:
+    """The first tick's logits from the same weights upcast to f32 (one
+    device, a fresh f32 pool): the exact function the bf16 paths round."""
+    from repro_torch.models import init_paged_pools, paged_mixed_step
+    from repro_torch.tree import tree_map
+
+    bt, toks, pos, rows, sidx = inputs
+    c32 = cfg.replace(dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    n_blocks = int(bt.max().item()) + 1
+    pools = init_paged_pools(c32, n_blocks, LIGHT_BLOCK, device=dev)
+    logits = paged_mixed_step(p32, pools, bt, toks, pos, rows, sidx, c32)
+    torch.cuda.synchronize()
+    return logits
+
+
+def mesh_kernel_cases(dev, flush) -> list[dict]:
+    """K1 at the sharded serve's local widths (``MESH_K1_CASES``; D 256,
+    the serve's mixed T = 512 packing, softcap 50), bf16 and int8 pools,
+    against its plain version; the replicated-pool case reads its kv head
+    of the wider pool in place (``ops.pool_kv_stride``)."""
+    from repro_torch.kernels.decode_attention import ops, quant, ref
+
+    cases = []
+    for label, h, kv, cut in MESH_K1_CASES:
+        q32, k32, v32, bt, rows, pos, n_valid, bt_np, rows_np, pos_np = \
+            kernel_inputs(dev, np.random.default_rng(5), h, kv)
+        q = q32.to(torch.bfloat16)
+        view = ((lambda t: t) if cut is None
+                else (lambda t, c=cut: t[:, :, c[0]:c[1]]))
+        local_kv = kv if cut is None else cut[1] - cut[0]
+        for kv_dtype in ("bfloat16", "int8"):
+            if kv_dtype == "bfloat16":
+                kp, vp = k32.to(torch.bfloat16), v32.to(torch.bfloat16)
+                ks = vs = None
+            else:
+                kp, ks = quant.quantize_kv(k32, kv_dtype)
+                vp, vs = quant.quantize_kv(v32, kv_dtype)
+            kp, vp = view(kp), view(vp)
+            if ks is not None:
+                ks, vs = view(ks), view(vs)
+            assert ops.pool_kv_stride(kp) == kv
+            kw = dict(k_scale=ks, v_scale=vs, window=None, softcap=50.0)
+            if ks is None:
+                plain = lambda q=q: ref.ragged_paged_attention_ref(
+                    q, kp, vp, bt, rows, pos, softcap=50.0)
+            else:
+                plain = lambda q=q: ref.ragged_paged_attention_quant_ref(
+                    q, kp, vp, ks, vs, bt, rows, pos, softcap=50.0)
+            case, out = checked_case(
+                lambda: ops.ragged_paged_attention(q, kp, vp, bt, rows, pos,
+                                                   **kw),
+                plain, 2e-2, *work(bt_np, rows_np, pos_np, None,
+                                   kp.element_size(), 2, ks is not None, h,
+                                   local_kv),
+                torch.bfloat16, flush, (25, 5),
+                plain32=lambda: plain(q.float()), kv_dtype=kv_dtype,
+                q_dtype="bfloat16", shard=label, H=h, K=local_kv,
+                pool_K=kv, kv_heads=cut, D=D, window=None, softcap=50.0,
+                library_ms=None,
+                **k1_spans(T, local_kv, h // local_kv, D, bt.shape[1]),
+                **k1_route(q, kp, bt, rows, pos, None))
+            assert bool((out[n_valid:] == 0).all()), "pad lanes not zero"
+            if cut is not None:
+                # in place: the same bits as the copied slice gives
+                copied = ops.ragged_paged_attention(
+                    q, kp.contiguous(), vp.contiguous(), bt, rows, pos,
+                    **dict(kw, k_scale=None if ks is None
+                           else ks.contiguous(),
+                           v_scale=None if vs is None else vs.contiguous()))
+                assert torch.equal(out, copied), "kv-head slice != copy"
+            cases.append(case)
+            emit({"phase": "mesh_kernel", **case})
+    return cases
+
+
+def mesh_spill_adopt(cfg, params, dev, smi: str) -> dict:
+    """An int8 session spilled off a model-2 slice and adopted onto a
+    one-device slice: the re-spilled blocks equal the first spill's bits;
+    the continued stream beside the uninterrupted one-device stream."""
+    from repro_torch.launch.mesh import logical_devices, mesh_slices
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.scheduler import Request
+
+    prompt = serve_requests(cfg.vocab_size)[6].prompt       # 300 tokens
+    kw = dict(n_slots=2, max_len=1024, token_budget=512, num_blocks=128,
+              kv_dtype="int8", device=dev)
+    with logical_devices(3, dev):
+        mesh_a, mesh_b = mesh_slices(1, 2)[0], mesh_slices(3, 1)[2]
+    ref = ServeEngine(cfg, params, mesh=mesh_b, **kw)
+    want = Request(request_id="ref", session_key="s", prompt=prompt,
+                   max_new_tokens=16)
+    ref.submit(want)
+    ref.run_until_drained()
+    del ref
+    eng_a = ServeEngine(cfg, params, mesh=mesh_a, **kw)
+    eng_b = ServeEngine(cfg, params, mesh=mesh_b, **kw)
+    req = Request(request_id="mig", session_key="s", prompt=prompt,
+                  max_new_tokens=16)
+    eng_a.submit(req)
+    while len(req.tokens) < 3:
+        eng_a.tick()
+    slot = req.slot
+    spilled = eng_a.spill(slot)
+    eng_a.live.pop(slot)
+    eng_a.cm.release(slot)
+    assert eng_b.adopt(req, spilled)
+    back = eng_b.spill(req.slot)
+    leaves = [(a, b) for la, lb in zip(spilled.blocks, back.blocks)
+              for a, b in zip(la.values(), lb.values())]
+    assert all(a.dtype == b.dtype and torch.equal(
+        a.view(torch.uint8), b.view(torch.uint8)) for a, b in leaves), \
+        "int8 spill -> adopt -> spill changed a bit"
+    eng_b.run_until_drained()
+    for e in (eng_a, eng_b):
+        assert e.stats.host_syncs == e.stats.ticks + e.stats.spill_syncs
+        assert e.cm.devstore.donate_misses == 0
+    assert list(req.tokens) == list(want.tokens), (
+        "the adopted stream left the uninterrupted one",
+        first_difference(list(req.tokens), list(want.tokens)))
+    res = {"phase": "mesh_spill_adopt", "card": smi, "arch": cfg.name,
+           "n_layers": cfg.n_layers, "dtype": cfg.dtype, "kv_dtype": "int8",
+           "spilled_blocks": spilled.n_blocks, "leaves": len(leaves),
+           "round_trip_bit_equal": True,
+           "stream_equals_uninterrupted": list(req.tokens) ==
+           list(want.tokens),
+           "first_difference": first_difference(list(req.tokens),
+                                                list(want.tokens))}
+    del eng_a, eng_b
+    emit(res)
+    return res
+
+
+def mesh_reshard(dev, smi: str) -> dict:
+    """An AdamW train state of zamba2-2.7b cut to 6 layers (``reduced``:
+    n_layers 54 -> 6) moved (1, 1) -> (1, 2) over two logical devices on
+    the card -> (1, 1) by ``elastic_reshard``, every leaf bit-equal."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.mesh import logical_devices, make_host_mesh
+    from repro_torch.models import param_axes, stacked_leaves
+    from repro_torch.training.ft import elastic_reshard
+    from repro_torch.training.optimizer import adamw
+    from repro_torch.tree import named_leaves, tree_leaves
+
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=6)
+    params = _seeded_params(cfg, dev, 0)
+    opt = adamw().init(stacked_leaves(params, cfg))
+    for t in tree_leaves(opt.mu) + tree_leaves(opt.nu):
+        t.normal_()
+    state = {"params": params, "opt": opt}
+    axes = {"params": param_axes(cfg),
+            "opt": S.opt_state_axes("adamw", param_axes(cfg), cfg)}
+    with logical_devices(2, dev):
+        meshes = [make_host_mesh(1, 1), make_host_mesh(2, 2),
+                  make_host_mesh(1, 1)]
+    t0 = time.monotonic()
+    tree, split = state, 0
+    for mesh in meshes:
+        pls = S.tree_shardings(axes, mesh, S.make_rules(cfg, mesh))
+        specs = {name: pl.spec for (name, _), pl in
+                 zip(named_leaves(tree), tree_leaves(pls))}
+        tree = elastic_reshard(tree, mesh, lambda path, leaf: specs[path])
+        split = max(split, sum(t.placement.splits(t.ndim)
+                               for t in tree_leaves(tree)))
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    pairs = list(zip(tree_leaves(tree), tree_leaves(state)))
+    assert all(torch.equal(a.gather(dev).reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8))
+               for a, b in pairs), "elastic_reshard changed a bit"
+    res = {"phase": "mesh_reshard", "card": smi, "arch": cfg.name,
+           "reduced": "n_layers 54 -> 6", "leaves": len(pairs),
+           "split_leaves_on_1x2": split,
+           "bytes": sum(b.numel() * b.element_size() for _, b in pairs),
+           "bit_equal": True, "seconds": seconds}
+    emit(res)
+    return res
+
+
+def mesh_phase(dev, smi: str) -> dict:
+    """gemma2-9b at full width and depth, bf16, on the serve traffic and
+    1,024 blocks: a one-device slice through a ``ServeNode`` deployment
+    (``take_device_slices(1, 1)``), then a model-2 slice of two logical
+    devices on the card, captured and eager; then full width cut to 4
+    layers at f32 (greedy streams, an int8 spill across slices); K1 at the
+    shard widths; ``elastic_reshard`` of a train state."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import logical_devices, mesh_slices
+    from repro_torch.serving.cluster import ServeCluster
+    from repro_torch.serving.engine import ServeEngine
+
+    t0 = time.monotonic()
+    cfg = get_config(MESH_ARCH)
+    params = _seeded_params(cfg, dev, 0)
+    reqs = lambda: serve_requests(cfg.vocab_size)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    kernel_cases = mesh_kernel_cases(dev, flush)
+    del flush
+
+    # 1. a one-device slice through a ServeNode deployment
+    cluster = ServeCluster(cfg, params, n_replicas=1, device=dev,
+                           devices_per_replica=1, **LIGHT_ENGINE)
+    one = cluster.engines[0]
+    assert one.mesh.devices.shape == (1, 1) and one._tp.devices == (dev,)
+    assert not (one._tp.heads or one._tp.ffn or one._tp.vocab)
+    assert cluster.node._free_devices == []
+
+    def through_node(rs):
+        receipts = [cluster.submit(r.session_key, r.request_id, r.prompt,
+                                   max_new_tokens=r.max_new_tokens)
+                    for r in rs]
+        wait_all(receipts)
+        node_drain(cluster.node, receipts)
+        out = {}
+        for r in rs:
+            r.tokens = cluster.result(r.request_id).tolist()
+            out[r.request_id] = r
+        return out
+
+    single, single_streams, _, (single_logits, single_in) = mesh_serve(
+        one, reqs(), "one-device slice (ServeNode deployment)", smi,
+        cfg.n_layers, drive=through_node)
+    cluster.close()
+    del cluster, one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. a model-2 slice of two logical devices on the card
+    with logical_devices(2, dev):
+        [mesh] = mesh_slices(1, 2)
+    runs = {}
+    for graphs in (True, False):
+        eng = ServeEngine(cfg, params, device=dev, mesh=mesh,
+                          cuda_graphs=graphs, **LIGHT_ENGINE)
+        local = eng._local_params[0]["layers"][0]["attn"]
+        pool = eng.cm.shard_pools[0][0]["k"]
+        # gemma2-9b's 16 q and 8 kv heads split over the two shards: K1
+        # runs at local H = 8, K = 4, D = 256
+        assert (local["wq"].shape[1], pool.shape[2], pool.shape[3]) == (
+            cfg.n_heads // 2, cfg.n_kv_heads // 2, cfg.head_dim)
+        assert eng._tp.kv_heads == (None, None) and eng._tp.heads
+        kind = "captured" if graphs else "eager"
+        runs[graphs] = mesh_serve(eng, reqs(), f"model-2 slice, {kind}",
+                                  smi, cfg.n_layers)
+        del eng, local, pool
+        gc.collect()
+        torch.cuda.empty_cache()
+    (cap, cap_streams, cap_scores, (cap_logits, cap_in)), \
+        (eag, eag_streams, eag_scores, _) = runs[True], runs[False]
+    assert cap["k1_per_tick"] == 2 * cfg.n_layers       # 84: 42 x 2
+    assert cap_streams == eag_streams and cap_scores == eag_scores, \
+        "model-2 captured tick != eager tick"
+    assert all(torch.equal(a, b) for a, b in zip(cap_in, single_in))
+    assert cap_logits.shape == single_logits.shape
+    # the model-2 first tick again, run directly with every reduction
+    # checked, and its control: a combine that rounds each shard's part
+    eng = ServeEngine(cfg, params, device=dev, mesh=mesh, cuda_graphs=False,
+                      **LIGHT_ENGINE)
+    direct, ulps, reductions = direct_first_tick(eng, cap_in, False)
+    ctl_logits, ctl_ulps, _ = direct_first_tick(eng, cap_in, True)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # bf16 at full depth: the shards' products round at other points than
+    # the one device's, and 42 layers carry each rounding on, so the two
+    # are measured against the same weights in f32 (reported)
+    ref = f32_first_tick(cfg, params, single_in, dev)
+    dist = lambda x: ((x - ref).abs().max().item(),
+                      (x - ref).abs().mean().item())
+    (err_one, mean_one), (err_two, mean_two), (err_ctl, mean_ctl) = (
+        dist(single_logits), dist(cap_logits), dist(ctl_logits))
+    del ref
+    err = (cap_logits - single_logits).abs().max().item()
+    scale = single_logits.abs().max().item()
+    argmax_equal = bool(torch.equal(cap_logits.argmax(-1),
+                                    single_logits.argmax(-1)))
+    same = {rid: first_difference(cap_streams[rid], single_streams[rid])
+            for rid in cap_streams}
+    matched = sum(len(cap_streams[rid]) if d is None else d
+                  for rid, d in same.items())
+    readings = {"phase": "mesh_logits", "card": smi, "arch": cfg.name,
+                "first_tick_logits_max_abs_err": err, "logit_scale": scale,
+                "f32_ref_max_err": {"one_device": err_one,
+                                    "model2": err_two, "control": err_ctl},
+                "f32_ref_mean_err": {"one_device": mean_one,
+                                     "model2": mean_two,
+                                     "control": mean_ctl},
+                "f32_ratio": {"model2": err_two / err_one,
+                              "control": err_ctl / err_one},
+                "reductions_checked": reductions,
+                "reduction_max_ulps": {"model2": ulps, "control": ctl_ulps},
+                "reduction_bound_ulps": MESH_COMBINE_ULPS,
+                "direct_equals_engine": bool(torch.equal(direct,
+                                                         cap_logits)),
+                "first_tick_argmax_equal": argmax_equal,
+                "greedy_tokens_matching_one_device": matched}
+    emit(readings)
+    del direct, ctl_logits
+    assert readings["direct_equals_engine"], "direct first tick != engine's"
+    assert reductions == 2 * cfg.n_layers, reductions
+    assert ulps <= MESH_COMBINE_ULPS < ctl_ulps, (ulps, ctl_ulps)
+    assert argmax_equal, "model-2 first-tick argmax != one device's"
+    del params, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. full width cut to 4 layers, f32: streams equal; int8 spill/adopt
+    f32 = cfg.replace(n_layers=4, dtype="float32")
+    params = _seeded_params(f32, dev, 0)
+    streams = {}
+    for label, m in (("f32 one device", None), ("f32 model-2", mesh)):
+        eng = ServeEngine(f32, params, device=dev, mesh=m, **LIGHT_ENGINE)
+        streams[label] = mesh_serve(eng, reqs(), label, smi, f32.n_layers)[1]
+        del eng
+    assert streams["f32 model-2"] == streams["f32 one device"], \
+        "f32 model-2 streams != one-device streams"
+    spill = mesh_spill_adopt(f32, params, dev, smi)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    reshard = mesh_reshard(dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {"phase": "mesh", "card": smi, "arch": cfg.name,
+           "first_tick_logits_max_abs_err": err, "logit_scale": scale,
+           "f32_ratio": readings["f32_ratio"],
+           "reduction_max_ulps": readings["reduction_max_ulps"],
+           "first_tick_argmax_equal": argmax_equal,
+           "captured_equals_eager": True,
+           "greedy_tokens_matching_one_device": matched,
+           "greedy_tokens": sum(len(v) for v in cap_streams.values()),
+           "first_difference_by_request": same,
+           "tpot_p50_s": {"one_device": single["tpot_p50_s"],
+                          "model2_captured": cap["tpot_p50_s"],
+                          "model2_eager": eag["tpot_p50_s"]},
+           "k1_launches": cap["k1_launches"], "ticks": cap["ticks"],
+           "f32_streams_equal": True, "spill_adopt": spill,
+           "reshard": reshard, "kernel_cases": kernel_cases,
+           "seconds": time.monotonic() - t0}
+    emit({k: v for k, v in res.items() if k not in ("spill_adopt",
+                                                    "reshard",
+                                                    "kernel_cases")})
+    return res
+
+
 # ==================================================================== MoE
 # the MoE layer's routing and dispatch kernels in a trace, by name: scatter_
 # and gather, index / index_put_, cumsum's scan, topk's select and sort.
@@ -2853,9 +3385,9 @@ def moe_drop_shares(cfg, params, dev) -> dict:
     lanes, dropped = [], []
     step, layer = engine_mod.paged_mixed_step, lm.moe
 
-    def spy_step(params, pools, bt, tokens, positions, *a):
+    def spy_step(params, pools, bt, tokens, positions, *a, **kw):
         lanes.append(positions >= 0)
-        return step(params, pools, bt, tokens, positions, *a)
+        return step(params, pools, bt, tokens, positions, *a, **kw)
 
     def spy_moe(p, x, *, cfg):
         plan = moe_mod.dispatch_plan(p, x.reshape(-1, x.shape[-1]), cfg)
@@ -4549,6 +5081,7 @@ def main() -> int:
     dense = timed("serve_dense", serve_dense_phase, dev, smi)
     timed("preempt", preempt_phases, dev, smi)
     timed("cluster", cluster_phase, dev, smi, main_run)
+    mesh = timed("mesh", mesh_phase, dev, smi)
     moe = timed("serve_moe", serve_moe_phase, dev, smi)
     timed("moe_check", moe_check_phase, dev, smi)
     embeds = timed("embeds", embeds_phases, dev, smi)
@@ -4611,6 +5144,12 @@ def main() -> int:
         "library_ms": None,
         "shape": "T=512 H=16 K=8 D=256 bs=16, bf16 q and pool, softcap 50",
         "launches_serve_moe": moe["k1_launches"], "d128": d128(cases),
+        "launches_mesh": mesh["k1_launches"],
+        "mesh_ticks": mesh["ticks"],
+        "mesh_cases": [{k: c.get(k) for k in (
+            "shard", "kv_dtype", "H", "K", "pool_K", "kv_heads",
+            "kernel_ms", "bound_ms", "bound_by", "plain_ms", "max_abs_err")}
+            for c in mesh["kernel_cases"]],
         "launches_examples": twin_launches("ragged_paged_attention"),
         "examples_cases": examples["checks"]["K1"]}, {
         "name": "flash_attention", "id": "K2", "route": "cuda",

@@ -8,8 +8,9 @@ this package makes three of them machine-checked over ``src/repro_torch``:
    every attribute a class mutates under one of its locks is mutated under
    that lock *everywhere*.
 2. **Host-sync discipline** (``sync_discipline``): the serving fast path
-   (``serving/``, ``models/``, ``kernels/``, ``core/store.py``) has exactly
-   ONE device→host sync site per tick, ``ServeEngine._to_host`` —
+   (``serving/``, ``models/``, ``kernels/``, ``launch/``,
+   ``core/store.py``) has exactly ONE device→host sync site per tick,
+   ``ServeEngine._to_host`` —
    ``host_syncs == ticks`` holds statically, not just when a test happens
    to trip it.
 3. **Donation & recompile hazards** (``donation``): a tensor donated to a

@@ -6,7 +6,8 @@ Per-pass scope mirrors where each invariant lives:
 - ``lock-discipline`` and ``donation``/``recompile`` run over the whole
   tree (any module may grow threads or fused calls);
 - ``host-sync`` runs only over the fast path: the packages in
-  ``_FASTPATH_PARTS`` (``serving/``, ``models/``, ``kernels/``) plus the
+  ``_FASTPATH_PARTS`` (``serving/``, ``models/``, ``kernels/``,
+  ``launch/``: a sharded tick's placements and gathers) plus the
   named files in ``_FASTPATH_FILES`` (``core/store.py``, the spill pool on
   the preemption path).  The JAX scope has no ``kernels/``: a JAX kernel
   wrapper is traced under ``jit`` and cannot sync, while the port's
@@ -30,7 +31,7 @@ from .sync_discipline import SyncDisciplinePass, SyncSite
 
 ALL_PASSES = (LockDisciplinePass, SyncDisciplinePass, DonationPass)
 
-_FASTPATH_PARTS = ("serving", "models", "kernels")
+_FASTPATH_PARTS = ("serving", "models", "kernels", "launch")
 _FASTPATH_FILES = ("core/store.py",)
 MAX_SYNC_SITES = 1
 

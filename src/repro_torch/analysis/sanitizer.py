@@ -41,7 +41,7 @@ from dataclasses import dataclass
 import torch
 
 _FASTPATH_PREFIXES = ("repro_torch.serving", "repro_torch.models",
-                      "repro_torch.kernels")
+                      "repro_torch.kernels", "repro_torch.launch")
 ALLOWED_SYNC_SITES = {("repro_torch.serving.engine", "_to_host")}
 # fast-path functions that only tests, checkpoints and chip_smoke's checks
 # call, each with the reason it may pull to the host

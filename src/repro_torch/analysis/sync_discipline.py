@@ -3,9 +3,9 @@
 The port's counterpart of the JAX package's ``analysis/sync_discipline.py``.
 The serving invariant ``stats.host_syncs == stats.ticks`` only trips at
 test time; this pass enforces its precondition at lint time: in the fast
-path (``serving/``, ``models/``, ``kernels/``, ``core/store.py``) every
-device→host sync point is flagged unless it sits inside THE allowlisted
-sync site.
+path (``serving/``, ``models/``, ``kernels/``, ``launch/``,
+``core/store.py``) every device→host sync point is flagged unless it sits
+inside THE allowlisted sync site.
 
 Flagged constructs:
 

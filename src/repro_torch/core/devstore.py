@@ -3,9 +3,9 @@
 Port of the JAX package's ``core/devstore.py``.  The host-side
 ``CascadeStore`` moves references and small metadata; tensors live here.
 A store owns one device (``device``, the card by default); a key may pin
-another single device with ``register_sharding``.  Placements over several
-devices (the reference's ``PartitionSpec`` over a mesh) come with the mesh
-slice of the port.
+another single device, or a tree of ``core.sharded.Placement``s over a
+mesh slice (a tensor-parallel replica's pool, whose leaves are
+``ShardedTensor``s), with ``register_sharding``.
 
 Versioning is functional: a put installs a value as the latest version and
 retains up to ``keep_versions`` predecessors (volatile pools keep only the
@@ -34,6 +34,7 @@ from repro_torch.tree import tree_leaves, tree_map
 from .objects import monotonic_ns
 from .placement import LRUCache
 from .pools import Persistence, PoolRegistry, PoolSpec
+from .sharded import Placement, ShardedTensor, reshard
 
 
 @dataclass
@@ -50,16 +51,53 @@ def _tree_nbytes(value: Any) -> int:
                for leaf in tree_leaves(value))
 
 
-def _tree_placed(value: Any, device: torch.device) -> bool:
-    """True iff every leaf is already a tensor on ``device``."""
+def _dst_leaves(dst: Any, n: int) -> list | None:
+    """``dst`` (a device, a Placement, or a tree of Placements) as one
+    destination per value leaf, or None when the tree is not congruent."""
+    if isinstance(dst, (torch.device, Placement)):
+        return [dst] * n
+    leaves = tree_leaves(dst)
+    return leaves if len(leaves) == n else None
+
+
+def _leaf_placed(leaf: Any, dst: Any) -> bool:
+    """True iff ``leaf`` already lies where ``dst`` would put it: a tensor
+    on that device; a ShardedTensor of exactly that (mesh, spec); or a
+    tensor on the one device of a one-device Placement (layouts cannot
+    differ there)."""
+    if isinstance(dst, torch.device):
+        return isinstance(leaf, torch.Tensor) and leaf.device == dst
+    if isinstance(leaf, ShardedTensor):
+        return leaf.placement == dst
+    return (isinstance(leaf, torch.Tensor) and dst.mesh.size == 1
+            and leaf.device == dst.devices()[0])
+
+
+def _tree_placed(value: Any, dst: Any) -> bool:
+    """True iff every leaf of ``value`` already lies where ``dst`` (a
+    device, a Placement, or a congruent tree of Placements) puts it."""
     leaves = tree_leaves(value)
-    return bool(leaves) and all(
-        isinstance(leaf, torch.Tensor) and leaf.device == device
-        for leaf in leaves)
+    dsts = _dst_leaves(dst, len(leaves))
+    return bool(leaves) and dsts is not None and all(
+        _leaf_placed(leaf, d) for leaf, d in zip(leaves, dsts))
 
 
-def _to_numpy(leaf: torch.Tensor) -> np.ndarray:
-    """A host copy; bf16 and fp8 (which numpy lacks) as exact f32."""
+def _copy_to(leaf: Any, dst: Any) -> Any:
+    """A copy of ``leaf`` (tensor, ShardedTensor or array) at ``dst``."""
+    if isinstance(dst, Placement):
+        if not isinstance(leaf, ShardedTensor):
+            leaf = torch.as_tensor(leaf)
+        return reshard(leaf, dst)
+    if isinstance(leaf, ShardedTensor):
+        return leaf.gather(dst)
+    return torch.as_tensor(leaf).to(dst, copy=True)
+
+
+def _to_numpy(leaf) -> np.ndarray:
+    """A host copy; bf16 and fp8 (which numpy lacks) as exact f32; a
+    ShardedTensor gathered whole."""
+    if isinstance(leaf, ShardedTensor):
+        leaf = leaf.gather("cpu")
     t = leaf.detach().cpu()
     if t.dtype in (torch.bfloat16, torch.float8_e4m3fn, torch.float8_e5m2):
         t = t.float()
@@ -100,28 +138,34 @@ class DeviceStore:
     def create_pool(self, spec: PoolSpec) -> PoolSpec:
         return self.pools.create(spec)
 
-    def register_sharding(self, key: str, device) -> None:
-        """Pin ``key`` to one device (a ``torch.device`` or its name): its
-        donate check and its copies use that device instead of the
-        store's.  A placement over several devices raises until the mesh
-        slice of the port."""
-        if isinstance(device, (list, tuple, dict)):
-            from repro_torch.serving.engine import _later
-            raise _later("mesh slices", "mesh")
-        dev = resolve_device(device, "DeviceStore")
+    def register_sharding(self, key: str, sharding) -> None:
+        """Pin a per-key placement: one device (a ``torch.device`` or its
+        name), one ``Placement``, or a tree of Placements congruent with
+        the values put under ``key`` (a sharded replica registers its
+        pool's tree here, so the donate check — and the copy fallback —
+        see the slice's placements instead of the store's device)."""
+        if isinstance(sharding, (str, torch.device)):
+            sharding = resolve_device(sharding, "DeviceStore")
+        elif not tree_leaves(sharding) or not all(
+                isinstance(pl, Placement) for pl in tree_leaves(sharding)):
+            raise TypeError(f"register_sharding takes a device, a Placement "
+                            f"or a tree of Placements, got {sharding!r}")
         with self._lock:
-            self._devices[key] = dev
+            self._devices[key] = sharding
 
-    def sharding_for(self, key: str) -> torch.device:
-        """The device the values under ``key`` live on."""
+    def sharding_for(self, key: str):
+        """Where the values under ``key`` live: a device, or a Placement
+        (tree)."""
         return self._devices.get(key, self.device)
 
     # -- puts -----------------------------------------------------------------
     def put(self, key: str, value: Any, *, donate: bool = False) -> Any:
         """Place ``value`` on the key's device and version it.
 
-        ``donate``: if every leaf is already a tensor on that device,
-        install the references without any copy (fast-path put)."""
+        ``donate``: if every leaf already lies there (a tensor on that
+        device; a ShardedTensor whose (mesh, spec) matches its registered
+        Placement exactly), install the references without any copy
+        (fast-path put)."""
         spec = self.pools.lookup(key)
         if spec is None:
             raise KeyError(f"no device pool owns {key!r}")
@@ -131,8 +175,13 @@ class DeviceStore:
             with self._lock:
                 self.donate_hits += 1
         else:
-            arr = tree_map(lambda leaf: torch.as_tensor(leaf).to(
-                dst, copy=True), value)
+            dsts = _dst_leaves(dst, len(tree_leaves(value)))
+            if dsts is None:
+                raise ValueError(f"the value put under {key!r} does not "
+                                 f"match the tree of placements registered "
+                                 f"for it")
+            it = iter(dsts)
+            arr = tree_map(lambda leaf: _copy_to(leaf, next(it)), value)
             if donate:
                 with self._lock:
                     self.donate_misses += 1

@@ -75,15 +75,17 @@ namespace {
 using namespace split_kv;
 
 // Keys are positions of a request row: block bt[pos / bs], slot pos % bs;
-// row index (block * bs + slot) * K + kh.  -1 entries below the live count
-// clamp to block 0 (the null block).
+// row index (block * bs + slot) * Kp + kh, Kp the kv heads a pool slot
+// holds (K, or more when the caller passes a kv-head slice of a wider
+// pool).  -1 entries below the live count clamp to block 0 (the null
+// block).
 struct PagedSource {
   const int* bt;           // the row's block table
-  int bs, K, kh, qp, window;
+  int bs, Kp, kh, qp, window;
   __device__ size_t row(int pos) const {
     const int j = pos / bs;
     const size_t blk = static_cast<size_t>(max(__ldg(bt + j), 0));
-    return (blk * bs + (pos - j * bs)) * K + kh;
+    return (blk * bs + (pos - j * bs)) * Kp + kh;
   }
   __device__ bool visible(int pos) const {
     return pos <= qp && (window <= 0 || qp - pos < window);
@@ -126,8 +128,8 @@ __global__ void __launch_bounds__(THREADS, (min_blocks<KVT, VB, VPL, GC>()))
     const KVT* __restrict__ v_pool, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const int* __restrict__ block_tables,
     const int* __restrict__ row_ids, const int* __restrict__ token_pos,
-    float* ws, int T, int R, int nb, int bs, int K, int G, int D, int span,
-    int n_span, int lr, float scale, float softcap, int window) {
+    float* ws, int T, int R, int nb, int bs, int K, int Kp, int G, int D,
+    int span, int n_span, int lr, float scale, float softcap, int window) {
   const int t = blockIdx.x, kh = blockIdx.y, s = blockIdx.z;
   const size_t parts = static_cast<size_t>(T) * K * n_span * G;
   const Partials P = partials_at(ws, parts, D);
@@ -140,7 +142,7 @@ __global__ void __launch_bounds__(THREADS, (min_blocks<KVT, VB, VPL, GC>()))
     write_empty(P, part0, G);
     return;
   }
-  const PagedSource src{bt, bs, K, kh, qp, window};
+  const PagedSource src{bt, bs, Kp, kh, qp, window};
   span_partial<KVT, QUANT, VB, VPL, GC>(
       src, j_lo * bs, j_hi * bs, q, q_bf16,
       (static_cast<size_t>(t) * K + kh) * G * D, k_pool, v_pool, k_scale,
@@ -179,8 +181,8 @@ __global__ void __launch_bounds__(THREADS) ragged_wide_kernel(
     const KVT* __restrict__ v_pool, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const int* __restrict__ block_tables,
     const int* __restrict__ row_ids, const int* __restrict__ token_pos,
-    float* ws, int T, int R, int nb, int bs, int K, int G, int D, int span,
-    int n_span, float scale, float softcap, int window) {
+    float* ws, int T, int R, int nb, int bs, int K, int Kp, int G, int D,
+    int span, int n_span, float scale, float softcap, int window) {
   extern __shared__ float smem[];
   const int t = blockIdx.x, h = blockIdx.y, s = blockIdx.z, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -221,7 +223,7 @@ __global__ void __launch_bounds__(THREADS) ragged_wide_kernel(
     const size_t slot0 = static_cast<size_t>(max(bt[j], 0)) * bs;
     for (int e = tid; e < BD; e += THREADS) {
       const int p = e / D, d = e - p * D;
-      const size_t so = (slot0 + p) * K + h;
+      const size_t so = (slot0 + p) * Kp + h;
       float kv = to_f32(k_pool[so * D + d]);
       float vv = to_f32(v_pool[so * D + d]);
       if (QUANT) {
@@ -441,8 +443,9 @@ __global__ void __launch_bounds__(THREADS, 2) ragged_tc_kernel(
     const KVT* __restrict__ v_pool, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const int* __restrict__ block_tables,
     const int* __restrict__ row_ids, const int* __restrict__ token_pos,
-    int* plan, float* ws, int T, int H, int R, int nb, int bs, int K, int G,
-    int D, int span, int n_span, float scale, float softcap, int window) {
+    int* plan, float* ws, int T, int H, int R, int nb, int bs, int K, int Kp,
+    int G, int D, int span, int n_span, float scale, float softcap,
+    int window) {
   using hopper::cp_async;
   constexpr int KT = key_tile(DMAX);
   constexpr int ST = KT / 8;           // n8 tiles of a score block
@@ -549,7 +552,7 @@ __global__ void __launch_bounds__(THREADS, 2) ragged_tc_kernel(
         const int kr = cr + i * RPP, pos = tile * KT + kr;
         const bool in = pos >= lo && pos < hi;
         const size_t el =
-            in ? (static_cast<size_t>(sRow[pos - span_lo]) * K + kh) * D +
+            in ? (static_cast<size_t>(sRow[pos - span_lo]) * Kp + kh) * D +
                      cc * 8
                : 0;
         if (cc < cpr) {
@@ -562,7 +565,7 @@ __global__ void __launch_bounds__(THREADS, 2) ragged_tc_kernel(
           const int pos = tile * KT + tid;
           const bool in = pos >= lo && pos < hi;
           const size_t row =
-              in ? static_cast<size_t>(sRow[pos - span_lo]) * K + kh : 0;
+              in ? static_cast<size_t>(sRow[pos - span_lo]) * Kp + kh : 0;
           cp_async<4>(stage_ks(st) + tid, k_scale + row, in);
           cp_async<4>(stage_vs(st) + tid, v_scale + row, in);
         }
@@ -835,9 +838,10 @@ template <typename KVT, bool QUANT>
 int launch_spans(const void* q, bool q_bf16, const void* k_pool,
                  const void* v_pool, const void* k_scale, const void* v_scale,
                  const void* block_tables, const void* row_ids,
-                 const void* token_pos, float* ws, int T, int K, int G, int D,
-                 int R, int nb, int bs, int span, int n_span, float scale,
-                 float softcap, int window, cudaStream_t stream) {
+                 const void* token_pos, float* ws, int T, int K, int Kp,
+                 int G, int D, int R, int nb, int bs, int span, int n_span,
+                 float scale, float softcap, int window,
+                 cudaStream_t stream) {
   const dim3 grid(T, K, n_span);
   const KVT* kp = static_cast<const KVT*>(k_pool);
   const KVT* vp = static_cast<const KVT*>(v_pool);
@@ -852,8 +856,9 @@ int launch_spans(const void* q, bool q_bf16, const void* k_pool,
     const int e = allow_smem(kern, smem);
     if (e) return e;
     kern<<<grid, THREADS, smem, stream>>>(q, q_bf16, kp, vp, ks, vs, bt, rows,
-                                          pos, ws, T, R, nb, bs, K, G, D, span,
-                                          n_span, scale, softcap, window);
+                                          pos, ws, T, R, nb, bs, K, Kp, G, D,
+                                          span, n_span, scale, softcap,
+                                          window);
     return static_cast<int>(cudaGetLastError());
   }
   const bool aligned16 = reinterpret_cast<uintptr_t>(k_pool) % 16 == 0 &&
@@ -866,8 +871,9 @@ int launch_spans(const void* q, bool q_bf16, const void* k_pool,
     const int e = allow_smem(kern, smem);
     if (e) return e;
     kern<<<grid, THREADS, smem, stream>>>(q, q_bf16, kp, vp, ks, vs, bt, rows,
-                                          pos, ws, T, R, nb, bs, K, G, D, span,
-                                          n_span, L.lr, scale, softcap, window);
+                                          pos, ws, T, R, nb, bs, K, Kp, G, D,
+                                          span, n_span, L.lr, scale, softcap,
+                                          window);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -881,7 +887,7 @@ int launch_tc(const void* q, const void* k_pool, const void* v_pool,
               const void* k_scale, const void* v_scale,
               const void* block_tables, const void* row_ids,
               const void* token_pos, float* ws, int* plan, int T, int H,
-              int K, int G, int D, int R, int nb, int bs, int span,
+              int K, int Kp, int G, int D, int R, int nb, int bs, int span,
               int n_span, float scale, float softcap, int window,
               cudaStream_t stream) {
   auto kern = tc::ragged_tc_kernel<KVT, QUANT, DMAX>;
@@ -908,7 +914,7 @@ int launch_tc(const void* q, const void* k_pool, const void* v_pool,
       static_cast<const KVT*>(v_pool), static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale),
       static_cast<const int*>(block_tables), rows, pos, plan, ws, T, H, R, nb,
-      bs, K, G, D, span, n_span, scale, softcap, window);
+      bs, K, Kp, G, D, span, n_span, scale, softcap, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -916,8 +922,8 @@ template <typename QT, typename KVT, bool QUANT>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* k_scale, const void* v_scale, const void* block_tables,
            const void* row_ids, const void* token_pos, void* ws, int* plan,
-           void* out, int T, int H, int K, int D, int R, int nb, int bs,
-           int span, float scale, float softcap, int window,
+           void* out, int T, int H, int K, int Kp, int D, int R, int nb,
+           int bs, int span, float scale, float softcap, int window,
            cudaStream_t stream) {
   const int G = H / K;
   const int n_span = (nb + span - 1) / span;
@@ -931,12 +937,12 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
       err = D <= 128
                 ? launch_tc<KVT, QUANT, 128>(
                       q, k_pool, v_pool, k_scale, v_scale, block_tables,
-                      row_ids, token_pos, w, plan, T, H, K, G, D, R, nb, bs,
-                      span, n_span, scale, softcap, window, stream)
+                      row_ids, token_pos, w, plan, T, H, K, Kp, G, D, R, nb,
+                      bs, span, n_span, scale, softcap, window, stream)
                 : launch_tc<KVT, QUANT, 256>(
                       q, k_pool, v_pool, k_scale, v_scale, block_tables,
-                      row_ids, token_pos, w, plan, T, H, K, G, D, R, nb, bs,
-                      span, n_span, scale, softcap, window, stream);
+                      row_ids, token_pos, w, plan, T, H, K, Kp, G, D, R, nb,
+                      bs, span, n_span, scale, softcap, window, stream);
     } else {
       err = static_cast<int>(cudaErrorInvalidValue);
     }
@@ -944,7 +950,8 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
     err = launch_spans<KVT, QUANT>(
         q, std::is_same<QT, __nv_bfloat16>::value, k_pool, v_pool, k_scale,
         v_scale, block_tables, row_ids, token_pos, static_cast<float*>(ws), T,
-        K, G, D, R, nb, bs, span, n_span, scale, softcap, window, stream);
+        K, Kp, G, D, R, nb, bs, span, n_span, scale, softcap, window,
+        stream);
   }
   if (err) return err;
   ragged_combine_kernel<QT><<<dim3(T, K), THREADS, 0, stream>>>(
@@ -958,11 +965,11 @@ int dispatch_kv(int kv_dtype, const void* q, const void* k_pool,
                 const void* v_pool, const void* k_scale, const void* v_scale,
                 const void* block_tables, const void* row_ids,
                 const void* token_pos, void* ws, int* plan, void* out, int T,
-                int H, int K, int D, int R, int nb, int bs, int span,
+                int H, int K, int Kp, int D, int R, int nb, int bs, int span,
                 float scale, float softcap, int window, cudaStream_t stream) {
 #define RPA_ARGS q, k_pool, v_pool, k_scale, v_scale, block_tables, row_ids, \
-    token_pos, ws, plan, out, T, H, K, D, R, nb, bs, span, scale, softcap,   \
-    window, stream
+    token_pos, ws, plan, out, T, H, K, Kp, D, R, nb, bs, span, scale,        \
+    softcap, window, stream
   switch (kv_dtype) {
     case 0: return launch<QT, float, false>(RPA_ARGS);
     case 1: return launch<QT, __nv_bfloat16, false>(RPA_ARGS);
@@ -980,7 +987,10 @@ int dispatch_kv(int kv_dtype, const void* q, const void* k_pool,
 // read k_scale / v_scale).  ws: float32 workspace of
 // T * K * ceil(nb / span) * (H / K) * (D + 2) elements; plan: int32 buffer
 // of 2 + 2 * T elements (the tensor-core path's segments; q, the pools and
-// the tables 16-byte aligned there).  H a multiple of K; D >= 1 (the route
+// the tables 16-byte aligned there).  Kp >= K: the kv heads a pool slot
+// (and a scale row) holds, so k_pool / v_pool / the scales may point at
+// kv head k0 of a wider pool, whose first K heads from there are read.
+// H a multiple of K; D >= 1 (the route
 // below says which kernel takes which shapes; rows past 256 elements, or not
 // whole 32-bit words, take the staged path, bounded by shared memory);
 // span >= 1 table blocks.  softcap <= 0 and window <= 0 mean "none".
@@ -989,17 +999,17 @@ extern "C" int ragged_paged_attention(
     int q_dtype, int kv_dtype, const void* q, const void* k_pool,
     const void* v_pool, const void* k_scale, const void* v_scale,
     const void* block_tables, const void* row_ids, const void* token_pos,
-    void* ws, void* plan, void* out, int T, int H, int K, int D, int R,
-    int nb, int bs, int span, float scale, float softcap, int window,
+    void* ws, void* plan, void* out, int T, int H, int K, int Kp, int D,
+    int R, int nb, int bs, int span, float scale, float softcap, int window,
     void* stream) {
   if (T == 0) return 0;
-  if (K < 1 || H % K || D < 1 || nb < 1 || bs < 1 || span < 1 ||
+  if (K < 1 || Kp < K || H % K || D < 1 || nb < 1 || bs < 1 || span < 1 ||
       (nb + span - 1) / span > 65535 || K > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* p = static_cast<int*>(plan);
 #define RPA_ARGS kv_dtype, q, k_pool, v_pool, k_scale, v_scale, block_tables, \
-    row_ids, token_pos, ws, p, out, T, H, K, D, R, nb, bs, span, scale,       \
+    row_ids, token_pos, ws, p, out, T, H, K, Kp, D, R, nb, bs, span, scale,   \
     softcap, window, s
   switch (q_dtype) {
     case 0: return dispatch_kv<float>(RPA_ARGS);

@@ -69,7 +69,7 @@ def _kernel():
         fn = lib.ragged_paged_attention
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [I, I, P, P, P, P, P, P, P, P, P, P, P,
-                       I, I, I, I, I, I, I, I, F, F, I, P]
+                       I, I, I, I, I, I, I, I, I, F, F, I, P]
         fn.restype = I
         _route_fn = lib.ragged_paged_attention_route
         _route_fn.argtypes = [I, I, I, I, I]
@@ -92,6 +92,20 @@ def ragged_paged_attention_route(q, k_pool) -> str:
     return K1_ROUTES[code]
 
 
+def pool_kv_stride(k_pool) -> int:
+    """The kv heads a slot of the pool's storage holds: K for a contiguous
+    (N, bs, K, D) pool, more for a kv-head slice ``pool[:, :, k0:k1]`` of a
+    wider contiguous one (K1 reads such a slice in place); 0 for any other
+    layout."""
+    N, bs, K, D = k_pool.shape
+    if k_pool.is_contiguous():
+        return K
+    st = k_pool.stride()
+    if st[3] != 1 or st[2] != D or st[1] % D or st[0] != bs * st[1]:
+        return 0
+    return st[1] // D
+
+
 def _check(q, k_pool, v_pool, block_tables, row_ids, token_pos, k_scale,
            v_scale, window, softcap):
     dev = q.device
@@ -100,10 +114,11 @@ def _check(q, k_pool, v_pool, block_tables, row_ids, token_pos, k_scale,
              "token_pos": token_pos}
     if k_scale is not None:
         named.update(k_scale=k_scale, v_scale=v_scale)
+    pooled = ("k_pool", "v_pool", "k_scale", "v_scale")
     for n, x in named.items():
         if x.device != dev:
             raise ValueError(f"{n} is on {x.device}, q on {dev}")
-        if not x.is_contiguous():
+        if n not in pooled and not x.is_contiguous():
             raise ValueError(f"{n} must be contiguous")
     if q.dtype not in _Q_CODES:
         raise TypeError(f"q dtype {q.dtype} not in {list(_Q_CODES)}")
@@ -122,6 +137,10 @@ def _check(q, k_pool, v_pool, block_tables, row_ids, token_pos, k_scale,
     if Dk != D or H % K:
         raise ValueError(f"head_dim {D} vs pool {Dk}, or heads {H} not a "
                          f"multiple of kv heads {K}")
+    Kp = pool_kv_stride(k_pool)
+    if Kp < K or pool_kv_stride(v_pool) != Kp:
+        raise ValueError("the pools must be contiguous, or the same kv-head "
+                         "slice of contiguous (N, bs, Kp, D) pools")
     if block_tables.dim() != 2 or block_tables.shape[0] == 0:
         raise ValueError(f"block_tables must be (R>0, nb), got "
                          f"{tuple(block_tables.shape)}")
@@ -136,6 +155,13 @@ def _check(q, k_pool, v_pool, block_tables, row_ids, token_pos, k_scale,
             if s.dtype != torch.float32 or s.shape != (N, bs, K):
                 raise ValueError(f"scales must be float32 {(N, bs, K)}, got "
                                  f"{s.dtype} {tuple(s.shape)}")
+            # the kernel reads scale (block, slot, kh) at
+            # (block·bs + slot)·Kp + kh, as it reads the pools
+            if any(n > 1 and st != want for n, st, want in
+                   zip(s.shape, s.stride(), (bs * Kp, Kp, 1))):
+                raise ValueError(f"scales must have the pools' kv-head "
+                                 f"stride {Kp}: contiguous (N, bs, {Kp}), "
+                                 f"or its kv-head slice")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive or None, got {window}")
     if softcap is not None and softcap <= 0:
@@ -169,7 +195,10 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, row_ids,
     below num_blocks); row_ids (T,) int32 request row of each packed token
     (-1 = pad lane); token_pos (T,) int32 absolute positions (-1 = pad
     lane).  ``k_scale``/``v_scale`` (num_blocks, block_size, K) float32
-    accompany int8/fp8 pools.  Returns (T,H,D) in q's dtype; pad lanes are
+    accompany int8/fp8 pools.  The pools (and scales) may be a kv-head
+    slice ``[:, :, k0:k0 + K]`` of wider contiguous ones, read in place
+    (``pool_kv_stride``): a tensor-parallel shard's q heads over a pool
+    every shard replicates.  Returns (T,H,D) in q's dtype; pad lanes are
     exact zeros."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -198,8 +227,8 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, row_ids,
             k_scale.data_ptr() if k_scale is not None else None,
             v_scale.data_ptr() if v_scale is not None else None,
             block_tables.data_ptr(), row_ids.data_ptr(), token_pos.data_ptr(),
-            ws.data_ptr(), plan.data_ptr(), out.data_ptr(), T, H, K, D, R,
-            nb, bs,
+            ws.data_ptr(), plan.data_ptr(), out.data_ptr(), T, H, K,
+            pool_kv_stride(k_pool), D, R, nb, bs,
             K1_SPAN_BLOCKS, float(scale),
             float(softcap) if softcap is not None else 0.0,
             int(window) if window is not None else 0, stream)

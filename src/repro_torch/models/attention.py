@@ -39,7 +39,8 @@ from repro_torch.kernels.decode_attention import quant as da_quant
 from repro_torch.kernels.flash_attention import ops as fa_ops
 
 from .config import LayerSpec, ModelConfig
-from .layers import dense_init, dtype_of, rmsnorm, rmsnorm_init, rope
+from .layers import (dense_init, dtype_of, matmul_f32, rmsnorm, rmsnorm_axes,
+                     rmsnorm_init, rope)
 
 
 # ------------------------------------------------------------------ params
@@ -62,7 +63,24 @@ def attn_init(generator: torch.Generator, cfg: ModelConfig, device, *,
     return p
 
 
+def attn_axes(cfg: ModelConfig) -> dict:
+    p = {"wq": ("embed", "heads", None),
+         "wk": ("embed", "kv_heads", None),
+         "wv": ("embed", "kv_heads", None),
+         "wo": ("heads", None, "embed")}
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_axes()
+        p["k_norm"] = rmsnorm_axes()
+    return p
+
+
 # ------------------------------------------------------------------- cache
+def cache_axes() -> dict:
+    return {"k": ("cache_batch", "cache_seq", "kv_heads", None),
+            "v": ("cache_batch", "cache_seq", "kv_heads", None),
+            "pos": ("cache_batch", "cache_seq")}
+
+
 def init_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int,
                *, device) -> dict:
     """One layer's dense decode cache: S_c = max_len slots, or a ring of
@@ -114,6 +132,21 @@ def init_paged_pool(cfg: ModelConfig, num_blocks: int, block_size: int,
     return pool
 
 
+def paged_pool_axes(cfg: ModelConfig, kv_dtype: str | None = None) -> dict:
+    """Logical axes of one layer's pool leaves (mirrors ``init_paged_pool``):
+    the block and slot dims stay unsharded (block tables are host-side and
+    every shard scatters any (block, slot)), so ``kv_heads`` is the one
+    shardable dim, the attention weights' split; scale leaves carry the
+    same (block, slot, kv-head) layout less the head_dim."""
+    kv_dtype = cfg.kv_dtype if kv_dtype is None else kv_dtype
+    kv = (None, None, "kv_heads", None)
+    axes = {"k": kv, "v": kv}
+    if da_quant.is_quantized(kv_dtype):
+        axes["k_scale"] = (None, None, "kv_heads")
+        axes["v_scale"] = (None, None, "kv_heads")
+    return axes
+
+
 def _quantize_for_pool(pool: dict, k_new, v_new):
     """Quantize new K/V entries to the pool's storage dtype (identity for
     unquantized pools); per-token-per-head scales."""
@@ -156,9 +189,10 @@ def _qkv(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
     """Projection + qk-norm + RoPE.  x (..., T, d), positions (..., T) →
     q (..., T, H, D), k/v (..., T, K, D)."""
     *lead, d = x.shape
-    q = (x @ params["wq"].reshape(d, -1)).reshape(*lead, cfg.n_heads, -1)
-    k = (x @ params["wk"].reshape(d, -1)).reshape(*lead, cfg.n_kv_heads, -1)
-    v = (x @ params["wv"].reshape(d, -1)).reshape(*lead, cfg.n_kv_heads, -1)
+    # heads from the weights: a tensor-parallel shard holds a slice of them
+    q = (x @ params["wq"].reshape(d, -1)).reshape(*lead, -1, cfg.head_dim)
+    k = (x @ params["wk"].reshape(d, -1)).reshape(*lead, -1, cfg.head_dim)
+    v = (x @ params["wv"].reshape(d, -1)).reshape(*lead, -1, cfg.head_dim)
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q)
         k = rmsnorm(params["k_norm"], k)
@@ -222,7 +256,9 @@ def prefill_cache(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
 def paged_attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
                     *, cfg: ModelConfig, spec: LayerSpec, pool: dict,
                     block_table: torch.Tensor,
-                    row_ids: torch.Tensor | None = None) -> torch.Tensor:
+                    row_ids: torch.Tensor | None = None,
+                    kv_heads: tuple[int, int] | None = None,
+                    partial: bool = False) -> torch.Tensor:
     """Attention against the paged pool, through K1 in both modes.  Writes
     the new tokens' K/V into ``pool`` first (in place), then every token
     attends causally at its own position over everything its row's block
@@ -237,12 +273,22 @@ def paged_attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
     packing (``ops.paged_decode_attention``); a suffix prefill (T > 1)
     packs the B·T tokens as lanes of rows 0..B-1.  The JAX package runs
     both through its XLA gather + masked softmax, which computes the same
-    function.  Returns (B, T, d)."""
+    function.  Returns (B, T, d).
+
+    A tensor-parallel shard passes its slice of the heads in ``params``;
+    ``kv_heads`` (k0, k1) is the range of a replicated pool's kv heads that
+    its q heads read (K1 reads that slice of the pool in place), and
+    ``partial`` returns its unrounded f32 share of the ``wo`` product
+    (``layers.matmul_f32``), summed over the shards by the caller."""
     lead = x.shape[:-1]
     q, k, v = _qkv(params, x, positions, cfg=cfg, spec=spec)
+    cut = (lambda t: t) if kv_heads is None else \
+        (lambda t: t[:, :, kv_heads[0]:kv_heads[1]])
     kw = dict(k_scale=pool.get("k_scale"), v_scale=pool.get("v_scale"),
               window=spec.window, softcap=cfg.attn_logit_softcap,
               scale=cfg.head_dim ** -0.5)
+    if kw["k_scale"] is not None:
+        kw.update(k_scale=cut(kw["k_scale"]), v_scale=cut(kw["v_scale"]))
     if row_ids is None:
         B, T = lead
         rows = torch.arange(B, dtype=torch.int32, device=x.device)
@@ -250,11 +296,14 @@ def paged_attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
         q, k, v = (t.reshape(B * T, *t.shape[2:]) for t in (q, k, v))
         positions = positions.reshape(B * T).to(torch.int32)
     _ragged_paged_write(pool, k, v, positions, block_table, row_ids)
+    k_pool, v_pool = cut(pool["k"]), cut(pool["v"])
     if len(lead) == 2 and lead[1] == 1:
-        out = da_ops.paged_decode_attention(q, pool["k"], pool["v"],
-                                            block_table, positions, **kw)
+        out = da_ops.paged_decode_attention(q, k_pool, v_pool, block_table,
+                                            positions, **kw)
     else:
-        out = da_ops.ragged_paged_attention(q, pool["k"], pool["v"],
-                                            block_table, row_ids, positions,
-                                            **kw)
-    return out.reshape(*lead, -1) @ params["wo"].reshape(-1, cfg.d_model)
+        out = da_ops.ragged_paged_attention(q, k_pool, v_pool, block_table,
+                                            row_ids, positions, **kw)
+    wo = params["wo"].reshape(-1, cfg.d_model)
+    if partial:
+        return matmul_f32(out.reshape(*lead, -1), wo)
+    return out.reshape(*lead, -1) @ wo

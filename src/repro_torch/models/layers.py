@@ -29,6 +29,10 @@ def rmsnorm_init(d: int, device) -> dict:
     return {"scale": torch.zeros((d,), dtype=torch.float32, device=device)}
 
 
+def rmsnorm_axes() -> dict:
+    return {"scale": (None,)}
+
+
 def rmsnorm(params: dict, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
@@ -59,6 +63,10 @@ def embed_init(generator: torch.Generator, vocab: int, d: int, dtype,
     tbl = torch.randn((vocab, d), generator=generator, dtype=torch.float32,
                       device=device)
     return {"table": tbl.to(dtype)}
+
+
+def embed_axes() -> dict:
+    return {"table": ("vocab", "embed")}
 
 
 def embed_lookup(params: dict, tokens: torch.Tensor, *, scale: bool,
@@ -107,6 +115,19 @@ def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
     else:
         out = torch.mm(x2.float(), table.float().t())
     return out.reshape(*lead, table.shape[0])
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., k) @ w (k, n) with an f32 result, unrounded: a tensor-parallel
+    shard's partial product, summed over the shards before the one rounding
+    to the model dtype.  On the card a bf16 product accumulates and returns
+    in f32 (``out_dtype``); elsewhere the operands are upcast."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.is_cuda and x.dtype != torch.float32:
+        out = torch.mm(x2, w, out_dtype=torch.float32)
+    else:
+        out = torch.mm(x2.float(), w.float())
+    return out.reshape(*x.shape[:-1], w.shape[1])
 
 
 def softcap(logits: torch.Tensor, cap: float | None) -> torch.Tensor:

@@ -13,8 +13,12 @@ differentiates; ``prefill`` and ``decode_step`` run the dense per-slot caches
 (prefill through K2 and K3, decode attention through K4);
 ``paged_mixed_step`` runs one packed tick
 against the paged KV pool, and ``paged_prefill`` / ``paged_decode_step``
-the phase-separated steps over it (attention through K1 in all three).  One block body
-(``_apply_block``) serves them all.  The JAX package scans each segment over
+the phase-separated steps over it (attention through K1 in all three).  One
+block body (``_apply_block``: its attention half, then its MLP half) serves
+them all; the paged steps run it over a slice (``TensorParallel``: one
+shard when unsharded), each half on every shard, the partials reduced
+between them (``_paged_layers``).
+The JAX package scans each segment over
 ``repeat`` stacked parameter copies; the port keeps one flat list of layers
 in the same order (``layer_specs``): layer ``r·len(pattern) + i`` of a
 segment is pattern position ``i`` of copy ``r``.  For gemma2 (``Segment((local,
@@ -35,6 +39,9 @@ step that uses them.
 """
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 import torch.utils.checkpoint
@@ -44,10 +51,10 @@ from repro_torch.tree import named_leaves, tree_map
 from . import attention as attn_mod
 from . import mamba2 as mamba_mod
 from .config import LayerSpec, ModelConfig
-from .layers import (dtype_of, embed_init, embed_lookup, rmsnorm,
-                     rmsnorm_init, softcap, unembed)
-from .mlp import mlp, mlp_init
-from .moe import moe, moe_init
+from .layers import (dtype_of, embed_axes, embed_init, embed_lookup, rmsnorm,
+                     rmsnorm_axes, rmsnorm_init, softcap, unembed)
+from .mlp import mlp, mlp_axes, mlp_init
+from .moe import moe, moe_axes, moe_init
 
 _PORTED_KINDS = {"attn_mlp", "attn_moe", "mamba", "shared_attn"}
 
@@ -143,6 +150,57 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     return params
 
 
+# ============================================================ logical axes
+# The logical axes of every leaf, for launch.sharding: trees of the port's
+# layout (one entry per layer), so the JAX package's leading "layers" axis
+# of a stacked segment leaf is dropped.
+def _block_axes(cfg: ModelConfig, spec: LayerSpec) -> dict:
+    if spec.kind == "mamba":
+        return {"norm": rmsnorm_axes(), "mamba": mamba_mod.mamba_axes(cfg)}
+    if spec.kind == "shared_attn":
+        return {}
+    p = {"norm_attn": rmsnorm_axes(), "attn": attn_mod.attn_axes(cfg),
+         "norm_mlp": rmsnorm_axes()}
+    if cfg.post_norm:
+        p["post_norm_attn"] = rmsnorm_axes()
+        p["post_norm_mlp"] = rmsnorm_axes()
+    if spec.kind == "attn_moe":
+        p["moe"] = moe_axes(cfg)
+    else:
+        p["mlp"] = mlp_axes()
+    return p
+
+
+def _shared_attn_axes(cfg: ModelConfig) -> dict:
+    return {"norm_attn": rmsnorm_axes(), "attn": attn_mod.attn_axes(cfg),
+            "norm_mlp": rmsnorm_axes(), "mlp": mlp_axes()}
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """Logical axes tree mirroring ``init_params``."""
+    specs = layer_specs(cfg)
+    axes = {"embed": embed_axes(), "final_norm": rmsnorm_axes(),
+            "layers": [_block_axes(cfg, spec) for spec in specs]}
+    if not cfg.tie_embeddings:
+        axes["head"] = embed_axes()
+    if any(s.kind == "shared_attn" for s in specs):
+        axes["shared_attn"] = _shared_attn_axes(cfg)
+    return axes
+
+
+def cache_axes(cfg: ModelConfig) -> list[dict]:
+    """Logical axes of the dense caches (``init_decode_caches``)."""
+    return [mamba_mod.mamba_cache_axes() if spec.kind == "mamba"
+            else attn_mod.cache_axes() for spec in layer_specs(cfg)]
+
+
+def paged_pool_axes(cfg: ModelConfig, kv_dtype: str | None = None
+                    ) -> list[dict]:
+    """Logical axes of the paged pool (``init_paged_pools``)."""
+    return [attn_mod.paged_pool_axes(cfg, kv_dtype=kv_dtype)
+            for _ in layer_specs(cfg)]
+
+
 # ===================================================== numpy <-> the port
 _RAW_BITS = {"bfloat16": (np.uint16, torch.bfloat16),
              "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
@@ -217,7 +275,7 @@ def stacked_leaves(tree, cfg: ModelConfig) -> dict:
     top = {k: v for k, v in tree.items() if k != "layers"}
     top["segments"] = segments
     stacked = lambda node: isinstance(node, tuple) and bool(node) and \
-        isinstance(node[0], torch.Tensor)
+        not isinstance(node[0], (dict, list, tuple))
     return dict(named_leaves(top, is_leaf=stacked))
 
 
@@ -335,20 +393,17 @@ def _attend(p, h, positions, *, cfg, spec, mode, cache, max_len):
 
 def _apply_block(p, x, positions, *, cfg: ModelConfig, spec: LayerSpec,
                  mode: str = "score", cache=None, shared=None, embeds0=None,
-                 max_len: int | None = None, pool=None, block_table=None,
-                 row_ids=None):
+                 max_len: int | None = None):
     """One layer.  Returns (x, the layer's new cache or None, the MoE aux
     loss of an attn_moe layer or None).
 
     ``mode`` is "score" (whole sequences x (B, T, d), no cache), "prefill"
     (builds the layer's dense cache for ``max_len`` positions; a mamba layer
-    starts from ``cache``'s state), "decode" (one token per row against
-    ``cache``), or "paged" (against ``pool``, updated in place; attn_mlp
-    and attn_moe layers only): the packed row x (T, d) with ``row_ids``, or
-    x (B, T, d) with ``row_ids`` None, row b on ``block_table`` row b.
-    ``shared`` holds zamba2's shared-attention parameters, ``embeds0`` the
-    stack's input embeddings that its block reads beside the hidden
-    state."""
+    starts from ``cache``'s state) or "decode" (one token per row against
+    ``cache``).  The paged steps run its two halves over a slice
+    (``_paged_layers``).  ``shared`` holds zamba2's shared-attention
+    parameters, ``embeds0`` the stack's input embeddings that its block
+    reads beside the hidden state."""
     if spec.kind == "mamba":
         y, new_cache = mamba_mod.mamba_block(p["mamba"], rmsnorm(p["norm"], x),
                                              cfg=cfg, cache=cache)
@@ -364,27 +419,50 @@ def _apply_block(p, x, positions, *, cfg: ModelConfig, spec: LayerSpec,
         return (x + mlp(shared["mlp"], rmsnorm(shared["norm_mlp"], v)),
                 new_cache, None)
 
+    y, new_cache = _attn_half(p, x, positions, cfg=cfg, spec=spec, mode=mode,
+                              cache=cache, max_len=max_len)
+    x = _residual(p, "post_norm_attn", x, y, cfg)
+    y, aux = _mlp_half(p, x, cfg=cfg, spec=spec)
+    return _residual(p, "post_norm_mlp", x, y, cfg), new_cache, aux
+
+
+def _attn_half(p, x, positions, *, cfg: ModelConfig, spec: LayerSpec,
+               mode: str, cache=None, max_len=None, pool=None,
+               block_table=None, row_ids=None, kv_heads=None,
+               partial: bool = False):
+    """The attention half of an attn_mlp / attn_moe layer: (y, the layer's
+    new cache or None).  ``mode`` "paged" runs against ``pool``, updated
+    in place: the packed row x (T, d) with ``row_ids``, or x (B, T, d)
+    with ``row_ids`` None, row b on ``block_table`` row b; ``kv_heads``
+    and ``partial`` are a tensor-parallel shard's
+    (``attention.paged_attention``)."""
     h = rmsnorm(p["norm_attn"], x)
     if mode == "paged":
-        y = attn_mod.paged_attention(p["attn"], h, positions, cfg=cfg,
-                                     spec=spec, pool=pool,
-                                     block_table=block_table, row_ids=row_ids)
-        new_cache = None
-    else:
-        y, new_cache = _attend(p["attn"], h, positions, cfg=cfg, spec=spec,
-                               mode=mode, cache=cache, max_len=max_len)
-    if cfg.post_norm:
-        y = rmsnorm(p["post_norm_attn"], y)
-    x = x + y
+        return attn_mod.paged_attention(
+            p["attn"], h, positions, cfg=cfg, spec=spec, pool=pool,
+            block_table=block_table, row_ids=row_ids, kv_heads=kv_heads,
+            partial=partial), None
+    return _attend(p["attn"], h, positions, cfg=cfg, spec=spec, mode=mode,
+                   cache=cache, max_len=max_len)
+
+
+def _mlp_half(p, x, *, cfg: ModelConfig, spec: LayerSpec,
+              partial: bool = False):
+    """The MLP (or MoE) half: (y, the MoE aux loss or None).  ``partial``:
+    a tensor-parallel shard's f32 shares (``mlp``, ``moe``)."""
     h = rmsnorm(p["norm_mlp"], x)
-    aux = None
+    kw = {"partial": True} if partial else {}
     if spec.kind == "attn_moe":
-        y, aux = moe(p["moe"], h, cfg=cfg)
-    else:
-        y = mlp(p["mlp"], h)
+        return moe(p["moe"], h, cfg=cfg, **kw)
+    return mlp(p["mlp"], h, **kw), None
+
+
+def _residual(p, post_norm: str, x, y, cfg: ModelConfig):
+    """x + y, y through the layer's post-norm where the config has one
+    (gemma2: normalised over the full d, so after any reduction)."""
     if cfg.post_norm:
-        y = rmsnorm(p["post_norm_mlp"], y)
-    return x + y, new_cache, aux
+        y = rmsnorm(p[post_norm], y)
+    return x + y
 
 
 def _copies(cfg: ModelConfig):
@@ -481,42 +559,173 @@ def decode_step(params, caches, inputs, positions, cfg: ModelConfig):
     return _head(params, x, cfg)[:, 0, :], caches
 
 
-def _paged_layers(params, pools, x, positions, block_tables, row_ids, cfg):
-    for spec, p, pool in zip(layer_specs(cfg), params["layers"], pools):
-        x, _, _ = _apply_block(p, x, positions, cfg=cfg, spec=spec,
-                               mode="paged", pool=pool,
-                               block_table=block_tables, row_ids=row_ids)
-    return x
+# ============================================================ paged slices
+@dataclass(frozen=True)
+class TensorParallel:
+    """How the paged steps run over a serving slice: one local param tree
+    and one local pool per shard, all driven by this one process.  An
+    unsharded call is a slice of one shard that splits nothing, so it
+    reduces nothing and launches what one block body in a loop does.
+
+    ``devices``: each shard's torch device, in mesh order (several shards
+    may share one).  ``heads``: the q heads (``wq``, ``wo``) are split, so
+    each shard's ``wo`` output is a partial sum; ``ffn``: the ffn columns
+    are split, so is each ``w_down`` output; ``vocab``: each shard's (lo,
+    hi) rows of the embedding table (and head), or None when the table is
+    replicated.  ``kv_heads``: for each shard, the (k0, k1) kv heads of a
+    replicated pool its q heads read, or None (pool split like the q
+    heads, or nothing split)."""
+    devices: tuple
+    heads: bool = False
+    ffn: bool = False
+    vocab: tuple | None = None
+    kv_heads: tuple = (None,)
+
+    @functools.cached_property
+    def first(self) -> dict:
+        """Each distinct device → the first shard on it (mesh order)."""
+        out: dict = {}
+        for s, d in enumerate(self.devices):
+            out.setdefault(d, s)
+        return out
+
+
+def _one_shard(params, pools, tp: TensorParallel | None):
+    """(params, pools, tp) as a slice: an unsharded call's trees become a
+    slice of one shard on their device."""
+    if tp is not None:
+        return params, pools, tp
+    dev = params["final_norm"]["scale"].device
+    return [params], [pools], TensorParallel(devices=(dev,))
+
+
+def _combine(ys: list, tp: TensorParallel, split: bool, dtype) -> dict:
+    """A half's output on every device.  Split: each shard's f32 parts
+    (a tensor, or ``moe``'s list) summed in shard order on every device,
+    rounded once to ``dtype``, the parts then added in order, so every
+    copy of the residual stream holds the same bits.  Not split: every
+    shard holds the whole output already (summing would scale it)."""
+    if not split:
+        return {d: ys[s] for d, s in tp.first.items()}
+    parts = [y if isinstance(y, list) else [y] for y in ys]
+    out = {}
+    for d in tp.first:
+        y = None
+        for j in range(len(parts[0])):
+            total = parts[0][j].to(d, non_blocking=True)
+            for shard in parts[1:]:
+                total = total + shard[j].to(d, non_blocking=True)
+            y = total.to(dtype) if y is None else y + total.to(dtype)
+        out[d] = y
+    return out
+
+
+def _embed(params: list, inputs: dict, cfg: ModelConfig,
+           tp: TensorParallel) -> dict:
+    """The activations on every device.  A split table: each shard looks
+    up the tokens in its rows and zeros elsewhere, and the lookups are
+    summed in shard order (exact: one term is nonzero)."""
+    if tp.vocab is None or cfg.input_mode == "embeds":
+        return {d: _embed_inputs(params[s], inputs[d], cfg)
+                for d, s in tp.first.items()}
+    looked = []
+    for s, d in enumerate(tp.devices):
+        lo, hi = tp.vocab[s]
+        local = inputs[d] - lo
+        hit = (local >= 0) & (local < hi - lo)
+        x = embed_lookup(params[s]["embed"], torch.where(hit, local, 0),
+                         scale=cfg.embed_scale, d=cfg.d_model)
+        looked.append(torch.where(hit[..., None], x, 0))
+    out = {}
+    for d in tp.first:
+        total = looked[0].to(d, non_blocking=True)
+        for x in looked[1:]:
+            total = total + x.to(d, non_blocking=True)
+        out[d] = total
+    return out
+
+
+def _paged_head(params: list, rows: dict, cfg: ModelConfig,
+                tp: TensorParallel) -> torch.Tensor:
+    """Final norm + unembed + softcap of ``rows`` (the rows to sample,
+    on every device) on the first shard's device; a split table's logits
+    concatenated in shard order."""
+    d0 = tp.devices[0]
+    if tp.vocab is None:
+        return _head(params[0], rows[d0], cfg)
+    logits = []
+    for s, d in enumerate(tp.devices):
+        h = rmsnorm(params[s]["final_norm"], rows[d])
+        table = params[s]["embed" if cfg.tie_embeddings else "head"]
+        logits.append(unembed(table, h).to(d0, non_blocking=True))
+    return softcap(torch.cat(logits, dim=-1), cfg.final_logit_softcap)
+
+
+def _paged_layers(params: list, pools: list, inputs, positions, block_tables,
+                  row_ids, cfg: ModelConfig, tp: TensorParallel) -> dict:
+    """The lookup and every layer over the slice, each half on every shard,
+    its partials reduced before the next half (only where the leaf is
+    split); post-norms after the reduction.  The operands are copied to
+    each shard's device (no copy where they lie already); returns the
+    hidden states on every device."""
+    on = lambda t: {d: None if t is None else t.to(d, non_blocking=True)
+                    for d in tp.first}
+    xs = _embed(params, on(inputs), cfg, tp)
+    positions, block_tables, row_ids = (on(positions), on(block_tables),
+                                        on(row_ids))
+    dt = dtype_of(cfg)
+    for li, spec in enumerate(layer_specs(cfg)):
+        ps = [shard["layers"][li] for shard in params]
+        ys = [_attn_half(ps[s], xs[d], positions[d], cfg=cfg, spec=spec,
+                         mode="paged", pool=pools[s][li],
+                         block_table=block_tables[d], row_ids=row_ids[d],
+                         kv_heads=tp.kv_heads[s], partial=tp.heads)[0]
+              for s, d in enumerate(tp.devices)]
+        y = _combine(ys, tp, tp.heads, dt)
+        xs = {d: _residual(ps[s], "post_norm_attn", xs[d], y[d], cfg)
+              for d, s in tp.first.items()}
+        ys = [_mlp_half(ps[s], xs[d], cfg=cfg, spec=spec, partial=tp.ffn)[0]
+              for s, d in enumerate(tp.devices)]
+        y = _combine(ys, tp, tp.ffn, dt)
+        xs = {d: _residual(ps[s], "post_norm_mlp", xs[d], y[d], cfg)
+              for d, s in tp.first.items()}
+    return xs
 
 
 def paged_prefill(params, pools, block_tables, inputs, positions,
-                  cfg: ModelConfig):
+                  cfg: ModelConfig, *, tp: TensorParallel | None = None):
     """Prefill a (possibly block-aligned-truncated) prompt suffix against
     the paged pool: inputs (B, T) int32 suffix tokens, positions (B, T)
     int32 their absolute positions (row b starts at its reused prefix
     length), row b on ``block_tables`` row b.  The suffix attends to the
     reused prefix KV through the table without recomputing it (K1, its
     B·T tokens packed as lanes of rows 0..B-1).  Returns (f32 last-token
-    logits (B, V), pools), the pools updated in place."""
-    x = _paged_layers(params, pools, _embed_inputs(params, inputs, cfg),
-                      positions, block_tables, None, cfg)
-    return _head(params, x[:, -1:, :], cfg)[:, 0, :], pools
+    logits (B, V), pools), the pools updated in place.  ``tp``: as in
+    ``paged_mixed_step``."""
+    shards, local, tp = _one_shard(params, pools, tp)
+    xs = _paged_layers(shards, local, inputs, positions, block_tables, None,
+                       cfg, tp)
+    rows = {d: x[:, -1:, :] for d, x in xs.items()}
+    return _paged_head(shards, rows, cfg, tp)[:, 0, :], pools
 
 
 def paged_decode_step(params, pools, block_tables, inputs, positions,
-                      cfg: ModelConfig):
+                      cfg: ModelConfig, *, tp: TensorParallel | None = None):
     """One decode step over the paged pool: inputs (B,) or (B, 1) int32
     tokens, positions (B, 1) int32 (K1 with one token per row).  Returns
-    (f32 logits (B, V), pools), the pools updated in place."""
+    (f32 logits (B, V), pools), the pools updated in place.  ``tp``: as in
+    ``paged_mixed_step``."""
     if inputs.dim() == 1:
         inputs = inputs[:, None]
-    x = _paged_layers(params, pools, _embed_inputs(params, inputs, cfg),
-                      positions, block_tables, None, cfg)
-    return _head(params, x, cfg)[:, 0, :], pools
+    shards, local, tp = _one_shard(params, pools, tp)
+    xs = _paged_layers(shards, local, inputs, positions, block_tables, None,
+                       cfg, tp)
+    return _paged_head(shards, xs, cfg, tp)[:, 0, :], pools
 
 
 def paged_mixed_step(params, pools, block_tables, tokens, positions, row_ids,
-                     sample_idx, cfg: ModelConfig):
+                     sample_idx, cfg: ModelConfig, *,
+                     tp: TensorParallel | None = None):
     """ONE step over a packed ragged token batch: prefill chunks, decode
     rows and speculative verify rows share the dispatch.
 
@@ -525,13 +734,22 @@ def paged_mixed_step(params, pools, block_tables, tokens, positions, row_ids,
     pad); block_tables (R, nb) int32; sample_idx (R,) or (R, J): the packed
     lanes whose logits each request row samples from.  Returns f32 logits
     (R, V) or (R, J, V); every layer's pool in ``pools`` is updated in
-    place (all packed K/V is written before the layer's attention reads)."""
-    x = _paged_layers(params, pools, _embed_inputs(params, tokens, cfg),
-                      positions, block_tables, row_ids, cfg)   # (T, d)
+    place (all packed K/V is written before the layer's attention reads).
+
+    ``tp``: a tensor-parallel slice; ``params`` and ``pools`` are then the
+    shards' local trees (lists, in mesh order) and the logits land on the
+    first shard's device.  Without it, one param tree and its pools run as
+    a slice of one shard."""
+    shards, local, tp = _one_shard(params, pools, tp)
+    xs = _paged_layers(shards, local, tokens, positions, block_tables,
+                       row_ids, cfg, tp)                 # (T, d) a device
+    idx = {d: sample_idx.to(d, non_blocking=True).long() for d in xs}
     if sample_idx.dim() == 1:
-        return _head(params, x[sample_idx.long()], cfg)
+        return _paged_head(shards, {d: xs[d][i] for d, i in idx.items()},
+                           cfg, tp)
     # (R, J): one head product per fed position j, each of R rows, so a
     # row's logits at position 0 do not depend on J (the product's shape
     # stays (R, d) x (d, V) whatever the number of verified drafts)
-    return torch.stack([_head(params, x[sample_idx[:, j].long()], cfg)
+    return torch.stack([_paged_head(shards, {d: xs[d][i[:, j]] for d, i in
+                                             idx.items()}, cfg, tp)
                         for j in range(sample_idx.shape[1])], dim=1)

@@ -24,7 +24,8 @@ import torch.nn.functional as F
 from repro_torch.kernels.ssd import ops as ssd_ops
 
 from .config import ModelConfig
-from .layers import dense_init, dtype_of, rmsnorm, rmsnorm_init
+from .layers import (dense_init, dtype_of, rmsnorm, rmsnorm_axes,
+                     rmsnorm_init)
 
 
 # ------------------------------------------------------------------ params
@@ -43,6 +44,24 @@ def mamba_init(generator: torch.Generator, cfg: ModelConfig, device) -> dict:
         "out_norm": rmsnorm_init(di, device),
         "out_proj": dense_init(generator, (di, d), dt, device),
     }
+
+
+def mamba_axes(cfg: ModelConfig) -> dict:
+    return {
+        "in_proj": ("embed", "ffn"),
+        "conv_w": (None, "ffn"),
+        "conv_b": ("ffn",),
+        "A_log": (None,),
+        "D": (None,),
+        "dt_bias": (None,),
+        "out_norm": rmsnorm_axes(),
+        "out_proj": ("ffn", "embed"),
+    }
+
+
+def mamba_cache_axes() -> dict:
+    return {"conv": ("cache_batch", None, "ffn"),
+            "ssm": ("cache_batch", "heads", None, None)}
 
 
 def mamba_cache_init(cfg: ModelConfig, batch: int, *, device) -> dict:

@@ -6,7 +6,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import dense_init, dtype_of
+from .layers import dense_init, dtype_of, matmul_f32
 
 
 def mlp_init(generator: torch.Generator, cfg: ModelConfig, device, *,
@@ -25,7 +25,18 @@ def mlp_init(generator: torch.Generator, cfg: ModelConfig, device, *,
     }
 
 
-def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp_axes() -> dict:
+    return {"w_gate": ("embed", "ffn"),
+            "w_up": ("embed", "ffn"),
+            "w_down": ("ffn", "embed")}
+
+
+def mlp(params: dict, x: torch.Tensor, *,
+        partial: bool = False) -> torch.Tensor:
+    """``partial``: the params are one tensor-parallel shard's ffn columns;
+    return its unrounded f32 share of the output (``layers.matmul_f32``)."""
     g = x @ params["w_gate"]
     u = x @ params["w_up"]
+    if partial:
+        return matmul_f32(F.silu(g) * u, params["w_down"])
     return (F.silu(g) * u) @ params["w_down"]

@@ -38,7 +38,7 @@ import torch.nn.functional as F
 
 from .config import ModelConfig
 from .layers import dense_init, dtype_of
-from .mlp import mlp, mlp_init
+from .mlp import mlp, mlp_axes, mlp_init
 
 # the reference's cfg_group_size: its configs set no moe_group_size
 GROUP_SIZE = 512
@@ -60,6 +60,16 @@ def moe_init(generator: torch.Generator, cfg: ModelConfig, device) -> dict:
     if cfg.n_shared_experts:
         p["shared"] = mlp_init(generator, cfg, device,
                                d_ff=cfg.n_shared_experts * ff)
+    return p
+
+
+def moe_axes(cfg: ModelConfig) -> dict:
+    p = {"router": ("embed", None),
+         "w_gate": ("expert", "embed", "ffn"),
+         "w_up": ("expert", "embed", "ffn"),
+         "w_down": ("expert", "ffn", "embed")}
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_axes()
     return p
 
 
@@ -132,8 +142,10 @@ def _expert_ffn(params, xe: torch.Tensor) -> torch.Tensor:
     return torch.bmm(F.silu(g) * u, params["w_down"])
 
 
-def _routed(params, x_flat: torch.Tensor, cfg: ModelConfig):
-    """The routed experts' output for x_flat (N, d), and the aux loss."""
+def _routed(params, x_flat: torch.Tensor, cfg: ModelConfig, *,
+            partial: bool = False):
+    """The routed experts' output for x_flat (N, d), and the aux loss;
+    ``partial``: the combine's f32 sum, before its rounding."""
     N, d = x_flat.shape
     E, k = cfg.n_experts, cfg.top_k
     plan = dispatch_plan(params, x_flat, cfg)
@@ -145,19 +157,32 @@ def _routed(params, x_flat: torch.Tensor, cfg: ModelConfig):
     # activation dtype, accumulating in f32 and rounding once
     w = plan.weights.to(x_flat.dtype).float()
     got = ye[torch.where(plan.keep, plan.row, 0)].float() * w[..., None]
-    y = torch.where(plan.keep[..., None], got, 0.0).sum(dim=1).to(x_flat.dtype)
+    y = torch.where(plan.keep[..., None], got, 0.0).sum(dim=1)
+    if not partial:
+        y = y.to(x_flat.dtype)
     if n < N:                                      # the ragged tail (F10)
         y = torch.cat([y, y.new_zeros((N - n, d))])
     return y, plan.aux
 
 
 # ===================================================================== apply
-def moe(params: dict, x: torch.Tensor, *, cfg: ModelConfig):
+def moe(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
+        partial: bool = False):
     """x (B, T, d), or the paged step's packed row (T, d) with its pad lanes
     (the reference routes them too) → (y of x's shape, f32 aux loss).  The
-    shared experts' MLP is added after the routed part."""
-    y, aux = _routed(params, x.reshape(-1, x.shape[-1]), cfg)
+    shared experts' MLP is added after the routed part.
+
+    ``partial``: the params are one tensor-parallel shard's ffn columns;
+    y is then the list of its unrounded f32 shares, routed and shared,
+    each summed over the shards and rounded before the two are added."""
+    y, aux = _routed(params, x.reshape(-1, x.shape[-1]), cfg,
+                     partial=partial)
     y = y.view(x.shape)
+    if partial:
+        parts = [y]
+        if cfg.n_shared_experts:
+            parts.append(mlp(params["shared"], x, partial=True))
+        return parts, aux
     if cfg.n_shared_experts:
         y = y + mlp(params["shared"], x)
     return y, aux

@@ -6,8 +6,10 @@ deployment's params must already live there, and its replicas share that
 one param tree.  Each replica engine keeps its own captured ticks: a CUDA
 graph holds its own engine's pool and staging pointers, so a node holds one
 captured graph per replica and tick kind, where the JAX package shares one
-compiled program across a deployment's replicas.  Mesh slices
-(``devices_per_replica``) come with the mesh slice of the port.  The
+compiled program across a deployment's replicas.  With
+``devices_per_replica`` each replica gets its own disjoint mesh slice of
+the node's logical devices (``launch.mesh.local_devices``), its params and
+pool placed over it and its tick tensor-parallel.  The
 upcall threads' paths (admission, submit, rejection, completion) touch no
 device, so requests may arrive while the tick thread captures a tick.
 
@@ -82,10 +84,11 @@ from repro_torch.core.objects import CascadeObject
 from repro_torch.core.pools import (DispatchPolicy, Persistence, PoolSpec,
                                     affinity_shard_hash)
 from repro_torch.core.store import CascadeStore, SpillPool, Worker
+from repro_torch.launch.mesh import local_devices, mesh_slices
 from repro_torch.models import supports_paged
 from repro_torch.models.config import ModelConfig
 
-from .engine import ServeEngine, _later
+from .engine import ServeEngine
 from .faults import InjectedFault, ReplicaCrashed
 from .scheduler import Request, Scheduler, virtual_deadline
 
@@ -160,12 +163,19 @@ class ModelDeployment:
             self.spill_pool = SpillPool(
                 capacity_blocks=spill_capacity_blocks, store=node.store,
                 prefix=self.spill_prefix)
+        # Mesh slices (devices_per_replica=d): the node carves d logical
+        # devices per replica out of its free list — DISJOINT slices, so
+        # sibling replicas never contend for one — and each engine places
+        # its params and paged KV pool over its own slice (launch.sharding
+        # rules); stop() gives the devices back.
+        self.meshes: list[Any] = []
         if devices_per_replica is not None:
             if not self.paged:
                 raise ValueError(
                     f"deployment {name!r}: mesh slices shard the paged KV "
                     f"pool; the dense path is single-device only")
-            node.take_device_slices(n_replicas, devices_per_replica)
+            self.meshes = node.take_device_slices(n_replicas,
+                                                  devices_per_replica)
         self.engines: list[ServeEngine] = []
         for r in range(n_replicas):
             kw: dict[str, Any] = dict(paged=self.paged)
@@ -177,6 +187,8 @@ class ModelDeployment:
                           kv_dtype=kv_dtype,
                           token_budget=token_budget, spec_k=spec_k,
                           spill_pool=self.spill_pool, preempt=self.preempt)
+                if self.meshes:
+                    kw["mesh"] = self.meshes[r]
             # every replica shares the one param tree; each keeps its own
             # captured ticks (a graph holds its engine's pool and staging
             # pointers, so graphs cannot be shared as jitted programs are)
@@ -737,6 +749,9 @@ class ModelDeployment:
             self.node.store.remove_pool(self.spill_prefix)
         if self.paged and self.node._kv_store is not None:
             self.node._kv_store.remove_prefix(f"/kv/{self.name}")
+        if self.meshes:
+            self.node.release_device_slices(self.meshes)
+            self.meshes = []
         self.node.deployments.pop(self.name, None)
 
 
@@ -772,6 +787,12 @@ class ServeNode:
         self._submitted = 0
         self._completed = 0
         self._n_deployed = 0
+        # Logical devices for mesh-sliced deployments (those of the node's
+        # device type): slices are carved off this free list (disjoint per
+        # replica) and returned on deployment stop().  Single-device
+        # deployments never touch it.
+        self._free_devices: list = [d for d in local_devices()
+                                    if d.device.type == self.device.type]
 
     def kv_store(self) -> DeviceStore:
         if self._kv_store is None:
@@ -781,8 +802,22 @@ class ServeNode:
 
     # ------------------------------------------------------- device slices
     def take_device_slices(self, n_slices: int, devices_per_slice: int):
-        """Disjoint multi-device slices per replica: not ported yet."""
-        raise _later("mesh slices", "mesh")
+        """Carve ``n_slices`` disjoint (1, devices_per_slice) meshes out of
+        the node's free list of logical devices (``launch.mesh.
+        mesh_slices``).  Raises ValueError when the list cannot cover the
+        request — co-resident deployments hold their slices until
+        stop()."""
+        with self._lock:
+            meshes = mesh_slices(n_slices, devices_per_slice,
+                                 devices=self._free_devices)
+            taken = n_slices * devices_per_slice
+            self._free_devices = self._free_devices[taken:]
+        return meshes
+
+    def release_device_slices(self, meshes) -> None:
+        with self._lock:
+            for m in meshes:
+                self._free_devices.extend(m.devices.flat)
 
     # --------------------------------------------------------- deployments
     def deploy(self, name: str, cfg: ModelConfig, params, *,
@@ -818,8 +853,9 @@ class ServeNode:
         dequantize in-register, roughly halving decode HBM traffic;
         ``stats()["kv_bytes_per_token"]`` reports the measured footprint.
         ``devices_per_replica`` (paged only; default single-device) gives
-        each replica its own mesh slice; it raises until the mesh slice of
-        the port.
+        each replica its own DISJOINT mesh slice of that many logical
+        devices: params and the KV block pool install placed over it and
+        its tick runs tensor-parallel (``ServeEngine(mesh=...)``).
         """
         if name in self.deployments:
             raise ValueError(f"deployment {name!r} already exists")

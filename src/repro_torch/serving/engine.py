@@ -78,6 +78,16 @@ fire at tick and submit entry) and a sibling ``adopt``s its spilled
 sessions.  Spills and adoptions run at tick entry, outside any capture, on
 the current stream: after the last replay, before the next.
 
+**Mesh slices** (``mesh``, paged only; ``launch.mesh.mesh_slices``; one
+device, ``launch.mesh.device_mesh``, when none is given): the params
+install placed by ``launch.sharding.param_shardings`` (one local tree a
+shard, ``_local_params``) and the pool by ``kv_pool_shardings``, and the
+tick runs over the slice in this one process
+(``models.paged_mixed_step(..., tp=)``), the counterpart of the JAX
+engine's single-controller jit over its slice.  A slice whose shards share
+one card is captured like any tick; one over several cards runs eagerly.
+Dense engines take no mesh, as in the reference.
+
 Entry points run on the card: ``device`` defaults to ``"cuda"`` and the
 engine raises when there is none; tests pass ``device="cpu"``.
 """
@@ -94,6 +104,9 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels.decode_attention.quant import (is_quantized,
                                                         resolve_kv_dtype)
+from repro_torch.core.sharded import local_tree, place_tree
+from repro_torch.launch.mesh import Mesh, device_mesh
+from repro_torch.launch.sharding import param_shardings, tensor_parallel
 from repro_torch.models import (decode_step, paged_mixed_step, prefill,
                                 sample_with_scores, speculative_verify,
                                 supports_paged, supports_speculative)
@@ -146,11 +159,6 @@ class EngineStats:
         """Fraction of drafted tokens the target model confirmed."""
         return (self.spec_accepted / self.spec_drafted
                 if self.spec_drafted else float("nan"))
-
-
-def _later(what: str, slice_: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: it comes with the "
-                               f"{slice_} slice of the port (see ROADMAP.md)")
 
 
 def _flatten(tensors, out: torch.Tensor | None = None) -> torch.Tensor:
@@ -282,28 +290,55 @@ class ServeEngine:
         self.paged = supports_paged(cfg) if paged is None else paged
         if self.paged and not supports_paged(cfg):
             raise ValueError(f"config {cfg.name} cannot use the paged cache")
-        if mesh is not None:
-            if not self.paged:
-                raise ValueError(
-                    "mesh slices shard the paged block pool; the dense cache "
-                    "path only runs single-device (pass paged=True or a "
-                    "config with supports_paged)")
-            raise _later("mesh slices", "mesh")
+        if mesh is not None and not self.paged:
+            raise ValueError(
+                "mesh slices shard the paged block pool; the dense cache "
+                "path only runs single-device (pass paged=True or a "
+                "config with supports_paged)")
         self.device = torch.device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a launch.mesh.Mesh (a slice "
+                                f"from mesh_slices), got {type(mesh)}")
+            mesh_dev = mesh.devices.flat[0].device
+            if mesh_dev.type != self.device.type:
+                raise ValueError(f"the mesh slice lies on {mesh_dev}, the "
+                                 f"engine runs on {self.device}")
+            self.device = mesh_dev
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ServeEngine runs on the card (device='cuda') "
                                "but CUDA is not available; pass device='cpu' "
                                "to run the plain-PyTorch path")
+        # a slice over several distinct cards runs eagerly: its reductions
+        # cross cards, and a capture of them waits for NCCL (ROADMAP P15)
+        spans = mesh is not None and len(mesh.torch_devices()) > 1
         if cuda_graphs is None:
-            cuda_graphs = self.device.type == "cuda"
+            cuda_graphs = self.device.type == "cuda" and not spans
         elif cuda_graphs and self.device.type != "cuda":
             raise ValueError(f"cuda_graphs=True captures CUDA graphs, but the "
                              f"engine runs on {self.device}")
+        elif cuda_graphs and spans:
+            raise ValueError("cuda_graphs=True: a slice over several cards "
+                             "runs eagerly; capturing it waits for the NCCL "
+                             "collectives of a later slice of the port "
+                             "(ROADMAP P15)")
         self.cuda_graphs = bool(cuda_graphs)
         table = params["embed"]["table"]
         if table.device.type != self.device.type:
             raise ValueError(f"params live on {table.device}, the engine on "
                              f"{self.device}")
+        # the paged tick runs over a slice (one device when none is given):
+        # the params placed by the logical-axis rules, one local tree a
+        # shard; a one-device slice's one tree holds the given tensors
+        if self.paged:
+            slice_ = mesh if mesh is not None else device_mesh(self.device)
+            self._tp = tensor_parallel(cfg, slice_)
+            placed = place_tree(params, param_shardings(cfg, slice_))
+            self._local_params = [local_tree(placed, i)
+                                  for i in range(slice_.size)]
+            if slice_.size > 1:
+                params = placed
         self.cfg = cfg
         self.params = params
         self.spec_k = int(spec_k)
@@ -322,7 +357,7 @@ class ServeEngine:
                 cfg, n_slots, max_len, block_size=block_size,
                 num_blocks=num_blocks, prefix_cache=prefix_cache,
                 kv_dtype=resolve_kv_dtype(kv_dtype), devstore=devstore,
-                kv_key=kv_key, device=self.device)
+                kv_key=kv_key, device=self.device, mesh=mesh)
             self.token_budget = (token_budget if token_budget is not None
                                  else max(32, 2 * n_slots))
             if self.token_budget < n_slots:
@@ -772,9 +807,10 @@ class ServeEngine:
         place) and the acceptance rule, writing tokens, n_accept and scores
         into ``_out``."""
         ins = self._stage.dev
-        logits = paged_mixed_step(self.params, self.cm.pools, ins["bt"],
-                                  ins["toks"], ins["pos"], ins["rows"],
-                                  ins["sample_idx"], self.cfg)
+        logits = paged_mixed_step(self._local_params, self.cm.shard_pools,
+                                  ins["bt"], ins["toks"], ins["pos"],
+                                  ins["rows"], ins["sample_idx"], self.cfg,
+                                  tp=self._tp)
         _flatten(speculative_verify(logits, ins["draft_toks"],
                                     ins["draft_len"], self._gen,
                                     self.temperature), out=self._out)

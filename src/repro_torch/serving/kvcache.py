@@ -26,6 +26,17 @@ chunk-granularity trie commit for same-tick sharing, commit-time dedup, LRU
 eviction of unreferenced cached blocks, and block 0 reserved as the null
 block that masked lanes scribble on.
 
+A replica holds its pool over its slice (``mesh``; a one-device slice on
+``device`` when none is given), placed by
+``launch.sharding.kv_pool_shardings``; ``shard_pools`` is each shard's
+local tree, which the engine's tick writes.  Over several shards every
+leaf of ``pools`` is a ``ShardedTensor`` (kv heads split over 'model' when
+divisible, else one copy a shard) and the store key registers the
+placement tree, so each publish is a donate hit; a one-device slice's
+``pools`` is its one shard's tree.  A spill gathers the GLOBAL blocks
+(over kv heads) and an adoption scatters them into whatever slice this
+replica holds.
+
 Spill and restore (``spill_device`` / ``adopt``, with ``SpilledKV``) move a
 live session's blocks off the device and back.  The gather and the scatter
 are plain indexing on the block axis, as in the JAX package, over a bit
@@ -45,8 +56,12 @@ import torch
 from repro_torch.core.devstore import DeviceStore
 from repro_torch.core.pools import PoolSpec
 from repro_torch.core.trie import PathTrie
+from repro_torch.core.sharded import ShardedTensor, full, local_tree
+from repro_torch.launch.mesh import device_mesh
+from repro_torch.launch.sharding import kv_pool_shardings
 from repro_torch.models import init_decode_caches, init_paged_pools
 from repro_torch.models.config import ModelConfig
+from repro_torch.tree import tree_leaves
 
 
 _BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
@@ -415,7 +430,8 @@ class PagedCacheManager:
                  block_size: int = 16, num_blocks: int | None = None,
                  prefix_cache: bool = True, kv_dtype: str | None = None,
                  devstore: DeviceStore | None = None,
-                 kv_key: str | None = None, device="cuda") -> None:
+                 kv_key: str | None = None, device="cuda",
+                 mesh=None) -> None:
         self.cfg, self.n_slots, self.max_len = cfg, n_slots, max_len
         self.block_size = block_size
         self.max_blocks = max(1, math.ceil(max_len / block_size))
@@ -425,17 +441,34 @@ class PagedCacheManager:
             num_blocks = 1 + (n_slots + 2) * self.max_blocks
         self.num_blocks = num_blocks
         self.kv_dtype = cfg.kv_dtype if kv_dtype is None else kv_dtype
-        self.device = torch.device(device)
+        self.mesh = mesh if mesh is not None else device_mesh(device)
+        self.device = self.mesh.devices.flat[0].device
         self.alloc = PrefixBlockAllocator(num_blocks, block_size,
                                           enable_cache=prefix_cache)
-        self.pools = init_paged_pools(cfg, num_blocks, block_size,
-                                      kv_dtype=self.kv_dtype, device=device)
+        # each shard's local leaves made on its own device; the scales
+        # start at 1, as init_paged_pool's do.  A one-device slice holds
+        # its one shard's tensors, as ``place`` gives them
+        self.pool_shardings = kv_pool_shardings(cfg, self.mesh,
+                                                kv_dtype=self.kv_dtype)
+        shapes = init_paged_pools(cfg, num_blocks, block_size,
+                                  kv_dtype=self.kv_dtype, device="meta")
+        placed = [{k: full(pl[k], tuple(t.shape), int(k.endswith("_scale")),
+                           t.dtype) for k, t in layer.items()}
+                  for layer, pl in zip(shapes, self.pool_shardings)]
+        self._leaf_shapes = [{k: tuple(t.shape) for k, t in layer.items()}
+                             for layer in shapes]
+        self.shard_pools = [local_tree(placed, i)
+                            for i in range(self.mesh.size)]
+        self.pools = placed if self.mesh.size > 1 else self.shard_pools[0]
         self.slots = [PagedSeq() for _ in range(n_slots)]
         if devstore is None:
             devstore = DeviceStore(self.device, keep_versions=1)
             devstore.create_pool(PoolSpec(path="/kv"))
         self.devstore = devstore
         self.kv_key = kv_key or "/kv/pool"
+        self.devstore.register_sharding(
+            self.kv_key, self.pool_shardings if self.mesh.size > 1
+            else self.device)
         self.publish()
 
     # ----------------------------------------------------- devstore bridge
@@ -446,9 +479,11 @@ class PagedCacheManager:
         self.devstore.put(self.kv_key, self.pools, donate=True)
 
     def pool_bytes(self) -> int:
-        """Device bytes of the whole pool (every layer, every leaf)."""
-        return sum(t.numel() * t.element_size()
-                   for pool in self.pools for t in pool.values())
+        """Device bytes of the whole pool (every layer, every leaf, every
+        shard)."""
+        return sum(t.nbytes if isinstance(t, ShardedTensor)
+                   else t.numel() * t.element_size()
+                   for t in tree_leaves(self.pools))
 
     def kv_bytes_per_token(self) -> float:
         """Device bytes the pool stores per token slot, summed over every
@@ -593,7 +628,17 @@ class PagedCacheManager:
         site, ``_to_host``."""
         idx = to_device(torch.tensor(self.slots[slot].table,
                                      dtype=torch.int64), self.device)
-        return _gather_blocks(self.pools, idx)
+        # each shard's local blocks, assembled into the global blocks on
+        # the first shard's device (device-to-device copies)
+        local = [_gather_blocks(pools, idx.to(pools[0]["k"].device,
+                                              non_blocking=True))
+                 for pools in self.shard_pools]
+        n = len(self.slots[slot].table)
+        return [{k: ShardedTensor(pl, (n,) + self._leaf_shapes[li][k][1:],
+                                  [shard[li][k] for shard in local]
+                                  ).gather(self.device)
+                 for k, pl in layer.items()}
+                for li, layer in enumerate(self.pool_shardings)]
 
     def adopt(self, slot: int, prompt: np.ndarray, spilled: SpilledKV,
               max_new_tokens: int) -> PagedSeq | None:
@@ -628,9 +673,24 @@ class PagedCacheManager:
         *blocks, idx = upload(
             spilled.blocks + [{"idx": torch.tensor(fresh, dtype=torch.int64)}],
             self.device)
-        _scatter_blocks(self.pools, blocks, idx["idx"])
+        self._scatter_sharded(blocks, idx["idx"])
         self.publish()
         return seq
+
+    def _scatter_sharded(self, blocks: list[dict], idx: torch.Tensor) -> None:
+        """Each shard's region of the global ``blocks`` (its kv heads, or
+        all of them where the pool is replicated) scattered into its local
+        pool, on its device."""
+        for i, pools in enumerate(self.shard_pools):
+            dev = pools[0]["k"].device
+            local = []
+            for layer, shapes, src in zip(self.pool_shardings,
+                                          self._leaf_shapes, blocks):
+                region = {k: pl.slices((len(idx),) + shapes[k][1:])[i]
+                          for k, pl in layer.items()}
+                local.append({k: src[k][region[k]].to(dev, non_blocking=True)
+                              for k in layer})
+            _scatter_blocks(pools, local, idx.to(dev, non_blocking=True))
 
     def block_tables(self, out: np.ndarray | None = None) -> np.ndarray:
         """(n_slots, max_blocks) int32 table, -1 = unused (inactive rows

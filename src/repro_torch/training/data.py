@@ -3,8 +3,8 @@
 Port of the JAX package's ``training/data.py``.  ``synthetic_batch`` is a
 numpy copy of the reference's: the same seed and step give the same
 arrays.  ``ShardedBatcher`` yields each step's batch as tensors on one
-device; placing batches over a mesh waits for the port's mesh (ROADMAP
-P11).
+device, or with its 2-D leaves placed over a mesh
+(``launch.sharding.batch_shardings``).
 """
 from __future__ import annotations
 
@@ -57,15 +57,16 @@ def synthetic_batch(cfg: ModelConfig, dcfg: DataConfig, step: int) -> dict:
 
 
 class ShardedBatcher:
-    """Iterator of this host's batches, as tensors on ``device``."""
+    """Iterator of this host's batches, as tensors on ``device``.
+
+    ``sharding``: a ``launch.sharding.Placement`` for every 2-D leaf, or a
+    dict of them by leaf name (``batch_shardings``); those leaves come as
+    ``ShardedTensor``s over its mesh, the others stay on ``device``."""
 
     def __init__(self, cfg: ModelConfig, dcfg: DataConfig, sharding=None,
                  *, device="cuda") -> None:
-        if sharding is not None:
-            raise NotImplementedError(
-                "placing batches over a device mesh waits for the port's "
-                "mesh and sharding (ROADMAP P11)")
         self.cfg, self.dcfg, self.device = cfg, dcfg, torch.device(device)
+        self.sharding = sharding
         self.step = 0
 
     def __iter__(self) -> Iterator[dict]:
@@ -74,5 +75,14 @@ class ShardedBatcher:
     def __next__(self) -> dict:
         batch = synthetic_batch(self.cfg, self.dcfg, self.step)
         self.step += 1
-        return {k: torch.from_numpy(v).to(self.device)
-                for k, v in batch.items()}
+        out = {k: torch.from_numpy(v).to(self.device)
+               for k, v in batch.items()}
+        if self.sharding is not None:
+            from repro_torch.launch.sharding import reshard
+
+            for k, v in out.items():
+                pl = (self.sharding.get(k) if isinstance(self.sharding, dict)
+                      else self.sharding)
+                if pl is not None and v.dim() == 2:
+                    out[k] = reshard(v, pl)
+        return out

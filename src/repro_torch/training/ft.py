@@ -14,7 +14,7 @@ Port of the JAX package's ``training/ft.py``:
    straggler, recorded and passed to an optional callback.
 
 3. **Elastic scaling** — ``elastic_reshard`` moves a state tree onto another
-   device mesh; it waits for the port's mesh and sharding (ROADMAP P11).
+   device mesh (``launch.sharding``), bit for bit.
 
 The loop waits for each step's loss on the device (one sync a step, the
 counterpart of the reference's ``jax.block_until_ready``) so that its step
@@ -99,7 +99,18 @@ class FaultTolerantLoop:
 
 
 def elastic_reshard(tree, new_mesh, spec_fn) -> Any:
-    """Move a state tree onto another device mesh: not ported yet."""
-    raise NotImplementedError(
-        "elastic resharding moves a state tree onto a device mesh, which "
-        "waits for the port's mesh and sharding (ROADMAP P11)")
+    """Move a tree of tensors or ``ShardedTensor``s onto ``new_mesh``:
+    ``spec_fn(path, leaf) -> spec`` (a tuple of mesh-axis names, as
+    ``launch.sharding.leaf_spec`` gives), ``path`` the leaf's ``/``-joined
+    name (``tree.named_leaves``).  Every leaf comes back a ShardedTensor
+    with the same bits."""
+    from repro_torch.launch.sharding import Placement, reshard
+    from repro_torch.tree import named_leaves, tree_map
+
+    it = iter(named_leaves(tree))
+
+    def move(leaf):
+        path, _ = next(it)
+        return reshard(leaf, Placement(new_mesh, tuple(spec_fn(path, leaf))))
+
+    return tree_map(move, tree)

@@ -42,6 +42,14 @@ def _imported_modules(path: Path) -> list[str]:
     return mods
 
 
+def test_the_launch_package_is_in_scope():
+    """``launch/`` (meshes, rules, placement) is part of the port that the
+    boundary covers: each of its modules is in ``PORT_FILES``."""
+    launch = ROOT / "src" / "repro_torch" / "launch"
+    names = {p.name for p in PORT_FILES if p.parent == launch}
+    assert {"__init__.py", "mesh.py", "sharding.py"} <= names
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_the_jax_package(path):
@@ -66,7 +74,9 @@ def test_engine_import_pulls_in_no_jax():
             "repro_torch.configs.musicgen_large, "
             "repro_torch.configs.phi_3_vision_4_2b, "
             "repro_torch.core.fastpath, repro_torch.analysis, "
-            "repro_torch.analysis.sanitizer; "
+            "repro_torch.analysis.sanitizer, repro_torch.launch.mesh, "
+            "repro_torch.launch.sharding, repro_torch.training.ft, "
+            "repro_torch.training.data; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -192,15 +192,26 @@ def test_node_needs_the_card_and_leaves_no_thread():
 
 
 def test_mesh_slices_raise_naming_their_slice():
+    """Mesh slices are ported (``tests/test_torch_sharding.py``): a
+    deployment takes its slices off the node's free list of logical
+    devices (one on the CPU), gives them back at ``stop()``, and a request
+    the list cannot cover raises, naming the shortage."""
     cfg = P.ModelConfig(name="t", family="dense", n_layers=2, d_model=32,
                         n_heads=4, n_kv_heads=2, d_ff=64, vocab_size=128,
                         dtype="float32", q_chunk=16)
     params = P.init_params(cfg, torch.Generator().manual_seed(0),
                            device="cpu")
     with pcluster.ServeNode(n_workers=1, device="cpu") as node:
-        with pytest.raises(NotImplementedError, match="mesh slice"):
-            node.deploy("m", cfg, params, n_replicas=1,
+        assert len(node._free_devices) == 1
+        dep = node.deploy("m", cfg, params, n_replicas=1,
+                          devices_per_replica=1)
+        assert node._free_devices == []
+        assert dep.engines[0].mesh.devices.shape == (1, 1)
+        with pytest.raises(ValueError, match="only 0 are available"):
+            node.deploy("m2", cfg, params, n_replicas=1,
                         devices_per_replica=1)
+        dep.stop()
+        assert len(node._free_devices) == 1
 
 
 # ====================================== a JAX node against a port node

@@ -242,13 +242,15 @@ def test_engine_rejects_unservable_requests_through_completion(model):
 
 
 def test_deferred_features_raise_not_implemented(model):
-    """Mesh slices still raise, naming their slice; the DeviceStore bridge
-    (``devstore`` / ``kv_key``) is ported (``tests/test_torch_devstore.py``)
-    and publishes the pool at construction; preemption into a spill pool
-    and spill / evacuate / adopt are ported (``tests/test_torch_preempt.py``):
-    on an idle engine they find nothing to move."""
+    """Mesh slices are ported (``tests/test_torch_sharding.py``): a mesh
+    that is not a slice of logical devices raises, naming what it wants;
+    the DeviceStore bridge (``devstore`` / ``kv_key``) is ported
+    (``tests/test_torch_devstore.py``) and publishes the pool at
+    construction; preemption into a spill pool and spill / evacuate /
+    adopt are ported (``tests/test_torch_preempt.py``): on an idle engine
+    they find nothing to move."""
     name, jcfg, pcfg, jp, pp = model
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(TypeError, match="slice"):
         ServeEngine(pcfg, pp, device="cpu", mesh=object())
     ds = DeviceStore("cpu", keep_versions=1)
     ds.create_pool(PoolSpec(path="/kv"))

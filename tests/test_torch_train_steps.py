@@ -348,11 +348,31 @@ def test_loop_calls_the_straggler_callback(tmp_path):
 
 
 def test_mesh_placement_raises_naming_p11():
-    with pytest.raises(NotImplementedError, match="P11"):
-        elastic_reshard({"w": torch.zeros(2)}, None, None)
-    with pytest.raises(NotImplementedError, match="P11"):
-        ShardedBatcher(CFG, DataConfig(batch=2, seq_len=8),
-                       sharding=object(), device="cpu")
+    """The placement P11 ported (``launch.sharding``; the round trips are
+    in ``tests/test_torch_sharding.py``): ``elastic_reshard`` and
+    ``ShardedBatcher`` place over a mesh, and a spec the shape does not
+    divide raises, naming both."""
+    from repro_torch.launch.mesh import logical_devices, make_host_mesh
+    from repro_torch.launch.sharding import Placement, ShardedTensor
+
+    with logical_devices(2):
+        mesh = make_host_mesh(2, model=2)
+    moved = elastic_reshard({"w": torch.arange(4.0)}, mesh,
+                            lambda path, leaf: ("model",))
+    assert isinstance(moved["w"], ShardedTensor)
+    assert [t.tolist() for t in moved["w"].shards] == [[0.0, 1.0],
+                                                       [2.0, 3.0]]
+    with pytest.raises(ValueError, match="not divisible"):
+        elastic_reshard({"w": torch.zeros(3)}, mesh,
+                        lambda path, leaf: ("model",))
+    batch = next(ShardedBatcher(CFG, DataConfig(batch=2, seq_len=8),
+                                sharding=Placement(mesh, ("model", None)),
+                                device="cpu"))
+    assert batch["inputs"].shards[0].shape == (1, 8)
+    with pytest.raises(ValueError, match="not divisible"):
+        next(ShardedBatcher(CFG, DataConfig(batch=2, seq_len=7),
+                            sharding=Placement(mesh, (None, "model")),
+                            device="cpu"))
 
 
 def test_batcher_places_the_reference_batches():
