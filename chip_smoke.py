@@ -312,7 +312,28 @@ on the first phase that fails (exit code != 0):
                   seconds): a new loop resumes at step 3 bit for bit, the
                   next step's loss bit-equal from both states, a
                   time-travel restore returns step 2.
-25. examples    — the six twins of ``examples/*.py`` in
+25. sharded     — the sharded programs of ``launch.spmd`` on logical
+                  devices of the card, full width and depth, bf16:
+                  h2o-danube-1.8b's AdamW train step on (data 2, model 2),
+                  global batch 4 x 4,096, 3 steps; zamba2-2.7b's prefill of
+                  2 x 4,096 and 32 decode steps on (data 1, model 2).  Each
+                  split reduction within ``MESH_COMBINE_ULPS`` of the f64
+                  sum of its parts, a control (parts rounded first) that
+                  must exceed it; the loss and logits against the same
+                  program on one logical device within the stated bf16
+                  bounds (``SHARDED_*``), greedy tokens equal wherever the
+                  one-device margin clears them; K2, K3 and K4 launches
+                  exactly (per shard per layer, x2 under remat); the bytes
+                  the placed arguments hold equal to the dry run's trace of
+                  the same mesh and shapes on meta; no program faster than
+                  that trace's roofline bound; the trace's peak reported
+                  beside ``max_memory_allocated``.
+26. dryrun      — ``python -m repro_torch.launch.dryrun --all`` on the
+                  card's host (single-pod mesh, ``DRYRUN_JOBS`` cells at
+                  once, its own time limit): one line per cell; every
+                  covered cell wrote its JSON, every other raised naming its
+                  stage.
+27. examples    — the six twins of ``examples/*.py`` in
                   ``examples_torch/`` (quickstart, smart_farming,
                   collision_detection, serve_lm, serve_cluster, train_lm),
                   each run in this process at its defaults on the card
@@ -330,8 +351,9 @@ on the first phase that fails (exit code != 0):
 It prints one JSON line per phase, then each phase's seconds, then the
 card's name and power limit as nvidia-smi gives them, then the kernels line
 (K1-K4, with K1's launches per model-2 tick and its shard-width cases,
-K2's and K3's launches per train step and their autograd times, and each
-kernel's launches in each twin), and last
+K2's and K3's launches per train step and their autograd times, K2's, K3's
+and K4's launches in the sharded programs, and each kernel's launches in
+each twin), and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -494,23 +516,12 @@ def work(bt, rows, pos, window, kv_item, q_item, quant, h=H, kv=KV, d=D):
     every K/V block visible to at least one token, read once for all kv
     heads (plus its scales), q read and out written once, the index
     operands once; two products of 2·D flops per visible (token, head,
-    position)."""
-    needed: set[int] = set()
-    visible = 0
-    for t in range(len(pos)):
-        qp, r = int(pos[t]), int(rows[t])
-        if qp < 0 or r < 0:
-            continue
-        live = int((bt[r] >= 0).sum())
-        lo = max(0, qp - window + 1) if window else 0
-        hi = min(qp, live * BS - 1)
-        visible += max(0, hi - lo + 1)
-        for j in range(lo // BS, hi // BS + 1):
-            needed.add(max(int(bt[r, j]), 0))
-    per_block = BS * kv * (2 * d * kv_item + (8 if quant else 0))
-    nbytes = (len(needed) * per_block + 2 * len(pos) * h * d * q_item
-              + bt.size * 4 + 2 * len(pos) * 4)
-    return nbytes, visible * h * 4 * d
+    position).  K1's own count (``ops.ragged_work``), which its meta route
+    also reads."""
+    from repro_torch.kernels.decode_attention.ops import ragged_work
+
+    return ragged_work(bt, rows, pos, window, BS, h, kv, d, kv_item, q_item,
+                       quant)
 
 
 def k1_spans(T_, kv, g, d, nb) -> dict:
@@ -1191,15 +1202,16 @@ K2_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 
 
 def visible_pairs(S: int, window: int | None) -> int:
-    """Causal (query, key) pairs with i - j < window: sum_i min(i+1, w)."""
-    if window is None or window >= S:
-        return S * (S + 1) // 2
-    return window * (window + 1) // 2 + (S - window) * window
+    from repro_torch.kernels.flash_attention.ops import visible_pairs
+
+    return visible_pairs(S, window)
 
 
 def flash_work(B, S, H, K, D, window, item):
-    nbytes = (2 * B * S * H * D + 2 * B * S * K * D) * item
-    return nbytes, 4 * D * H * B * visible_pairs(S, window)
+    """K2's own count (``ops.work``), which its meta route also reads."""
+    from repro_torch.kernels.flash_attention.ops import work
+
+    return work(B, S, H, K, D, window, item)
 
 
 @functools.cache
@@ -1348,15 +1360,10 @@ SSD_LIBRARY = "none: no single PyTorch call computes the SSD chunked scan"
 
 
 def ssd_work(B, S, H, P, N, Q, item, h0, D):
-    nbytes = (B * S * H * P * (item + 4) + 2 * B * S * N * item
-              + B * S * H * 4 + H * 4 * (2 if D else 1)
-              + B * H * P * N * 4 * (2 if h0 else 1))
-    flops = 0
-    for c0 in range(0, S, Q):
-        L = min(Q, S - c0)
-        pairs = L * (L + 1) // 2
-        flops += 2 * N * pairs + H * (2 * P * pairs + 4 * L * P * N)
-    return nbytes, B * flops
+    """K3's own count (``ops.work``), which its meta route also reads."""
+    from repro_torch.kernels.ssd.ops import work
+
+    return work(B, S, H, P, N, Q, item, h0, D)
 
 
 def _ssd_label(name: str) -> str:
@@ -1534,6 +1541,11 @@ DECODE_LIBRARY = (
     "them with their scales)")
 
 
+# K4's log-sum-exp output against the plain version's (f32 scores either
+# way; the sums run in another order)
+DECODE_LSE_TOL = 1e-4
+
+
 def decode_positions(B, S, kind):
     """(cache_pos (B, S), q_pos (B,)) as numpy: rows filled in slot order
     to FILLS[b] positions ("partial"), or a ring of S slots whose newest
@@ -1560,14 +1572,11 @@ def decode_spans(B, S, H, K, D) -> dict:
 
 
 def decode_work(pos, qpos, window, H, K, D, kv_item, q_item, quant):
-    vis = (pos >= 0) & (pos <= qpos[:, None])
-    if window:
-        vis &= (qpos[:, None] - pos) < window
-    n = int(vis.sum())
-    B, S = pos.shape
-    nbytes = (n * K * (2 * D * kv_item + (8 if quant else 0)) + B * S * 4
-              + 2 * B * H * D * q_item + B * 4)
-    return nbytes, 4 * D * H * n, vis
+    """K4's own count (``ops.decode_work``), which its meta route also
+    reads."""
+    from repro_torch.kernels.decode_attention.ops import decode_work
+
+    return decode_work(pos, qpos, window, H, K, D, kv_item, q_item, quant)
 
 
 def decode_library(q, k, v, vis, cap):
@@ -1654,6 +1663,23 @@ def decode_kernel_phase(dev, cases=DECODE_CASES, reps=(20, 3)) -> list[dict]:
                 window=window, softcap=cap, visible_slots=int(vis.sum()),
                 **decode_spans(B, S, H_, K_, D_))
             assert out.dtype == q.dtype and out.shape == q.shape
+            # with its log-sum-exp (the merge of a cache split over the
+            # sequence): the same output bit for bit, the lse within
+            # DECODE_LSE_TOL of the plain version's
+            got, lse = ops.decode_attention(q, k, v, qpos, pos, lse=True,
+                                            **kw)
+            want = (ref.decode_attention_ref(q, k, v, qpos, pos,
+                                             window=window, softcap=cap,
+                                             lse=True)[1] if ks is None else
+                    ref.decode_attention_quant_ref(
+                        q, k, v, ks, vs, qpos, pos, window=window,
+                        softcap=cap, lse=True)[1])
+            assert bit_equal(got, out)
+            assert torch.equal(torch.isinf(lse), torch.isinf(want))
+            fin = torch.isfinite(want)
+            lse_err = (lse[fin] - want[fin]).abs().max().item()
+            assert lse_err <= DECODE_LSE_TOL, (arch, kv_dtype, lse_err)
+            case["lse_max_abs_err"] = lse_err
             if ks is None:
                 lib, lib_name = decode_library(
                     q, k, v, torch.from_numpy(vis).to(dev), cap)
@@ -1674,10 +1700,11 @@ def decode_kernel_phase(dev, cases=DECODE_CASES, reps=(20, 3)) -> list[dict]:
     pos = torch.full((2, 300), -1, dtype=torch.int32, device=dev)
     pos[1, 0] = 0
     qpos = torch.tensor([9, 0], dtype=torch.int32, device=dev)
-    got = ops.decode_attention(q, k, v, qpos, pos)
+    got, lse = ops.decode_attention(q, k, v, qpos, pos, lse=True)
     want = ref.decode_attention_ref(q, k, v, qpos, pos)
     err = (got - want).abs().max().item()
     assert err <= 2e-5, ("empty row", err)
+    assert torch.isneginf(lse[0]).all() and torch.isfinite(lse[1]).all()
     emit({"phase": "decode_empty_row", "max_abs_err": err})
     del flush
     torch.cuda.empty_cache()
@@ -2955,14 +2982,14 @@ def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 
 @contextlib.contextmanager
 def combine_checked(out: list, control: bool = False):
-    """Inside the block, every split reduction of the paged layers
-    (``models.lm._combine``) is held against the f64 sum of the shards'
+    """Inside the block, every split reduction of the layers
+    (``models.slices.combine``) is held against the f64 sum of the shards'
     f32 parts: the largest distance, in bf16 ulps of that sum, is appended
     to ``out``.  ``control``: the combine is given each part rounded to
     the model's dtype first (the fault the check exists to catch)."""
-    import repro_torch.models.lm as lm
+    import repro_torch.models.slices as slices
 
-    inner = lm._combine
+    inner = slices.combine
 
     def spy(ys, tp, split, dtype):
         if not split:
@@ -2970,19 +2997,20 @@ def combine_checked(out: list, control: bool = False):
         assert not isinstance(ys[0], list), "MoE parts: not checked here"
         fed = [y.to(dtype).float() for y in ys] if control else ys
         got = inner(fed, tp, split, dtype)
-        exact = ys[0].double()
-        for y in ys[1:]:
-            exact = exact + y.to(exact.device).double()
-        out.append(max(((y.double() - exact.to(d)).abs()
-                        / _bf16_ulp(exact.to(d))).max().item()
-                       for d, y in got.items()))
+        with torch.no_grad():
+            exact = ys[0].double()
+            for y in ys[1:]:
+                exact = exact + y.to(exact.device).double()
+            out.append(max(((y.double() - exact.to(d)).abs()
+                            / _bf16_ulp(exact.to(d))).max().item()
+                           for d, y in got.items()))
         return got
 
-    lm._combine = spy
+    slices.combine = spy
     try:
         yield out
     finally:
-        lm._combine = inner
+        slices.combine = inner
 
 
 def direct_first_tick(eng, inputs, control: bool) -> tuple:
@@ -4876,6 +4904,548 @@ def train_ft_phase(dev, n_layers=6, S=1024, steps=3) -> dict:
     return res
 
 
+# ================================================= sharded programs (P16)
+# the dense entry points and the train step over a (data, model) mesh of
+# logical devices on the card (``launch.spmd.Program``), each held against
+# the same program on one logical device and against the dry run's trace
+# of the same mesh and shapes on meta (``launch.dryrun.trace``)
+# (arch, mesh, B, S, steps); (arch, mesh, B, S, decode steps); (arch,
+# mesh, prompt, decode steps at B 1)
+SHARDED_TRAIN = ("h2o-danube-1.8b", (2, 2), 4, 4096, 3)
+SHARDED_SERVE = ("zamba2-2.7b", (1, 2), 2, 4096, 32)
+SHARDED_SEQ = ("h2o-danube-1.8b", (2, 2), 4000, 16)
+# the bf16 bounds, written down before the first run on the card: each
+# sharded step's loss within 1e-2 of the one-device step's (relative), every
+# logit within 5e-2 of the one-device logits' largest magnitude, and the
+# greedy token equal wherever the one-device top-two margin exceeds twice
+# that bound
+SHARDED_LOSS_RTOL = 1e-2
+SHARDED_LR = 1e-4                  # AdamW, warmup 1: a step the loss follows
+# the train steps' state after SHARDED_TRAIN's steps against one device's,
+# each the largest over the steps or the worst leaf: the pre-clip gradient
+# norm (relative), AdamW's first moment (the clipped gradients' average)
+# and the parameters' change (each ||sharded - one|| / ||one||).  Set
+# between two readings on the card (NVIDIA H100 80GB HBM3, 700.00 W): the
+# sound steps 6.6e-3, 0.075, 0.059; the control that drops batch row 1's
+# gradients (``_drop_row_grads``) 0.55, 0.94, 0.84
+SHARDED_NORM_RTOL = 5e-2
+SHARDED_MU_RTOL = 0.25
+SHARDED_DELTA_RTOL = 0.2
+SHARDED_LOGIT_TOL = 5e-2
+DRYRUN_JOBS = 8                    # cells traced at once (8 host cores)
+DRYRUN_TIMEOUT_S = 420
+
+
+def _shard_tensors(tree) -> list:
+    """Every tensor of ``tree``, a ShardedTensor's shards each."""
+    from repro_torch.core.sharded import ShardedTensor
+    from repro_torch.tree import tree_leaves
+
+    out = []
+    for leaf in tree_leaves(tree):
+        if isinstance(leaf, ShardedTensor):
+            out += leaf.shards
+        elif isinstance(leaf, torch.Tensor):
+            out.append(leaf)
+    return out
+
+
+def held_bytes(tree) -> int:
+    """Bytes of the distinct storages the tensors of ``tree`` hold on the
+    card (a view that keeps a larger storage alive counts it whole)."""
+    seen = {}
+    for t in _shard_tensors(tree):
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def _mesh_on(shape, device):
+    """A (data, model) mesh of ``shape`` over logical devices on
+    ``device``."""
+    from repro_torch.launch.mesh import logical_devices, make_host_mesh
+
+    n = int(np.prod(shape))
+    with logical_devices(n, device):
+        return make_host_mesh(n, model=shape[-1])
+
+
+def predicted(cfg, shape, B, S, kind) -> dict:
+    """The dry run's trace of this program on the same mesh on meta, every
+    shard run: the bytes each device's arguments hold, the step's FLOPs on
+    the card (every shard, the common share once), its peak, and the
+    roofline bound max(FLOPs / 989e12, argument bytes / 3.35e12)."""
+    from repro_torch.configs.registry import Shape
+    from repro_torch.launch.dryrun import trace
+
+    t0 = time.monotonic()
+    tr = trace(cfg, _mesh_on(shape, "meta"),
+               Shape(f"sharded_{kind}", S, B, kind), whole=True)
+    flops = tr["counter"].total_flops()
+    args = sum(tr["args"])
+    return {"args_per_device": tr["args"], "args": args, "flops": flops,
+            "peak": args + tr["counter"].total_peak,
+            "collective_bytes": dict(tr["counter"].ledger.bytes),
+            "bound_s": max(flops / PEAK[torch.bfloat16], args / MEM_BW),
+            "trace_s": time.monotonic() - t0}
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.monotonic() - t0
+
+
+def _counted(fn) -> tuple:
+    """``fn()`` with the wrappers' counts set to 0 just before: (its
+    result, each kernel's launches in it)."""
+    counters = _kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    return out, {k: c.launches for k, c in counters.items()}
+
+
+def _drop_row_grads():
+    """A planted fault for the train check's control: ``Program`` whose
+    gradient reduction keeps only the first batch row's part of every
+    leaf (the other rows' gradients dropped)."""
+    from repro_torch.launch.spmd import Program
+
+    class DropRowGrads(Program):
+        def _grad_parts(self, acc, j, shards, rows):
+            return super()._grad_parts(acc, j, shards, rows[:1])
+
+    return DropRowGrads
+
+
+def train_agreement(prog, state, one: dict, norms: list,
+                    one_norms: list) -> dict:
+    """The sharded state after the steps against one device's (``one``:
+    its initial params ``p0``, final params ``p`` and first moment ``mu``,
+    on the card): the largest relative distance of the pre-clip gradient
+    norms over the steps, and the worst leaf's ||sharded - one|| / ||one||
+    of AdamW's first moment and of the parameters' change."""
+    from repro_torch.tree import named_leaves
+
+    def worst(placed, ref, base=None):
+        dists = []
+        base = dict(base) if base is not None else None
+        for name, st in named_leaves(placed):
+            a = st.gather(dev).float()
+            b = ref[name].float()
+            if base is not None:
+                a, b = a - base[name].float(), b - base[name].float()
+            den = torch.linalg.vector_norm(b)
+            dists.append((torch.linalg.vector_norm(a - b)
+                          / torch.clamp(den, min=1e-30), name))
+            del a, b
+        vals = torch.stack([d for d, _ in dists]).tolist()
+        i = int(np.argmax(vals))
+        return vals[i], dists[i][1]
+
+    dev = one["p0"]["final_norm/scale"].device
+    mu, mu_leaf = worst(state.opt_state.mu, one["mu"])
+    delta, delta_leaf = worst(state.params, one["p"], one["p0"].items())
+    norm = max(abs(a - b) / b for a, b in zip(norms, one_norms))
+    return {"grad_norm_rel": norm, "mu_rel": mu, "mu_worst_leaf": mu_leaf,
+            "delta_rel": delta, "delta_worst_leaf": delta_leaf}
+
+
+def check_train_agreement(agree: dict) -> None:
+    assert agree["grad_norm_rel"] <= SHARDED_NORM_RTOL, agree
+    assert agree["mu_rel"] <= SHARDED_MU_RTOL, agree
+    assert agree["delta_rel"] <= SHARDED_DELTA_RTOL, agree
+
+
+def sharded_train(dev, smi: str) -> dict:
+    """h2o-danube-1.8b at full width and depth, bf16, AdamW, over a (data
+    2, model 2) mesh of four logical devices on the card: global batch 4 x
+    4,096 (``synthetic_batch``), ``SHARDED_TRAIN``'s steps, against the
+    same steps on one logical device (``check_train_agreement``), and
+    again with a planted fault (``_drop_row_grads``) that the same check
+    must refuse."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.spmd import Program
+    from repro_torch.models import layer_specs, stacked_leaves
+    from repro_torch.training import (DataConfig, TrainState, get_optimizer,
+                                      make_train_step, synthetic_batch)
+    from repro_torch.tree import named_leaves, tree_map
+
+    arch, shape, B, S, steps = SHARDED_TRAIN
+    cfg = get_config(arch)
+    assert cfg.optimizer == "adamw" and cfg.remat
+    n_attn = sum(s.kind != "mamba" for s in layer_specs(cfg))
+    pred = predicted(cfg, shape, B, S, "train")
+    mesh = _mesh_on(shape, dev)
+    prog = Program(cfg, mesh, batch=B)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
+        cfg, DataConfig(batch=B, seq_len=S, seed=0), i).items()}
+        for i in range(steps)]
+    params = _seeded_params(cfg, dev, 0)
+    # the untied head's rows N(0, 1/d) too, as the embedding's: N(0, 1)
+    # rows make logits of scale sqrt(d) and a first loss near 200
+    params["head"]["table"].mul_(cfg.d_model ** -0.5)
+    opt = get_optimizer("adamw", lr=SHARDED_LR, warmup_steps=1)
+    # the same program on one logical device first: each step's loss and
+    # gradient norm, the final params and first moment kept (the rest of
+    # its state freed before the sharded run)
+    one = tree_map(torch.clone, params)
+    one = TrainState(one, opt.init(stacked_leaves(one, cfg)))
+    one_step = make_train_step(cfg, opt)
+    one_losses, one_norms = [], []
+    for b in batches:
+        one, m = one_step(one, b)
+        one_losses.append(float(m["loss"]))
+        one_norms.append(float(m["grad_norm"]))
+    one = {"p0": dict(named_leaves(params)),
+           "p": dict(named_leaves(one.params)),
+           "mu": dict(named_leaves(one.opt_state.mu))}
+    # held through the sharded steps for the checks (the peak counts them)
+    kept = sum(t.numel() * t.element_size() for part in one.values()
+               for t in part.values())
+    del one_step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = prog.init_state(opt, prog.place_params(params))
+    step = prog.train_step(opt)
+    placed = [prog.place_batch(b) for b in batches]
+    held = held_bytes((state, placed[0]))
+    assert pred["args"] == held, (pred["args"], held)
+    # the per-reduction check (one step), then the control (a forward)
+    ulps: list = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with combine_checked(ulps):
+        (state, m0), launches0 = _counted(lambda: step(state, placed[0]))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    control: list = []
+    with torch.no_grad(), combine_checked(control, control=True):
+        prog.forward(state.params, placed[0]["inputs"],
+                     placed[0]["positions"], mode="train")
+    torch.cuda.synchronize()
+    losses, step_s, launches = [float(m0["loss"])], [], []
+    norms = [float(m0["grad_norm"])]
+    for b in placed[1:]:
+        ((state, m), n), dt = _timed(lambda: _counted(lambda: step(state, b)))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        step_s.append(dt)
+        launches.append(n)
+    agree = train_agreement(prog, state, one, norms, one_norms)
+    del state, step, prog
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the planted control: the same steps with row 1's gradients dropped
+    bad = _drop_row_grads()(cfg, mesh, batch=B)
+    bad_state = bad.init_state(opt, bad.place_params(params))
+    bad_step = bad.train_step(opt)
+    bad_norms = []
+    for b in placed:
+        bad_state, m = bad_step(bad_state, b)
+        bad_norms.append(float(m["grad_norm"]))
+    bad_agree = train_agreement(bad, bad_state, one, bad_norms, one_norms)
+    del bad_state, bad_step, bad, params, one
+    want = {"K2": 2 * n_attn * mesh.size, "K3": 0, "K4": 0}
+    assert launches0 == want and all(l == want for l in launches), (
+        launches0, launches, want)
+    assert max(ulps) <= MESH_COMBINE_ULPS, max(ulps)
+    assert max(control) > MESH_COMBINE_ULPS, max(control)
+    assert all(map(math.isfinite, losses)), losses
+    rel = max(abs(a - b) / b for a, b in zip(losses, one_losses))
+    assert rel <= SHARDED_LOSS_RTOL, (losses, one_losses)
+    emit({"phase": "sharded_train_agreement", "sound": agree,
+          "control": bad_agree})
+    check_train_agreement(agree)
+    try:
+        check_train_agreement(bad_agree)
+    except AssertionError:
+        pass
+    else:
+        raise AssertionError(f"the control passed the check: {bad_agree}")
+    p50 = statistics.median(step_s)
+    assert p50 >= pred["bound_s"], (p50, pred["bound_s"])
+    res = {"phase": "sharded", "program": "train_step", "arch": arch,
+           "card": smi, "mesh": dict(mesh.shape), "B": B, "S": S,
+           "optimizer": "adamw", "losses": losses,
+           "lr": SHARDED_LR, "one_device_losses": one_losses,
+           "loss_rel_diff": rel, "grad_norms": norms,
+           "one_device_grad_norms": one_norms, "agreement": agree,
+           "control_agreement": bad_agree,
+           "combine_max_ulps": max(ulps), "combines_checked": len(ulps),
+           "control_max_ulps": max(control), "launches_per_step": want,
+           "step_s": step_s, "step_p50_s": p50,
+           "tokens_per_s": B * S / p50,
+           "bound_s": pred["bound_s"], "share_of_bound": pred["bound_s"] / p50,
+           "held_bytes": held, "predicted_args_bytes": pred["args"],
+           "predicted_args_per_device": pred["args_per_device"],
+           "predicted_peak_bytes": pred["peak"],
+           "measured_peak_bytes": peak, "allocated_before_step": base,
+           "kept_for_checks_bytes": kept,
+           "collective_bytes": pred["collective_bytes"],
+           "flops_per_step": pred["flops"], "dryrun_trace_s":
+           pred["trace_s"]}
+    emit(res)
+    del placed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def sharded_serve(dev, smi: str) -> dict:
+    """zamba2-2.7b at full width and depth, bf16, over a (data 1, model 2)
+    mesh of two logical devices on the card: a prefill of 2 x 4,096
+    random tokens and 32 greedy ``decode_step``s, teacher-forced with the
+    one-device program's tokens."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.spmd import Program
+    from repro_torch.models import decode_step, layer_specs, prefill
+
+    arch, shape, B, S, new = SHARDED_SERVE
+    cfg = get_config(arch)
+    kinds = [s.kind for s in layer_specs(cfg)]
+    n_mamba, n_attn = kinds.count("mamba"), kinds.count("shared_attn")
+    pre_pred = predicted(cfg, shape, B, S, "prefill")
+    dec_pred = predicted(cfg, shape, B, S + new, "decode")
+    mesh = _mesh_on(shape, dev)
+    prog = Program(cfg, mesh, batch=B)
+    params = _seeded_params(cfg, dev, 0)
+    placed = prog.place_params(params)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(
+        np.int32)).to(dev)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None].repeat(B, 1)
+    pb = prog.place_batch({"inputs": toks, "positions": pos})
+    held = held_bytes((placed, pb))
+    assert pre_pred["args"] == held, (pre_pred["args"], held)
+    run = lambda: prog.prefill(placed, pb["inputs"], pb["positions"],
+                               max_len=S + new)
+    ulps: list = []
+    with torch.no_grad(), combine_checked(ulps):
+        _, l_checked = _counted(run)
+    control: list = []
+    with torch.no_grad(), combine_checked(control, control=True):
+        run()
+    with torch.no_grad():
+        ((logits, caches), l_pre), pre_s = _timed(lambda: _counted(run))
+        one, one_caches = prefill(params, toks, pos, cfg, max_len=S + new)
+    want = {"K2": n_attn * mesh.size, "K3": n_mamba * mesh.size, "K4": 0}
+    assert l_checked == l_pre == want, (l_checked, l_pre, want)
+    assert max(ulps) <= MESH_COMBINE_ULPS, max(ulps)
+    assert max(control) > MESH_COMBINE_ULPS, max(control)
+    assert pre_s >= pre_pred["bound_s"], (pre_s, pre_pred["bound_s"])
+
+    compare = logit_check
+    errs = [compare(logits.gather(dev), one)]
+    nxt = one.argmax(-1).to(torch.int32)
+    step_s, l_dec = [], {"K2": 0, "K3": 0, "K4": 0}
+    dec_held = held_bytes((placed, caches, prog.place_batch(
+        {"inputs": nxt, "positions": pos[:, :1]})))
+    assert dec_pred["args"] == dec_held, (dec_pred["args"], dec_held)
+    with torch.no_grad():
+        for i in range(new):
+            p1 = torch.full((B, 1), S + i, dtype=torch.int32, device=dev)
+            b = prog.place_batch({"inputs": nxt, "positions": p1})
+            (got, l), dt = _timed(lambda: _counted(lambda: prog.decode_step(
+                placed, caches, b["inputs"], b["positions"])))
+            one, one_caches = decode_step(params, one_caches, nxt, p1, cfg)
+            step_s.append(dt)
+            l_dec = {k: l_dec[k] + v for k, v in l.items()}
+            errs.append(compare(got.gather(dev), one))
+            nxt = one.argmax(-1).to(torch.int32)
+    assert l_dec == {"K2": 0, "K3": 0, "K4": n_attn * mesh.size * new}, l_dec
+    worst = max(e[0] for e in errs)
+    assert worst <= SHARDED_LOGIT_TOL, errs
+    assert all(e[1] == e[2] for e in errs), errs
+    p50 = statistics.median(step_s)
+    assert p50 >= dec_pred["bound_s"], (p50, dec_pred["bound_s"])
+    res = {"phase": "sharded", "program": "prefill+decode_step",
+           "arch": arch, "card": smi, "mesh": dict(mesh.shape), "B": B,
+           "S": S, "decode_steps": new, "prefill_s": pre_s,
+           "prefill_bound_s": pre_pred["bound_s"],
+           "decode_step_p50_s": p50, "decode_bound_s": dec_pred["bound_s"],
+           "launches_prefill": want, "launches_decode": l_dec,
+           "combine_max_ulps": max(ulps), "combines_checked": len(ulps),
+           "control_max_ulps": max(control),
+           "logit_err_over_scale": worst,
+           "greedy_sure": sum(e[1] for e in errs),
+           "greedy_sure_agree": sum(e[2] for e in errs),
+           "steps_within_bound": sum(int(e[0] <= SHARDED_LOGIT_TOL)
+                                   for e in errs),
+           "held_bytes_prefill": held, "held_bytes_decode": dec_held,
+           "predicted_prefill_peak_bytes": pre_pred["peak"],
+           "predicted_decode_peak_bytes": dec_pred["peak"],
+           "collective_bytes_prefill": pre_pred["collective_bytes"],
+           "collective_bytes_decode_step": dec_pred["collective_bytes"],
+           "dryrun_trace_s": pre_pred["trace_s"] + dec_pred["trace_s"]}
+    emit(res)
+    del placed, caches, params, one_caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def logit_check(got, ref) -> tuple[float, int, int]:
+    """(largest |diff| over the one-device logits' scale, the greedy tokens
+    that must agree (the one-device top-two margin above twice
+    ``SHARDED_LOGIT_TOL`` of the scale), and those that do)."""
+    got, ref = got.float(), ref.float()
+    scale = ref.abs().max().item()
+    err = (got - ref).abs().max().item() / scale
+    top2 = ref.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > 2 * SHARDED_LOGIT_TOL * scale
+    same = got.argmax(-1) == ref.argmax(-1)
+    return err, int(sure.sum()), int((same & sure).sum())
+
+
+def sharded_seq(dev, smi: str) -> dict:
+    """Stage 4 on the card: h2o-danube-1.8b at full width and depth, bf16,
+    batch 1: a one-device prefill of ``SHARDED_SEQ``'s prompt, its caches
+    (rings of 4,096 slots) placed over (data 2, model 2) with the
+    sequence over 'data', then greedy decode steps, each part of a cache
+    attended through K4 with its log-sum-exp and the parts merged;
+    teacher-forced with the one-device program's tokens."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.spmd import Program
+    from repro_torch.models import decode_step, layer_specs, prefill
+
+    arch, shape, S, new = SHARDED_SEQ
+    cfg = get_config(arch)
+    n_attn = sum(s.kind != "mamba" for s in layer_specs(cfg))
+    pred = predicted(cfg, shape, 1, S + new, "decode")
+    mesh = _mesh_on(shape, dev)
+    prog = Program(cfg, mesh, batch=1)
+    assert len(prog.seq_rows) == shape[0], prog.seq_rows
+    params = _seeded_params(cfg, dev, 0)
+    params["head"]["table"].mul_(cfg.d_model ** -0.5)
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, S)).astype(
+        np.int32)).to(dev)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+    with torch.no_grad():
+        one, caches = prefill(params, toks, pos, cfg, max_len=S + new)
+        placed = prog.place_params(params)
+        split = prog.place_caches(caches)
+        nxt = one.argmax(-1).to(torch.int32)
+        held = held_bytes((placed, split, prog.place_batch(
+            {"inputs": nxt, "positions": pos[:, :1]})))
+        assert pred["args"] == held, (pred["args"], held)
+        errs, step_s, k4 = [], [], 0
+        for i in range(new):
+            p1 = torch.full((1, 1), S + i, dtype=torch.int32, device=dev)
+            b = prog.place_batch({"inputs": nxt, "positions": p1})
+            (got, n), dt = _timed(lambda: _counted(lambda: prog.decode_step(
+                placed, split, b["inputs"], b["positions"])))
+            one, caches = decode_step(params, caches, nxt, p1, cfg)
+            step_s.append(dt)
+            k4 += n["K4"]
+            errs.append(logit_check(got.gather(dev), one))
+            nxt = one.argmax(-1).to(torch.int32)
+    assert k4 == n_attn * mesh.size * new, k4
+    worst = max(e[0] for e in errs)
+    assert worst <= SHARDED_LOGIT_TOL, errs
+    assert all(e[1] == e[2] for e in errs), errs
+    p50 = statistics.median(step_s)
+    assert p50 >= pred["bound_s"], (p50, pred["bound_s"])
+    res = {"phase": "sharded", "program": "decode_step, sequence split",
+           "arch": arch, "card": smi, "mesh": dict(mesh.shape), "B": 1,
+           "prompt": S, "decode_steps": new, "k4_launches": k4,
+           "k4_per_step": k4 // new, "decode_step_p50_s": p50,
+           "decode_bound_s": pred["bound_s"],
+           "logit_err_over_scale": worst,
+           "greedy_sure": sum(e[1] for e in errs),
+           "greedy_sure_agree": sum(e[2] for e in errs),
+           "held_bytes": held, "predicted_peak_bytes": pred["peak"],
+           "collective_bytes_step": pred["collective_bytes"]}
+    emit(res)
+    del placed, split, params, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def sharded_phase(dev, smi: str) -> dict:
+    """The sharded train step (danube on (2, 2)), the sharded prefill and
+    decode (zamba2 on (1, 2)), and a batch-1 decode over a cache split over
+    the sequence (danube on (2, 2)); the peaks reported, not asserted."""
+    torch.cuda.reset_peak_memory_stats()
+    train = sharded_train(dev, smi)
+    serve = sharded_serve(dev, smi)
+    seq = sharded_seq(dev, smi)
+    return {"train": train, "serve": serve, "seq": seq,
+            "launches": {"K2": {"train_step": train["launches_per_step"]["K2"],
+                                "prefill": serve["launches_prefill"]["K2"]},
+                         "K3": {"prefill": serve["launches_prefill"]["K3"]},
+                         "K4": {"decode": serve["launches_decode"]["K4"],
+                                "decode_sequence_split":
+                                    seq["k4_launches"]}}}
+
+
+def dryrun_phase(smi: str) -> dict:
+    """``python -m repro_torch.launch.dryrun --all`` (single-pod, every
+    cell, ``DRYRUN_JOBS`` at once) in a subprocess on the card's host: one
+    line per cell; every covered cell wrote its JSON, every other raised
+    naming its stage."""
+    import re
+
+    from repro_torch.configs.registry import all_cells
+    from repro_torch.kernels import build
+    from repro_torch.launch.dryrun import cell_file
+
+    out = build.BUILD_DIR / "dryrun"
+    if out.exists():
+        for p in out.glob("*.json"):
+            p.unlink()
+    # one thread a cell: a trace on meta is Python, one core each
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    t0 = time.monotonic()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                        "--all", "--jobs", str(DRYRUN_JOBS), "--out",
+                        str(out)], capture_output=True, text=True,
+                       timeout=DRYRUN_TIMEOUT_S, env=env)
+    seconds = time.monotonic() - t0
+    assert r.returncode == 0, (r.stdout[-3000:], r.stderr[-3000:])
+    uncovered = dict(re.findall(r"^--- (\S+) mp=False: (.*)$", r.stdout,
+                                re.M))
+    cells = [c for c in all_cells() if not c.skipped]
+    rows = []
+    for c in cells:
+        if c.name in uncovered:
+            stage = re.search(r"Stage [0-9]+", uncovered[c.name])
+            assert stage, uncovered[c.name]
+            rows.append({"cell": c.name, "uncovered": stage.group(0)})
+        else:
+            res = json.loads((out / cell_file(c.arch_id, c.shape.name,
+                                              multi_pod=False)).read_text())
+            ro, ma = res["roofline"], res["memory_analysis"]
+            rows.append({"cell": c.name,
+                         "argument_bytes": ma["argument_bytes"],
+                         "temp_bytes": ma["temp_bytes"],
+                         "flops": res["cost_analysis"]["flops"],
+                         "bytes_accessed": res["cost_analysis"][
+                             "bytes_accessed"],
+                         "collective_bytes": sum(
+                             res["collective_bytes"].values()),
+                         "compute_s": ro["compute_s"],
+                         "memory_s": ro["memory_s"],
+                         "collective_s": ro["collective_s"],
+                         "dominant": ro["dominant"], "fits": res["fits"],
+                         "trace_s": res["seconds"]["compile"]})
+        emit({"phase": "dryrun_cell", **rows[-1]})
+    res = {"phase": "dryrun", "card_host": smi, "seconds": seconds,
+           "jobs": DRYRUN_JOBS, "cells": len(cells),
+           "covered": sum("uncovered" not in r for r in rows),
+           "uncovered": {r["cell"]: r["uncovered"] for r in rows
+                         if "uncovered" in r}}
+    emit(res)
+    return res
+
+
 # =============================================================== examples
 EXAMPLES_DIR = Path(__file__).resolve().parent / "examples_torch"
 # the twins of examples/*.py, in the order they run
@@ -5091,12 +5661,16 @@ def main() -> int:
     timed("train_check", train_check_phase, dev)
     train = timed("train", train_phase, dev, smi)
     timed("train_ft", train_ft_phase, dev)
+    sharded = timed("sharded", sharded_phase, dev, smi)
+    dryrun = timed("dryrun", dryrun_phase, smi)
     examples = timed("examples", examples_phase, dev)
     # where the script's run time goes, for the next phase's budget (the
     # four training phases: 120 s)
     seconds["training"] = sum(seconds[k] for k in (
         "grad_kernel", "train_check", "train", "train_ft"))
     emit({"phase": "seconds", **seconds})
+    emit({"phase": "dryrun_summary", "covered": dryrun["covered"],
+          "uncovered": dryrun["uncovered"], "seconds": dryrun["seconds"]})
     rep = next(c for c in cases if c["kv_dtype"] == "bfloat16"
                and c["window"] is None and c["softcap"] == 50.0)
     # K2's representative case: a global layer of gemma2-9b's score forward
@@ -5169,6 +5743,7 @@ def main() -> int:
         "d128": d128(flash), "d64_d96": embeds_cases(flash),
         "launches_embeds": embeds_launches,
         "launches_train_step": train["launches_per_step"]["K2"],
+        "launches_sharded": sharded["launches"]["K2"],
         "autograd": grads["K2"],
         "launches_examples": twin_launches("flash_attention"),
         "examples_cases": examples["checks"]["K2"]}, {
@@ -5185,6 +5760,7 @@ def main() -> int:
                  "and h_final, h0 given, no D (a mamba2-1.3b layer's "
                  "prefill)",
         "launches_train_step": train["launches_per_step"]["K3"],
+        "launches_sharded": sharded["launches"]["K3"],
         "autograd": grads["K3"],
         "launches_examples": twin_launches("ssd"),
         "examples_cases": examples["checks"]["K3"]}, {
@@ -5205,6 +5781,7 @@ def main() -> int:
         "d64_d96": embeds_cases(decode),
         "launches_embeds": {arch: launches["embeds_check"]["K4"]
                             for arch, launches in embeds_launches.items()},
+        "launches_sharded": sharded["launches"]["K4"],
         "launches_examples": twin_launches("decode_attention")
         }]})
     emit({"ok": True, "device": {"platform": "gpu",

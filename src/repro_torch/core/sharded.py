@@ -11,12 +11,22 @@ Placements and gathers are device-to-device copies, never host pulls.
 
 Format code only: the rules that choose a leaf's spec
 (``launch.sharding``) read model configs; nothing here does.
+
+The sharded programs' bookkeeping lives here too, so the models can report
+without reading the launcher: ``on_shard`` marks which shard of a slice
+the code in its block runs for (``launch.costs`` attributes operations by
+it), and ``record_collective`` reports each reduction between shards, in
+the reference dry run's five names and its ring model (``ring_bytes``), to
+every ledger of ``collectives``.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
+import threading
+from collections import Counter
 from dataclasses import dataclass
-from typing import TYPE_CHECKING, Any
+from typing import TYPE_CHECKING, Any, Iterator
 
 import torch
 
@@ -132,8 +142,14 @@ def place(tensor: torch.Tensor, mesh: Mesh, spec: tuple) -> ShardedTensor:
     """``tensor`` placed over ``mesh`` by ``spec``: each logical device gets
     its own contiguous copy of its region (replicas too), on its device —
     except on a one-device mesh, whose one shard is ``tensor`` itself when
-    it already lies there, contiguous."""
+    it already lies there, contiguous.  A meta tensor's shards are meta
+    tensors of the regions' shapes (there is nothing to copy)."""
     pl = Placement(mesh, tuple(spec))
+    if tensor.device.type == "meta":
+        return ShardedTensor(pl, tuple(tensor.shape), [
+            torch.empty(tuple(r.stop - r.start for r in region),
+                        dtype=tensor.dtype, device="meta")
+            for region in pl.slices(tuple(tensor.shape))])
     if (mesh.size == 1 and tensor.device == pl.devices()[0]
             and tensor.is_contiguous()):
         # a one-device slice holds the tensor itself, as the unsharded
@@ -181,3 +197,91 @@ def place_tree(tree: Any, placements: Any) -> Any:
         return tree_map(lambda t: reshard(t, placements), tree)
     it = iter(tree_leaves(placements))
     return tree_map(lambda t: reshard(t, next(it)), tree)
+
+
+# ====================================================== shard bookkeeping
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+
+class _ShardMark(threading.local):
+    """This thread's shard mark: ``shard`` is the position in the slice of
+    the shard whose work runs now, or None."""
+    shard: int | None = None
+
+
+shard_mark = _ShardMark()
+
+
+def current_shard() -> int | None:
+    """The shard ``on_shard`` (or ``models.slices.per_shard``) marks on
+    this thread, or None."""
+    return shard_mark.shard
+
+
+@contextlib.contextmanager
+def on_shard(shard: int) -> Iterator[None]:
+    """Mark the block as shard ``shard``'s work (its position in the
+    slice)."""
+    prev, shard_mark.shard = shard_mark.shard, shard
+    try:
+        yield
+    finally:
+        shard_mark.shard = prev
+
+
+def ring_bytes(kind: str, nbytes: int, group: int) -> int:
+    """Bytes one device moves for a collective whose result is ``nbytes``
+    over a group of ``group`` devices (the reference dry run's ring model):
+    all-reduce 2·b·(g-1)/g, all-gather and all-to-all b·(g-1)/g,
+    reduce-scatter b·(g-1), collective-permute b."""
+    if kind not in COLLECTIVES:
+        raise ValueError(f"unknown collective {kind!r}")
+    g = max(1, int(group))
+    if kind == "all-reduce":
+        return int(2 * nbytes * (g - 1) / g)
+    if kind in ("all-gather", "all-to-all"):
+        return int(nbytes * (g - 1) / g)
+    if kind == "reduce-scatter":
+        return int(nbytes * (g - 1))
+    return int(nbytes)
+
+
+class Ledger:
+    """Per-device bytes moved by each kind of collective."""
+
+    def __init__(self) -> None:
+        self.bytes = {c: 0 for c in COLLECTIVES}
+        # bytes by span: how many consecutive devices a group covers
+        self.by_span: Counter = Counter()
+
+    def record(self, kind: str, nbytes: int, group: int,
+               stride: int = 1) -> None:
+        if group <= 1:
+            return
+        moved = ring_bytes(kind, nbytes, group)
+        self.bytes[kind] += moved
+        self.by_span[group * stride] += moved
+
+
+_ledgers: list[Ledger] = []
+
+
+def record_collective(kind: str, nbytes: int, group: int,
+                      stride: int = 1) -> None:
+    """Report one collective (result ``nbytes``, ``group`` devices
+    ``stride`` apart in mesh order) to every ledger of ``collectives``; a
+    group of one moves nothing."""
+    for ledger in _ledgers:
+        ledger.record(kind, nbytes, group, stride)
+
+
+@contextlib.contextmanager
+def collectives() -> Iterator[Ledger]:
+    """A ledger of the collectives recorded inside the block."""
+    ledger = Ledger()
+    _ledgers.append(ledger)
+    try:
+        yield ledger
+    finally:
+        _ledgers.remove(ledger)

@@ -8,6 +8,27 @@ import torch
 
 _workspaces: dict[tuple[torch.device, torch.dtype], torch.Tensor] = {}
 _holds: list[list[torch.Tensor]] = []
+_work_sinks: list = []
+
+
+def record_work(name: str, flops: int, nbytes: int) -> None:
+    """A kernel's meta route reports the operations and bytes its kernel
+    would do on the meta inputs (each wrapper's ``work`` count, the same
+    function ``chip_smoke.py``'s bounds read) to every sink of
+    ``work_sink``."""
+    for sink in _work_sinks:
+        sink(name, flops, nbytes)
+
+
+@contextlib.contextmanager
+def work_sink(fn) -> Iterator[None]:
+    """Inside the block, ``fn(name, flops, nbytes)`` receives every meta
+    route's ``record_work``."""
+    _work_sinks.append(fn)
+    try:
+        yield
+    finally:
+        _work_sinks.remove(fn)
 
 
 def workspace(device: torch.device, n: int,

@@ -22,7 +22,10 @@
 // Design: split_kv.cuh.  Grid (K, B, n_span) over spans of `span` slots
 // (cut by slot index, never by position: a ring does not keep them in
 // order); each CTA writes its span's partial to the workspace, and a second
-// kernel merges the spans of each (row, query head) in span order.
+// kernel merges the spans of each (row, query head) in span order.  Given
+// `lse`, that kernel also writes each (row, query head)'s log-sum-exp of its
+// visible scores (-inf with none), by which the outputs of a cache split
+// over the sequence are merged across its parts, as the spans are here.
 #include "split_kv.cuh"
 
 namespace {
@@ -81,8 +84,8 @@ __global__ void __launch_bounds__(THREADS, (min_blocks<KVT, VB, VPL, GC>()))
 template <typename QT, typename KVT, bool QUANT>
 __global__ void __launch_bounds__(THREADS) decode_combine_kernel(
     const float* ws, const KVT* __restrict__ v_cache,
-    const float* __restrict__ v_scale, QT* __restrict__ out, int B, int S,
-    int H, int K, int D, int n_span) {
+    const float* __restrict__ v_scale, QT* __restrict__ out,
+    float* __restrict__ lse, int B, int S, int H, int K, int D, int n_span) {
   using W = Word<KVT>;
   constexpr int VE = W::VE;
   const int kh = blockIdx.x, b = blockIdx.y;
@@ -96,6 +99,15 @@ __global__ void __launch_bounds__(THREADS) decode_combine_kernel(
         (static_cast<size_t>(b) * K + kh) * n_span * G + g;
     float l;
     float a = combine(P, part0, n_span, G, D, d, l);
+    if (lse != nullptr && d == 0) {
+      float mm = NEG_INF;
+      for (int s = 0; s < n_span; ++s) {
+        const size_t p = part0 + static_cast<size_t>(s) * G;
+        if (P.l[p] > 0.f) mm = fmaxf(mm, P.m[p]);
+      }
+      lse[static_cast<size_t>(b) * H + kh * G + g] =
+          l > 0.f ? mm + logf(l) : __int_as_float(0xff800000);   // -inf
+    }
     if (l == 0.f) {
       // nothing visible: the uniform softmax of all-NEG_INF scores
       a = 0.f;
@@ -115,9 +127,9 @@ __global__ void __launch_bounds__(THREADS) decode_combine_kernel(
 template <typename QT, typename KVT, bool QUANT>
 int launch(const void* q, const void* k_cache, const void* v_cache,
            const void* k_scale, const void* v_scale, const void* q_pos,
-           const void* cache_pos, void* ws, void* out, int B, int S, int H,
-           int K, int D, int span, float scale, float softcap, int window,
-           cudaStream_t stream) {
+           const void* cache_pos, void* ws, void* out, void* lse, int B,
+           int S, int H, int K, int D, int span, float scale, float softcap,
+           int window, cudaStream_t stream) {
   constexpr int VE = Word<KVT>::VE;
   if (D % VE) return static_cast<int>(cudaErrorInvalidValue);
   const int G = H / K;
@@ -144,8 +156,8 @@ int launch(const void* q, const void* k_cache, const void* v_cache,
   if (err) return err;
   decode_combine_kernel<QT, KVT, QUANT><<<dim3(K, B), THREADS, 0, stream>>>(
       static_cast<const float*>(ws), static_cast<const KVT*>(v_cache),
-      static_cast<const float*>(v_scale), static_cast<QT*>(out), B, S, H, K, D,
-      n_span);
+      static_cast<const float*>(v_scale), static_cast<QT*>(out),
+      static_cast<float*>(lse), B, S, H, K, D, n_span);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -153,10 +165,10 @@ template <typename QT>
 int dispatch_kv(int kv_dtype, const void* q, const void* k_cache,
                 const void* v_cache, const void* k_scale, const void* v_scale,
                 const void* q_pos, const void* cache_pos, void* ws, void* out,
-                int B, int S, int H, int K, int D, int span, float scale,
-                float softcap, int window, cudaStream_t stream) {
+                void* lse, int B, int S, int H, int K, int D, int span,
+                float scale, float softcap, int window, cudaStream_t stream) {
 #define DA_ARGS q, k_cache, v_cache, k_scale, v_scale, q_pos, cache_pos, ws, \
-    out, B, S, H, K, D, span, scale, softcap, window, stream
+    out, lse, B, S, H, K, D, span, scale, softcap, window, stream
   switch (kv_dtype) {
     case 0: return launch<QT, float, false>(DA_ARGS);
     case 1: return launch<QT, __nv_bfloat16, false>(DA_ARGS);
@@ -176,13 +188,14 @@ int dispatch_kv(int kv_dtype, const void* q, const void* k_cache,
 // B * K * ceil(S / span) * (H / K) * (D + 2) elements.  H a multiple of K;
 // 1 <= D <= 256, a multiple of 2 for bfloat16 and of 4 for int8 / fp8
 // caches; S >= 1; span >= 1.  softcap <= 0 and window <= 0 mean "none".
+// lse: null, or float32 (B,H) for each row's log-sum-exp.
 // Returns cudaGetLastError() after the launches (0 = launched).
 extern "C" int decode_attention(int q_dtype, int kv_dtype, const void* q,
                                 const void* k_cache, const void* v_cache,
                                 const void* k_scale, const void* v_scale,
                                 const void* q_pos, const void* cache_pos,
-                                void* ws, void* out, int B, int S, int H,
-                                int K, int D, int span, float scale,
+                                void* ws, void* out, void* lse, int B, int S,
+                                int H, int K, int D, int span, float scale,
                                 float softcap, int window, void* stream) {
   if (K < 1 || H % K || D < 1 || D > MAX_D || S < 1 || span < 1 ||
       (S + span - 1) / span > 65535)
@@ -190,7 +203,7 @@ extern "C" int decode_attention(int q_dtype, int kv_dtype, const void* q,
   if (B == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DA_ARGS kv_dtype, q, k_cache, v_cache, k_scale, v_scale, q_pos, \
-    cache_pos, ws, out, B, S, H, K, D, span, scale, softcap, window, s
+    cache_pos, ws, out, lse, B, S, H, K, D, span, scale, softcap, window, s
   switch (q_dtype) {
     case 0: return dispatch_kv<float>(DA_ARGS);
     case 1: return dispatch_kv<__nv_bfloat16>(DA_ARGS);

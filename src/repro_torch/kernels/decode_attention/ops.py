@@ -9,7 +9,11 @@ device picks the path:
 - a CUDA tensor launches the hand-written CUDA C++ kernel
   (``kernels/csrc/ragged_paged_attention.cu`` or
   ``kernels/csrc/decode_attention.cu``, built at first use) or raises —
-  there is no fallback.
+  there is no fallback;
+- a meta tensor (the dry run) takes the explicit meta route: an output of
+  the right shape and dtype, and the kernel's operations and bytes
+  (``ragged_work`` / ``decode_work`` with every slot visible, since a meta
+  tensor holds no positions) reported to ``kernels.record_work``.
 
 K1 replaces the TPU kernel ``kernels/decode_attention/kernel.py::
 ragged_paged_attention_fwd`` (body ``_ragged_kernel``), K4 its
@@ -41,7 +45,7 @@ import ctypes
 
 import torch
 
-from .. import build, workspace
+from .. import build, record_work, workspace
 from .ref import (K1_SPAN_BLOCKS, K4_SPAN_SLOTS, decode_attention_quant_ref,
                   decode_attention_ref, n_spans,
                   ragged_paged_attention_quant_ref, ragged_paged_attention_ref,
@@ -60,6 +64,64 @@ K1_ROUTES = ("tensor_core", "span", "wide")
 _lib_fn = None
 _route_fn = None
 _dense_fn = None
+
+
+def ragged_work_counts(n_blocks, visible, T, R, nb, bs, h, kv, d, kv_item,
+                       q_item, quant) -> tuple[int, int]:
+    """(bytes, flops) of a K1 call that reads ``n_blocks`` distinct pool
+    blocks and attends ``visible`` (token, position) pairs: each block once
+    for all kv heads (plus its scales), q read and out written once, the
+    index operands once; two products of 2·D flops per visible pair and
+    head."""
+    per_block = bs * kv * (2 * d * kv_item + (8 if quant else 0))
+    nbytes = (n_blocks * per_block + 2 * T * h * d * q_item + R * nb * 4
+              + 2 * T * 4)
+    return nbytes, visible * h * 4 * d
+
+
+def ragged_work(bt, rows, pos, window, bs, h, kv, d, kv_item, q_item,
+                quant) -> tuple[int, int]:
+    """(bytes, flops) K1 needs at least on these host (numpy) operands:
+    every K/V block visible to at least one token, and every visible
+    (token, position) pair.  ``chip_smoke.py``'s bound counts this."""
+    needed: set[int] = set()
+    visible = 0
+    for t in range(len(pos)):
+        qp, r = int(pos[t]), int(rows[t])
+        if qp < 0 or r < 0:
+            continue
+        live = int((bt[r] >= 0).sum())
+        lo = max(0, qp - window + 1) if window else 0
+        hi = min(qp, live * bs - 1)
+        visible += max(0, hi - lo + 1)
+        for j in range(lo // bs, hi // bs + 1):
+            needed.add(max(int(bt[r, j]), 0))
+    R, nb = bt.shape
+    return ragged_work_counts(len(needed), visible, len(pos), R, nb, bs, h,
+                              kv, d, kv_item, q_item, quant)
+
+
+def decode_work_counts(n_visible, B, S, H, K, D, kv_item, q_item,
+                       quant) -> tuple[int, int]:
+    """(bytes, flops) of a K4 call over ``n_visible`` (row, slot) pairs:
+    each visible slot's K/V once for all kv heads (plus scales), the slot
+    positions, q read and out written, q_pos; two products of 2·D flops per
+    visible pair and head."""
+    nbytes = (n_visible * K * (2 * D * kv_item + (8 if quant else 0))
+              + B * S * 4 + 2 * B * H * D * q_item + B * 4)
+    return nbytes, 4 * D * H * n_visible
+
+
+def decode_work(pos, qpos, window, H, K, D, kv_item, q_item, quant):
+    """(bytes, flops, visible mask) K4 needs at least on these host
+    (numpy) cache and query positions.  ``chip_smoke.py``'s bound counts
+    this."""
+    vis = (pos >= 0) & (pos <= qpos[:, None])
+    if window:
+        vis &= (qpos[:, None] - pos) < window
+    B, S = pos.shape
+    return (*decode_work_counts(int(vis.sum()), B, S, H, K, D, kv_item,
+                                q_item, quant), vis)
 
 
 def _kernel():
@@ -202,6 +264,18 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, row_ids,
     exact zeros."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if q.device.type == "meta":
+        T, H, D = q.shape
+        N, bs, K, _ = k_pool.shape
+        R, nb = block_tables.shape
+        # no positions on meta: every table block read, every lane over
+        # its whole row (within the window)
+        span = min(nb * bs, window) if window else nb * bs
+        nbytes, flops = ragged_work_counts(
+            min(N, R * nb), T * span, T, R, nb, bs, H, K, D,
+            k_pool.element_size(), q.element_size(), k_scale is not None)
+        record_work("ragged_paged_attention", flops, nbytes)
+        return torch.empty_like(q)
     if not q.is_cuda:
         if k_scale is None:
             return ragged_paged_attention_ref(
@@ -262,7 +336,7 @@ def _dense_kernel():
     if _dense_fn is None:
         fn = build.load("decode_attention").decode_attention
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [I, I, P, P, P, P, P, P, P, P, P,
+        fn.argtypes = [I, I, P, P, P, P, P, P, P, P, P, P,
                        I, I, I, I, I, I, F, F, I, P]
         fn.restype = I
         _dense_fn = fn
@@ -325,27 +399,42 @@ def _check_dense(q, k_cache, v_cache, q_pos, cache_pos, k_scale, v_scale,
 def decode_attention(q, k_cache, v_cache, q_pos, cache_pos, *, k_scale=None,
                      v_scale=None, window: int | None = None,
                      softcap: float | None = None,
-                     scale: float | None = None):
+                     scale: float | None = None, lse: bool = False):
     """One-token decode attention.  q: (B,H,D) float32 or bfloat16; caches
     (B,S,K,D) in float32, bfloat16, int8 or float8_e4m3fn; q_pos (B,) and
     cache_pos (B,S) int32 (-1 = empty slot); ``k_scale``/``v_scale``
     (B,S,K) float32 accompany int8/fp8 caches.  Returns (B,H,D) in q's
-    dtype."""
+    dtype; ``lse``: (out, each (row, head)'s f32 log-sum-exp of its visible
+    scores, -inf with none), by which the outputs of a cache split over the
+    sequence merge across its parts."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if q.device.type == "meta":
+        B, H, D = q.shape
+        _, S, K, _ = k_cache.shape
+        # no positions on meta: a full cache, every slot within the
+        # window visible
+        n = B * (min(S, window) if window else S)
+        record_work("decode_attention", *decode_work_counts(
+            n, B, S, H, K, D, k_cache.element_size(), q.element_size(),
+            k_scale is not None)[::-1])
+        out = torch.empty_like(q)
+        return (out, q.new_empty((B, H), dtype=torch.float32)) if lse \
+            else out
     if not q.is_cuda:
+        kw = dict(window=window, softcap=softcap, scale=scale, lse=lse)
         if k_scale is None:
             return decode_attention_ref(q, k_cache, v_cache, q_pos, cache_pos,
-                                        window=window, softcap=softcap,
-                                        scale=scale)
+                                        **kw)
         return decode_attention_quant_ref(
-            q, k_cache, v_cache, k_scale, v_scale, q_pos, cache_pos,
-            window=window, softcap=softcap, scale=scale)
+            q, k_cache, v_cache, k_scale, v_scale, q_pos, cache_pos, **kw)
     _check_dense(q, k_cache, v_cache, q_pos, cache_pos, k_scale, v_scale,
                  window, softcap)
     B, H, D = q.shape
     _, S, K, _ = k_cache.shape
     out = torch.empty_like(q)
+    out_lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
+               if lse else None)
     ws = workspace(q.device, workspace_elems(
         B, K, n_spans(S, K4_SPAN_SLOTS), H // K, D))
     with torch.cuda.device(q.device):
@@ -356,14 +445,15 @@ def decode_attention(q, k_cache, v_cache, q_pos, cache_pos, *, k_scale=None,
             k_scale.data_ptr() if k_scale is not None else None,
             v_scale.data_ptr() if v_scale is not None else None,
             q_pos.data_ptr(), cache_pos.data_ptr(), ws.data_ptr(),
-            out.data_ptr(), B, S, H, K, D, K4_SPAN_SLOTS, float(scale),
+            out.data_ptr(), out_lse.data_ptr() if lse else None,
+            B, S, H, K, D, K4_SPAN_SLOTS, float(scale),
             float(softcap) if softcap is not None else 0.0,
             int(window) if window is not None else 0, stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")
     decode_attention.launches += 1
-    return out
+    return (out, out_lse) if lse else out
 
 
 decode_attention.launches = 0

@@ -27,14 +27,16 @@ NEG_INF = -1e30
 def decode_attention_ref(q, k_cache, v_cache, q_pos, cache_pos, *,
                          window: int | None = None,
                          softcap: float | None = None,
-                         scale: float | None = None):
+                         scale: float | None = None, lse: bool = False):
     """One new token per row against its dense cache.  q: (B,H,D);
     k_cache/v_cache: (B,S,K,D); cache_pos: (B,S) absolute position of each
     slot (-1 empty); q_pos: (B,) the new token's position.  Slot s is
     visible iff 0 <= cache_pos <= q_pos (and q_pos - cache_pos < window), so
     ring buffers and partly filled rows need nothing else.  Scores in f32,
     tanh softcap after the scale, f32 softmax (a row with nothing visible
-    averages its S values uniformly).  Returns (B,H,D) in q's dtype."""
+    averages its S values uniformly).  Returns (B,H,D) in q's dtype;
+    ``lse``: also each (row, head)'s f32 log-sum-exp of its visible scores
+    (-inf with none), (B,H)."""
     B, H, D = q.shape
     K = k_cache.shape[2]
     scale = D ** -0.5 if scale is None else scale
@@ -48,18 +50,25 @@ def decode_attention_ref(q, k_cache, v_cache, q_pos, cache_pos, *,
     s = torch.where(mask[:, None, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
-    return out.reshape(B, H, D).to(q.dtype)
+    out = out.reshape(B, H, D).to(q.dtype)
+    if not lse:
+        return out
+    seen = mask.any(dim=-1)[:, None, None]
+    total = torch.where(seen, torch.logsumexp(s, dim=-1), float("-inf"))
+    return out, total.reshape(B, H)
 
 
 def decode_attention_quant_ref(q, k_cache, v_cache, k_scale, v_scale, q_pos,
                                cache_pos, *, window: int | None = None,
                                softcap: float | None = None,
-                               scale: float | None = None):
+                               scale: float | None = None,
+                               lse: bool = False):
     """Quantized-cache version: int8 / fp8 caches with (B,S,K) f32 scales
     are dequantized, then the dense version runs."""
     return decode_attention_ref(
         q, dequantize_kv(k_cache, k_scale), dequantize_kv(v_cache, v_scale),
-        q_pos, cache_pos, window=window, softcap=softcap, scale=scale)
+        q_pos, cache_pos, window=window, softcap=softcap, scale=scale,
+        lse=lse)
 
 
 def densify_pool(k_pool, v_pool, block_tables):

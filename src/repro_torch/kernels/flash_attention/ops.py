@@ -6,7 +6,10 @@
 - a CPU tensor runs the plain PyTorch version (``ref.py``);
 - a CUDA tensor launches the hand-written CUDA C++ kernel
   (``kernels/csrc/flash_attention.cu``, built at first use) or raises —
-  there is no fallback.
+  there is no fallback;
+- a meta tensor (the dry run, ``launch.dryrun``) takes the explicit meta
+  route: an output of the right shape and dtype, and the kernel's
+  operations and bytes (``work``) reported to ``kernels.record_work``.
 
 Replaces the TPU kernel ``kernels/flash_attention/kernel.py::
 flash_attention_fwd`` (body ``_kernel``).  On the H100 it is bound by
@@ -35,7 +38,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import build
+from .. import build, record_work
 from .ref import attention_ref
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -95,6 +98,21 @@ def launch_plan(D: int, dtype: torch.dtype) -> Plan:
     return Plan(D, 64, 1, 4 * (64 * (D + 1) + D * 65 + 64 * 65))
 
 
+def visible_pairs(S: int, window: int | None) -> int:
+    """Causal (query, key) pairs with i - j < window: sum_i min(i+1, w)."""
+    if window is None or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def work(B, S, H, K, D, window, item) -> tuple[int, int]:
+    """(bytes, flops) one call needs at least: q, k, v read and out written
+    once; two products of 2·D flops per visible (query, key) pair and head.
+    ``chip_smoke.py``'s bound and the meta route both count this."""
+    nbytes = (2 * B * S * H * D + 2 * B * S * K * D) * item
+    return nbytes, 4 * D * H * B * visible_pairs(S, window)
+
+
 def _check(q, k, v, window, softcap):
     named = {"q": q, "k": k, "v": v}
     for n, x in named.items():
@@ -148,7 +166,13 @@ def _launch(q, k, v, window, softcap, scale):
 
 
 def _routed(q, k, v, window, softcap, scale):
-    """The plain version for CPU tensors, the kernel for CUDA tensors."""
+    """The plain version for CPU tensors, the kernel for CUDA tensors, the
+    kernel's count for meta tensors."""
+    if q.device.type == "meta":
+        B, S, H, D = q.shape
+        nbytes, flops = work(B, S, H, k.shape[2], D, window, q.element_size())
+        record_work("flash_attention", flops, nbytes)
+        return torch.empty_like(q)
     if not q.is_cuda:
         return attention_ref(q, k, v, window=window, softcap=softcap,
                              scale=scale)

@@ -7,7 +7,10 @@ tensor's device picks the path:
 - a CPU tensor runs the plain PyTorch version (``ref.py``);
 - a CUDA tensor launches the hand-written CUDA C++ kernels
   (``kernels/csrc/ssd.cu``, built at first use) or raises — there is no
-  fallback.
+  fallback;
+- a meta tensor (the dry run) takes the explicit meta route: outputs of
+  the right shapes and dtypes, and the kernels' operations and bytes
+  (``work``) reported to ``kernels.record_work``.
 
 Replaces the TPU kernel ``kernels/ssd/kernel.py::ssd_fwd`` (body
 ``_kernel``).  x's dtype alone picks the route (``ssd_route``): bf16 runs
@@ -39,7 +42,7 @@ import ctypes
 
 import torch
 
-from .. import build, workspace
+from .. import build, record_work, workspace
 from .ref import ssd_chunked_ref
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -76,6 +79,23 @@ def workspace_bytes(x, B_, chunk: int) -> int:
     Bb, S, H, P = x.shape
     return 4 * sum(_workspace_parts(Bb, S, H, P, B_.shape[-1],
                                     min(chunk, S) if S else 1))
+
+
+def work(B, S, H, P, N, Q, item, h0, D) -> tuple[int, int]:
+    """(bytes, flops) one call needs at least: x read and y (f32) written,
+    B_ and C_, dt, A (and D), h_final (and h0) once; per chunk of L rows
+    C·Bᵀ over its causal pairs, and per head the scores' product with x
+    and the inter-chunk term and state carry.  ``chip_smoke.py``'s bound
+    and the meta route both count this."""
+    nbytes = (B * S * H * P * (item + 4) + 2 * B * S * N * item
+              + B * S * H * 4 + H * 4 * (2 if D else 1)
+              + B * H * P * N * 4 * (2 if h0 else 1))
+    flops = 0
+    for c0 in range(0, S, Q):
+        L = min(Q, S - c0)
+        pairs = L * (L + 1) // 2
+        flops += 2 * N * pairs + H * (2 * P * pairs + 4 * L * P * N)
+    return nbytes, B * flops
 
 
 def _kernel():
@@ -159,7 +179,16 @@ def _launch(x, dt, A, B_, C_, D, h0, chunk):
 
 
 def _routed(x, dt, A, B_, C_, D, h0, chunk):
-    """The plain version for CPU tensors, the kernels for CUDA tensors."""
+    """The plain version for CPU tensors, the kernels for CUDA tensors, the
+    kernels' count for meta tensors."""
+    if x.device.type == "meta":
+        Bb, S, H, P = x.shape
+        N = B_.shape[-1]
+        nbytes, flops = work(Bb, S, H, P, N, min(chunk, S) if S else 1,
+                             x.element_size(), h0 is not None, D is not None)
+        record_work("ssd", flops, nbytes)
+        return (x.new_empty((Bb, S, H, P), dtype=torch.float32),
+                x.new_empty((Bb, H, P, N), dtype=torch.float32))
     if not x.is_cuda:
         return ssd_chunked_ref(x, dt, A, B_, C_, D, chunk=chunk, h0=h0)
     return _launch(x, dt, A, B_, C_, D, h0, chunk)

@@ -161,29 +161,35 @@ def batch_shardings(batch_tree_shapes: dict, mesh: Mesh, rules: dict):
     return {k: spec(v) for k, v in batch_tree_shapes.items()}
 
 
-def tensor_parallel(cfg: ModelConfig, mesh: Mesh):
-    """How the paged steps run over a serving slice (``models.
-    TensorParallel``), from the rules ``param_shardings`` places the params
-    by.  A slice is (data=1, model=m); over m > 1 shards the step splits q
-    heads, kv heads, ffn columns and the vocab over 'model' where the rules
-    do.  A one-device slice splits nothing.
+def tensor_parallel(cfg: ModelConfig, mesh: Mesh, *, rules: dict | None = None,
+                    row: int = 0):
+    """How a step runs over row ``row`` of ``mesh``'s 'model' axis
+    (``models.TensorParallel``), from the rules the params are placed by
+    (``rules``, default ``make_rules(cfg, mesh)``).  Row r is the r-th
+    group of 'model' shards in mesh order ('model' is the last axis); over
+    m > 1 shards the step splits q heads, kv heads, ffn columns, the vocab
+    and Mamba-2's SSM heads over 'model' where the rules do.  A one-device
+    row splits nothing.
 
     Where the q heads split and the kv heads do not (``n_kv_heads % m``),
-    every shard holds the whole pool and its q heads read one kv head of
-    it: each shard's H/m heads must lie in one kv-head group."""
-    from repro_torch.models import TensorParallel
+    every shard holds the whole cache or pool and its q heads read one kv
+    head of it: each shard's H/m heads must lie in one kv-head group."""
+    from repro_torch.models import TensorParallel, layer_specs
+    from repro_torch.models.mamba2 import shard_columns
 
-    for axis, n in mesh.shape.items():
-        if axis != "model" and n > 1:
-            raise ValueError(f"a serving slice is (data=1, model=m); mesh "
-                             f"{mesh.shape} has {axis}={n}")
-    devices = tuple(ld.device for ld in mesh.devices.flat)
+    names = mesh.axis_names
+    if "model" in names and names[-1] != "model":
+        raise ValueError(f"'model' must be the last mesh axis, got {names}")
     m = mesh.shape.get("model", 1)
+    if not 0 <= row < mesh.size // m:
+        raise ValueError(f"row {row} outside the mesh's {mesh.size // m}")
+    devices = tuple(ld.device for ld in
+                    list(mesh.devices.flat)[row * m:(row + 1) * m])
     if m == 1:
         return TensorParallel(devices=devices)
-    rules = make_rules(cfg, mesh)
+    rules = make_rules(cfg, mesh) if rules is None else rules
     if rules["expert"] == "model":
-        raise ValueError(f"config {cfg.name}: the sharded tick splits no "
+        raise ValueError(f"config {cfg.name}: the sharded step splits no "
                          f"experts over 'model' (n_experts={cfg.n_experts}, "
                          f"model={m})")
     heads = rules["heads"] == "model"
@@ -201,10 +207,14 @@ def tensor_parallel(cfg: ModelConfig, mesh: Mesh):
     if rules["vocab"] == "model":
         pl = Placement(mesh, leaf_spec(("vocab", "embed"), rules))
         vocab = tuple((r[0].start, r[0].stop)
-                      for r in pl.slices((cfg.vocab_size, cfg.d_model)))
-    return TensorParallel(devices=devices, heads=heads,
-                          ffn=rules["ffn"] == "model", vocab=vocab,
-                          kv_heads=tuple(kv_heads))
+                      for r in pl.slices((cfg.vocab_size, cfg.d_model))[:m])
+    ffn = rules["ffn"] == "model"
+    ssm = ffn and any(s.kind == "mamba" for s in layer_specs(cfg))
+    if ssm:
+        shard_columns(cfg, m)          # raises unless the heads divide
+    return TensorParallel(devices=devices, heads=heads, ffn=ffn, vocab=vocab,
+                          kv_heads=tuple(kv_heads), ssm=ssm,
+                          ssm_state=ssm and rules["heads"] == "model")
 
 
 # ========================================================= optimizer state

@@ -1,0 +1,516 @@
+"""Sharded dense programs over a (data, model) or (pod, data, model) mesh.
+
+The counterpart of the reference's ``jax.jit`` with ``in_shardings`` over
+the production mesh, for the dense entry points: ``Program`` places the
+params, caches and batch by the logical-axis rules (``launch.sharding``)
+and runs ``models.forward`` / ``prefill`` / ``decode_step`` row by row:
+each row of the mesh (one group of 'model' shards, a ``TensorParallel``)
+runs its local batch, and each shard its local heads, ffn columns, vocab
+rows and SSM heads.  ``train_step`` adds the gradient reduction over the
+rows and over the shards that replicate a leaf, in shard order, the
+clipped global norm over every shard's leaves, and the optimizer's
+lockstep update (``Optimizer.update_shards``).
+
+Mamba-2 params and conv caches are placed in the shard-major layout of
+``models.mamba2.shard_columns`` (so the rules' even split of the ``ffn``
+dim is a split by SSM heads); ``gather_*`` undo it.
+
+A decode step over caches split over the sequence (``long_500k``: batch 1,
+``cache_seq`` over 'data') runs the rows in lockstep: one row's program,
+each shard's attention over the parts of its cache that the rows hold,
+merged by their log-sum-exps (``attention._seq_merge``).  What the port
+does not yet run raises ``NotImplementedError`` naming its stage
+(``coverage``): experts over 'data' (Stage 5, the MoE configs on a mesh
+with data > 1), and a prefill that would build a sequence-split cache.
+"""
+from __future__ import annotations
+
+import dataclasses
+import re
+
+import torch
+
+from repro_torch.core.sharded import (Placement, ShardedTensor, local_tree,
+                                      place, record_collective)
+from repro_torch.models import (cache_axes, decode_step, forward, layer_specs,
+                                param_axes, prefill, stacked_leaves)
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.mamba2 import shard_columns
+from repro_torch.tree import named_leaves, tree_leaves, tree_map
+
+from .mesh import Mesh
+from .sharding import (batch_shardings, leaf_spec, make_rules, map_axes,
+                       opt_state_axes, tensor_parallel, tree_shardings)
+
+_MAMBA_COLS = re.compile(r"mamba/(in_proj|conv_w|conv_b)(/|$)")
+_CONV_CACHE = re.compile(r"^\d+/conv$")
+
+
+def _axis_size(mesh: Mesh, target) -> int:
+    if target is None:
+        return 1
+    n = 1
+    for a in (target if isinstance(target, tuple) else (target,)):
+        n *= mesh.shape.get(a, 1)
+    return n
+
+
+def coverage(cfg: ModelConfig, mesh: Mesh, rules: dict, *,
+             kind: str) -> None:
+    """Raise ``NotImplementedError`` naming the stage a sharded program of
+    ``cfg`` over ``mesh`` needs and the port lacks; ``kind``: "train" /
+    "score", "prefill" or "decode"."""
+    if cfg.n_experts and _axis_size(mesh, rules["expert"]) > 1:
+        raise NotImplementedError(
+            f"Stage 5 (experts over 'data'): config {cfg.name} puts its "
+            f"{cfg.n_experts} experts over {rules['expert']!r} of mesh "
+            f"{mesh.shape}; the port's MoE layer runs only with the experts "
+            f"whole on every shard")
+    attn = any(s.kind != "mamba" for s in layer_specs(cfg))
+    if kind == "prefill" and attn and \
+            _axis_size(mesh, rules["cache_seq"]) > 1:
+        raise NotImplementedError(
+            f"Stage 4 covers decode steps over a cache split over the "
+            f"sequence; a prefill building one (config {cfg.name}, "
+            f"cache_seq over {rules['cache_seq']!r} of mesh {mesh.shape}) "
+            f"is not ported")
+    if kind == "decode" and attn and rules["cache_seq"] is not None \
+            and rules["cache_batch"] is not None:
+        raise NotImplementedError(
+            f"a cache split over both the batch and the sequence (config "
+            f"{cfg.name}, mesh {mesh.shape}) is not ported")
+    for name, axes in named_leaves(param_axes(cfg),
+                                   is_leaf=lambda x: isinstance(x, tuple)):
+        for entry in leaf_spec(axes, rules):
+            if entry not in (None, "model") and _axis_size(mesh, entry) > 1:
+                raise NotImplementedError(
+                    f"params split over {entry!r} (param {name}): the "
+                    f"sharded steps split params over 'model' only")
+
+
+class Program:
+    """The sharded dense programs of ``cfg`` over ``mesh`` by ``rules``
+    (default ``make_rules(cfg, mesh, batch=batch)``)."""
+
+    def __init__(self, cfg: ModelConfig, mesh: Mesh, *,
+                 rules: dict | None = None, batch: int | None = None,
+                 represent: bool = False):
+        self.cfg, self.mesh = cfg, mesh
+        self.rules = make_rules(cfg, mesh, batch=batch) if rules is None \
+            else rules
+        self.m = mesh.shape.get("model", 1)
+        self.n_rows = mesh.size // self.m
+        self.tps = [tensor_parallel(cfg, mesh, rules=self.rules, row=r)
+                    for r in range(self.n_rows)]
+        # ``represent``: run each row's first shard only, standing for all
+        # (on meta every shard has its shapes; the dry run's per-device
+        # figures are one shard's); collectives keep the whole group
+        self.m_run = 1 if represent else self.m
+        if represent:
+            self.tps = [dataclasses.replace(
+                tp, devices=tp.devices[:1], kv_heads=tp.kv_heads[:1],
+                vocab=tp.vocab[:1] if tp.vocab else None, group=self.m)
+                for tp in self.tps]
+        self.param_placements = tree_shardings(param_axes(cfg), mesh,
+                                               self.rules)
+        self.cols = (shard_columns(cfg, self.m) if self.tps[0].ssm
+                     else None)
+        self.represent = represent
+        self.seq_rows = self._seq_rows()
+
+    def _seq_rows(self) -> list[int]:
+        """The rows holding the parts of a decode cache split over the
+        sequence, in part order (one per part; empty when not split)."""
+        if _axis_size(self.mesh, self.rules["cache_seq"]) <= 1 or all(
+                s.kind == "mamba" for s in layer_specs(self.cfg)):
+            return []
+        pl = Placement(self.mesh, leaf_spec(("cache_batch", "cache_seq"),
+                                            self.rules))
+        parts = _axis_size(self.mesh, self.rules["cache_seq"])
+        first: dict = {}
+        for i, region in enumerate(pl.slices((1, parts))):
+            first.setdefault(region[1].start, i // self.m)
+        return [first[k] for k in sorted(first)]
+
+    # ---------------------------------------------------------- placement
+    def _columns(self, name: str, t: torch.Tensor, *,
+                 inverse: bool = False) -> torch.Tensor:
+        """``t`` with its last dim in (or back from) the shard-major
+        Mamba-2 layout, where ``name`` is such a leaf's."""
+        if self.cols is None or t.dim() == 0:
+            return t
+        proj, conv = self.cols
+        if _MAMBA_COLS.search(name) or _CONV_CACHE.search(name):
+            idx = next((i for i in (proj, conv)
+                        if t.shape[-1] == len(i)), None)
+            if idx is not None:
+                idx = torch.argsort(idx) if inverse else idx
+                return t.index_select(-1, idx.to(t.device))
+        return t
+
+    def _place(self, tree, placements, permute: bool = True):
+        names = [n for n, _ in named_leaves(tree)]
+        pls = iter(tree_leaves(placements))
+        it = iter([place(self._columns(n, t) if permute else t, self.mesh,
+                         next(pls).spec)
+                   for n, t in zip(names, tree_leaves(tree))])
+        return tree_map(lambda _: next(it), tree)
+
+    def _gather(self, tree, device):
+        names = [n for n, _ in named_leaves(tree)]
+        it = iter([self._columns(n, st.gather(device), inverse=True)
+                   for n, st in zip(names, tree_leaves(tree))])
+        return tree_map(lambda _: next(it), tree)
+
+    def place_params(self, params):
+        """The params as ShardedTensors by the rules."""
+        return self._place(params, self.param_placements)
+
+    def gather_params(self, placed, device="cpu"):
+        return self._gather(placed, device)
+
+    def cache_placements(self):
+        return tree_shardings(cache_axes(self.cfg), self.mesh, self.rules)
+
+    def place_caches(self, caches):
+        coverage(self.cfg, self.mesh, self.rules, kind="decode")
+        return self._place(caches, self.cache_placements())
+
+    def gather_caches(self, placed, device="cpu"):
+        return self._gather(placed, device)
+
+    def place_batch(self, batch: dict) -> dict:
+        """A batch's tensors placed with their leading dim over the rules'
+        batch axes."""
+        pls = batch_shardings(batch, self.mesh, self.rules)
+        return {k: place(v, self.mesh, pls[k].spec) for k, v in
+                batch.items()}
+
+    def opt_placements(self, opt_name: str):
+        return map_axes(lambda a: Placement(self.mesh,
+                                            leaf_spec(a, self.rules)),
+                        opt_state_axes(opt_name, param_axes(self.cfg),
+                                       self.cfg))
+
+    def place_state(self, state, opt_name: str):
+        """A ``TrainState`` (params, OptState) placed by the rules."""
+        from repro_torch.training.train import TrainState
+
+        return TrainState(self.place_params(state.params),
+                          self._place(state.opt_state,
+                                      self.opt_placements(opt_name)))
+
+    def gather_state(self, placed, device="cpu"):
+        from repro_torch.training.train import TrainState
+
+        return TrainState(self._gather(placed.params, device),
+                          self._gather(placed.opt_state, device))
+
+    def init_state(self, opt, params_placed):
+        """The optimizer state of placed params, each shard's made from its
+        own leaves (no copy of the whole state on any device)."""
+        from repro_torch.training.train import TrainState
+
+        locals_ = [opt.init(stacked_leaves(local_tree(params_placed, i),
+                                           self.cfg))
+                   for i in range(self.mesh.size)]
+        pls = tree_leaves(self.opt_placements(opt.name))
+        flat = [tree_leaves(st) for st in locals_]
+        shape_of = lambda pl, t: tuple(
+            n * pl.parts(i) for i, n in enumerate(t.shape))
+        leaves = [ShardedTensor(pl, shape_of(pl, flat[0][j]),
+                                [f[j] for f in flat])
+                  for j, pl in enumerate(pls)]
+        it = iter(leaves)
+        return TrainState(params_placed, tree_map(lambda _: next(it),
+                                                  locals_[0]))
+
+    # ----------------------------------------------------------- programs
+    def _rows(self, rows):
+        return range(self.n_rows) if rows is None else rows
+
+    def _local(self, tree, r: int) -> list:
+        return [local_tree(tree, r * self.m + s) for s in range(self.m_run)]
+
+    def _row_input(self, t: ShardedTensor, r: int) -> torch.Tensor:
+        return t.shards[r * self.m]
+
+    def _rows_out(self, outs: dict, like: ShardedTensor) -> ShardedTensor:
+        """Each row's output (on its first shard's device) as a
+        ShardedTensor split like ``like``'s leading dim."""
+        shards = []
+        for i, ld in enumerate(self.mesh.devices.flat):
+            shards.append(outs[i // self.m].to(ld.device, non_blocking=True))
+        shape = (like.shape[0],) + tuple(shards[0].shape[1:])
+        return ShardedTensor(Placement(self.mesh, like.spec[:1]), shape,
+                             shards)
+
+    def forward(self, params, inputs, positions, *, mode="score", rows=None):
+        """``models.forward`` over the mesh: (logits, aux) per row run
+        (``rows`` None: all, as ShardedTensor logits)."""
+        coverage(self.cfg, self.mesh, self.rules, kind="score")
+        out = {r: forward(self._local(params, r),
+                          self._row_input(inputs, r),
+                          self._row_input(positions, r), self.cfg, mode=mode,
+                          tp=self.tps[r])
+               for r in self._rows(rows)}
+        if rows is not None:
+            return out
+        return self._rows_out({r: o[0] for r, o in out.items()}, inputs)
+
+    def prefill(self, params, inputs, positions, *, max_len: int,
+                rows=None):
+        """``models.prefill`` over the mesh: (logits, caches), the caches
+        placed by the rules (``rows`` given: each row's raw (logits, the
+        shards' cache lists))."""
+        coverage(self.cfg, self.mesh, self.rules, kind="prefill")
+        out = {r: prefill(self._local(params, r), self._row_input(inputs, r),
+                          self._row_input(positions, r), self.cfg,
+                          max_len=max_len, tp=self.tps[r])
+               for r in self._rows(rows)}
+        if rows is not None:
+            return out
+        pls = tree_leaves(self.cache_placements())
+        per = [tree_leaves(out[i // self.m][1][i % self.m])
+               for i in range(self.mesh.size)]
+        shapes = [tuple(n * pl.parts(k) for k, n in enumerate(t.shape))
+                  for pl, t in zip(pls, per[0])]
+        leaves = iter([ShardedTensor(pl, shape, [p[j] for p in per])
+                       for j, (pl, shape) in enumerate(zip(pls, shapes))])
+        caches = tree_map(lambda _: next(leaves), out[0][1][0])
+        return self._rows_out({r: o[0] for r, o in out.items()},
+                              inputs), caches
+
+    def decode_step(self, params, caches, inputs, positions, *, rows=None):
+        """``models.decode_step`` over the mesh; ``caches`` (placed) are
+        updated in place.  Returns the logits (each row's, ``rows``
+        given)."""
+        coverage(self.cfg, self.mesh, self.rules, kind="decode")
+        if self.seq_rows:
+            logits = self._seq_decode(params, caches, inputs, positions)
+            out = {r: logits for r in self._rows(rows)}
+        else:
+            out = {r: decode_step(
+                self._local(params, r), self._local(caches, r),
+                self._row_input(inputs, r), self._row_input(positions, r),
+                self.cfg, tp=self.tps[r])[0] for r in self._rows(rows)}
+        return out if rows is not None else self._rows_out(out, inputs)
+
+    def _seq_decode(self, params, caches, inputs, positions):
+        """One decode step over caches split over the sequence: the batch
+        is the same on every row, so the first row's program runs, each
+        shard's attention layers reading the parts of its cache that the
+        ``seq_rows`` hold (only the first when ``represent``); the other
+        layers' caches are the first row's."""
+        rows = self.seq_rows[:1] if self.represent else self.seq_rows
+        stride = (self.seq_rows[1] - self.seq_rows[0]) * self.m
+        tp = dataclasses.replace(self.tps[self.seq_rows[0]],
+                                 seq=(len(self.seq_rows), stride))
+        specs = layer_specs(self.cfg)
+        local = []
+        for s in range(self.m_run):
+            trees = [local_tree(caches, r * self.m + s) for r in rows]
+            local.append([trees[0][li] if spec.kind == "mamba"
+                          else [t[li] for t in trees]
+                          for li, spec in enumerate(specs)])
+        r0 = self.seq_rows[0]
+        return decode_step(self._local(params, r0), local,
+                           self._row_input(inputs, r0),
+                           self._row_input(positions, r0), self.cfg,
+                           tp=tp)[0]
+
+    # --------------------------------------------------------- train step
+    def splits(self) -> dict:
+        """Each JAX leaf name → its split dim over 'model' in the stacked
+        leaf (a per-layer tuple adds the leading repeat axis), or None."""
+        pls = stacked_leaves(self.param_placements, self.cfg)
+        out = {}
+        for name, pl in pls.items():
+            stacked = isinstance(pl, tuple)
+            pl = pl[0] if stacked else pl
+            dims = [i for i, e in enumerate(pl.spec) if e == "model"
+                    and self.m > 1]
+            out[name] = (dims[0] + int(stacked)) if dims else None
+        return out
+
+    def _grad_parts(self, acc: dict, j: int, shards, rows: list) -> list:
+        """The parts summed into leaf ``j``'s grad on ``shards``: each
+        distinct batch row's (``rows``) grads of that leaf, shard-major."""
+        return [acc[r * self.m + q][j] for q in shards for r in rows]
+
+    def train_step(self, opt, *, grad_accum: int = 1,
+                   max_grad_norm: float = 1.0):
+        """``train_step(state, batch, rows=None) -> (state, metrics)`` over
+        the mesh, ``state`` and ``batch`` placed (``place_state``,
+        ``place_batch``).  The loss is the reference's: microbatch i is
+        rows [i·B/a, (i+1)·B/a) of the global batch, its CE a masked mean
+        over it, the loss the mean over microbatches.  Each row splits its
+        local batch into ``grad_accum`` chunks, each inside one reference
+        microbatch, so the per-microbatch denominators (an all-reduce) make
+        every chunk's share exact.  ``rows``: run only these rows (the dry
+        run's one batch shard); the reductions over the others are then
+        recorded, not run."""
+        from repro_torch.training.train import TrainState, nll_sum
+
+        cfg, m, m_run = self.cfg, self.m, self.m_run
+        splits = self.splits()
+        coverage(cfg, self.mesh, self.rules, kind="train")
+
+        def step(state, batch, rows=None):
+            params, opt_state = state
+            run = list(self._rows(rows))
+            first = batch["inputs"]
+            regions = [first.placement.slices(first.shape)[r * m][0]
+                       for r in range(self.n_rows)]
+            owner: dict = {}
+            for r, g in enumerate(regions):
+                owner.setdefault((g.start, g.stop), r)
+            keys = list(owner)
+            # rows that replicate an earlier row's batch add nothing
+            distinct = [r for r in run
+                        if owner[(regions[r].start, regions[r].stop)] == r]
+            B = first.shape[0]
+            if B % grad_accum:
+                raise ValueError(f"batch {B} not divisible by grad_accum "
+                                 f"{grad_accum}")
+            bm = B // grad_accum
+            dev0 = self.tps[run[0]].devices[0]
+            # each chunk's reference microbatch and its denominator
+            chunks = []
+            for r in distinct:
+                lo, hi = regions[r].start, regions[r].stop
+                c = (hi - lo) // grad_accum
+                if (hi - lo) % grad_accum:
+                    raise ValueError(f"a row's {hi - lo} rows do not split "
+                                     f"into {grad_accum} chunks")
+                for i in range(grad_accum):
+                    start = lo + i * c
+                    mb = start // bm
+                    if (start + c - 1) // bm != mb:
+                        raise ValueError("a chunk straddles two microbatches")
+                    chunks.append((r, i, c, mb))
+            den = torch.zeros(grad_accum, dtype=torch.float32, device=dev0)
+            mask = batch.get("mask")
+            for r, i, c, mb in chunks:
+                # a chunk's token count: no host round trip either way
+                den[mb] += (torch.sum(self._row_input(mask, r)[
+                    i * c:(i + 1) * c]).to(dev0) if mask is not None else
+                    float(c * batch["targets"].shape[1]))
+            record_collective("all-reduce", 4 * grad_accum, len(keys), m)
+            den = torch.clamp(den, min=1.0)
+
+            flat_params = [tree_leaves(local_tree(params, s))
+                           for s in range(m_run)]
+
+            def chunk(r, i, c, mb):
+                """Row r's chunk i: (each running shard's grads, its CE
+                share, its aux, its share of the loss)."""
+                sl = slice(i * c, (i + 1) * c)
+                local = {k: self._row_input(v, r)[sl]
+                         for k, v in batch.items()}
+                views = [tree_map(lambda t: t.detach().requires_grad_(),
+                                  local_tree(params, r * m + s))
+                         for s in range(m_run)]
+                flat = [t for v in views for t in tree_leaves(v)]
+                with torch.enable_grad():
+                    logits, aux = forward(views, local["inputs"],
+                                          local["positions"], cfg,
+                                          mode="train", tp=self.tps[r])
+                    part = nll_sum(logits.float(), local["targets"],
+                                   local.get("mask"))
+                    part = part / den[mb].to(part.device)
+                    total = (part + cfg.router_aux_coef * aux) / grad_accum
+                    grads = torch.autograd.grad(total, flat,
+                                                materialize_grads=True)
+                per = len(flat) // m_run
+                return ([list(grads[s * per:(s + 1) * per])
+                         for s in range(m_run)],
+                        part.detach(), aux.detach(), total.detach())
+
+            acc: dict[int, list] = {}
+            ce = torch.zeros(grad_accum, dtype=torch.float32, device=dev0)
+            aux_mb = torch.zeros(grad_accum, dtype=torch.float32,
+                                 device=dev0)
+            loss = torch.zeros((), dtype=torch.float32, device=dev0)
+            for r, i, c, mb in chunks:
+                grads, part, aux, total = chunk(r, i, c, mb)
+                for s, g in enumerate(grads):
+                    # one chunk keeps the grads' own dtype; chunks add in f32
+                    key = r * m + s
+                    acc[key] = g if key not in acc else [
+                        a.float() + b.float() for a, b in zip(acc[key], g)]
+                ce[mb] += part.to(dev0)
+                aux_mb[mb] = aux.to(dev0)
+                loss = loss + total.to(dev0)
+            record_collective("all-reduce", 4, len(keys), m)
+
+            # every leaf's grad: summed over the distinct batch rows, then
+            # over the model shards that replicate it, in shard order
+            pls = tree_leaves(self.param_placements)
+            ref = tree_leaves(local_tree(params, 0))
+            grads_s: list[list] = [[] for _ in range(m_run)]
+            for j, pl in enumerate(pls):
+                split = pl.splits(ref[j].dim()) and m > 1
+                record_collective("all-reduce", ref[j].numel() * 4,
+                                  len(keys) * (1 if split else m),
+                                  m if split else 1)
+                total = None
+                for s in range(m_run):
+                    if total is None or split:
+                        parts = self._grad_parts(
+                            acc, j, [s] if split else range(m_run), distinct)
+                        total = parts[0]
+                        if len(parts) > 1:
+                            total = total.float()
+                            for t in parts[1:]:
+                                total = total + t.to(total.device).float()
+                            if grad_accum == 1:
+                                total = total.to(flat_params[s][j].dtype)
+                    dev = flat_params[s][j].device
+                    grads_s[s].append(total.to(dev, non_blocking=True))
+                for r in distinct:          # each row's part, now summed
+                    for s in range(m_run):
+                        acc[r * m + s][j] = None
+            # global norm: each region once
+            sums = []
+            for j, pl in enumerate(pls):
+                split = pl.splits(ref[j].dim()) and m > 1
+                shards = range(m_run) if split else [0]
+                t = None
+                for q in shards:
+                    v = torch.sum(torch.square(grads_s[q][j].float()))
+                    t = v if t is None else t + v.to(t.device)
+                sums.append(t.to(dev0))
+            record_collective("all-reduce", 4 * len(pls), m)
+            gnorm = torch.sqrt(torch.sum(torch.stack(sums)))
+            scale = torch.clamp(max_grad_norm / (gnorm + 1e-9), max=1.0)
+            grads_s = [[(g.float() * scale.to(g.device)).to(g.dtype)
+                        for g in gl] for gl in grads_s]
+            # the update: every row's shards, in lockstep per row, each
+            # with the grads on its own device
+            step_t = None
+            for r in run:
+                idx = [r * m + s for s in range(m_run)]
+                local = [local_tree(params, i) for i in idx]
+                leaves = [stacked_leaves(t, cfg) for t in local]
+                states = [local_tree(opt_state, i) for i in idx]
+                gl = [stacked_leaves(tree_map(
+                    lambda p, g: g.to(p.device, non_blocking=True), t,
+                    _rebuild(t, grads_s[s])), cfg)
+                      for s, t in enumerate(local)]
+                new = opt.update_shards(leaves, states, gl, splits, m)
+                for i, st in zip(idx, new):
+                    opt_state.step.shards[i] = st.step
+                step_t = new[0].step
+            metrics = {"ce": ce[grad_accum - 1], "aux_loss":
+                       aux_mb[grad_accum - 1], "loss": loss,
+                       "grad_norm": gnorm, "step": step_t}
+            return TrainState(params, opt_state), metrics
+
+        return step
+
+
+def _rebuild(like, leaves: list):
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+

@@ -34,10 +34,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.sharded import record_collective
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention import quant as da_quant
 from repro_torch.kernels.flash_attention import ops as fa_ops
 
+from . import slices
 from .config import LayerSpec, ModelConfig
 from .layers import (dense_init, dtype_of, matmul_f32, rmsnorm, rmsnorm_axes,
                      rmsnorm_init, rope)
@@ -82,11 +84,13 @@ def cache_axes() -> dict:
 
 
 def init_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int,
-               *, device) -> dict:
+               *, device, kv_heads: int | None = None) -> dict:
     """One layer's dense decode cache: S_c = max_len slots, or a ring of
-    min(window, max_len) for a windowed layer; every slot empty (-1)."""
+    min(window, max_len) for a windowed layer; every slot empty (-1).
+    ``kv_heads`` defaults to the config's (a shard's split cache holds
+    fewer)."""
     S_c = min(spec.window, max_len) if spec.window else max_len
-    shape = (batch, S_c, cfg.n_kv_heads, cfg.head_dim)
+    shape = (batch, S_c, kv_heads or cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
             "v": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
             "pos": torch.full((batch, S_c), -1, dtype=torch.int32,
@@ -109,6 +113,47 @@ def _cache_write(cache: dict, k_new, v_new, positions) -> None:
     cache["k"][bidx, slots] = k_new.to(cache["k"].dtype)
     cache["v"][bidx, slots] = v_new.to(cache["v"].dtype)
     cache["pos"][bidx, slots] = positions.to(torch.int32)
+
+
+def _seq_write(parts: list, k_new, v_new, positions, S_c: int) -> None:
+    """Write each row's one new entry into the part of a cache split over
+    the sequence (``parts``: the parts held here, from the first, each of
+    S_c / group slots) that holds its slot ``positions % S_c``, in place;
+    every other part's slot keeps its contents."""
+    S_p = parts[0]["pos"].shape[1]
+    bidx = torch.arange(positions.shape[0], device=positions.device)[:, None]
+    slot = (positions % S_c).long()
+    for i, part in enumerate(parts):
+        local = slot - i * S_p
+        own = (local >= 0) & (local < S_p)
+        local = local.clamp(0, S_p - 1)
+        for name, new in (("k", k_new), ("v", v_new), ("pos", positions)):
+            leaf = part[name]
+            old = leaf[bidx, local]
+            keep = own.reshape(own.shape + (1,) * (old.dim() - 2))
+            leaf[bidx, local] = torch.where(keep, new.to(leaf.dtype), old)
+
+
+def _seq_merge(outs: list, lses: list, seq: tuple, dtype) -> torch.Tensor:
+    """The attention over the whole sequence from each part's output and
+    log-sum-exp (K4's), merged in part order with f32 weights
+    exp(lse - max); the parts held elsewhere (the dry run runs one on
+    meta) stand in by the first's shape (``slices.tiled``).  An all-gather
+    of (out, lse) over the sequence group ``seq`` = (group size, its
+    stride in mesh order)."""
+    group, stride = seq
+    outs, lses = slices.tiled(outs, group), slices.tiled(lses, group)
+    top = torch.stack(lses).amax(dim=0)
+    num = den = None
+    for o, l in zip(outs, lses):
+        w = torch.exp(l - top)
+        part = w[..., None] * o.float()
+        num = part if num is None else num + part
+        den = w if den is None else den + w
+    B, H, D = outs[0].shape
+    record_collective("all-gather", group * B * H * (D + 1) * 4, group,
+                      stride)
+    return (num / den[..., None]).to(dtype)
 
 
 # ------------------------------------------------------------------ paging
@@ -201,9 +246,28 @@ def _qkv(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
     return q, k, v
 
 
+def _out(params: dict, out: torch.Tensor, lead, cfg: ModelConfig,
+         partial: bool) -> torch.Tensor:
+    """The ``wo`` product of the attention output; ``partial``: a shard's
+    unrounded f32 share (``layers.matmul_f32``)."""
+    wo = params["wo"].reshape(-1, cfg.d_model)
+    out = out.reshape(*lead, -1)
+    return matmul_f32(out, wo) if partial else out @ wo
+
+
+def _kv_cut(t: torch.Tensor, kv_heads) -> torch.Tensor:
+    """The kv heads (k0, k1) of a (..., K, D) tensor, contiguous (the
+    kernels take contiguous operands)."""
+    if kv_heads is None:
+        return t
+    return t[..., kv_heads[0]:kv_heads[1], :].contiguous()
+
+
 def attention(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
               cfg: ModelConfig, spec: LayerSpec,
-              cache: dict | None = None) -> tuple[torch.Tensor, dict | None]:
+              cache: dict | list | None = None,
+              kv_heads: tuple | None = None, partial: bool = False,
+              seq: tuple | None = None) -> tuple[torch.Tensor, dict | None]:
     """x (B, T, d), positions (B, T).  Returns (y (B, T, d), cache).
 
     Without a cache: causal self-attention over whole sequences (train /
@@ -213,8 +277,24 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
     With a dense cache (decode, T = 1): write this step's K/V into the cache
     in place, then attend over it through K4.  The JAX package also accepts
     T > 1 here, but no path of it passes more than one token (prefill goes
-    through ``prefill_cache``), so that raises."""
+    through ``prefill_cache``), so that raises.
+
+    A tensor-parallel shard passes its slice of the heads in ``params``;
+    ``kv_heads`` (k0, k1) is the range of replicated kv heads its q heads
+    read (without a cache only those are projected; a replicated cache is
+    written whole and read in that range), and ``partial`` returns its
+    unrounded f32 share of the ``wo`` product.
+
+    A cache split over the sequence (``seq`` = (group, stride): a list of
+    the parts held here) takes the new entry in the part that holds its
+    slot; each part attends through K4, which also returns its
+    log-sum-exp, and the parts' outputs merge by it (``_seq_merge``)."""
     B, T, _ = x.shape
+    if cache is None and kv_heads is not None:
+        k0, k1 = kv_heads
+        params = dict(params, wk=params["wk"][:, k0:k1],
+                      wv=params["wv"][:, k0:k1])
+        kv_heads = None
     q, k, v = _qkv(params, x, positions, cfg=cfg, spec=spec)
     if cache is None:
         out = fa_ops.flash_attention(q, k, v, positions=positions,
@@ -227,30 +307,44 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
                 f"attention over a dense cache with T = {T} > 1 new tokens "
                 f"is on no path of the JAX package (its prefill builds the "
                 f"cache with prefill_cache)")
-        _cache_write(cache, k, v, positions)
-        out = da_ops.decode_attention(
-            q[:, 0].contiguous(), cache["k"], cache["v"],
-            positions[:, 0].contiguous(), cache["pos"], window=spec.window,
-            softcap=cfg.attn_logit_softcap, scale=cfg.head_dim ** -0.5)
-    return out.reshape(B, T, -1) @ params["wo"].reshape(-1, cfg.d_model), cache
+        kw = dict(window=spec.window, softcap=cfg.attn_logit_softcap,
+                  scale=cfg.head_dim ** -0.5)
+        parts = cache if seq is not None else [cache]
+        if seq is not None:
+            _seq_write(parts, k, v, positions,
+                       parts[0]["pos"].shape[1] * seq[0])
+        else:
+            _cache_write(cache, k, v, positions)
+        res = [da_ops.decode_attention(
+            q[:, 0].contiguous(), _kv_cut(p["k"], kv_heads),
+            _kv_cut(p["v"], kv_heads), positions[:, 0].contiguous(),
+            p["pos"], lse=seq is not None, **kw) for p in parts]
+        out = res[0] if seq is None else _seq_merge(
+            [r[0] for r in res], [r[1] for r in res], seq, q.dtype)
+    return _out(params, out, (B, T), cfg, partial), cache
 
 
 def prefill_cache(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
-                  cfg: ModelConfig, spec: LayerSpec, max_len: int
+                  cfg: ModelConfig, spec: LayerSpec, max_len: int,
+                  kv_heads: tuple | None = None, partial: bool = False
                   ) -> tuple[torch.Tensor, dict]:
     """Attention over the prompt (K2: positions 0..S-1, which the dense
     engine always passes) AND the layer's decode cache for ``max_len``
-    positions.  The JAX package attends with its XLA path here
-    (``_attend_chunked``), which computes the same function."""
+    positions, of the kv heads the weights hold.  The JAX package attends
+    with its XLA path here (``_attend_chunked``), which computes the same
+    function.  ``kv_heads`` and ``partial``: as in ``attention`` (the
+    cache holds every kv head; K2 reads the range)."""
     B, S, _ = x.shape
     q, k, v = _qkv(params, x, positions, cfg=cfg, spec=spec)
-    out = fa_ops.flash_attention(q, k, v, positions=positions,
+    out = fa_ops.flash_attention(q, _kv_cut(k, kv_heads),
+                                 _kv_cut(v, kv_heads), positions=positions,
                                  window=spec.window,
                                  softcap=cfg.attn_logit_softcap,
                                  scale=cfg.head_dim ** -0.5)
-    cache = init_cache(cfg, spec, B, max_len, device=x.device)
+    cache = init_cache(cfg, spec, B, max_len, device=x.device,
+                       kv_heads=k.shape[2])
     _cache_write(cache, k, v, positions)
-    return out.reshape(B, S, -1) @ params["wo"].reshape(-1, cfg.d_model), cache
+    return _out(params, out, (B, S), cfg, partial), cache
 
 
 def paged_attention(params: dict, x: torch.Tensor, positions: torch.Tensor,

@@ -213,5 +213,17 @@ class ModelConfig:
         n += d                                                       # final norm
         return n
 
+    def active_param_count(self) -> int:
+        """Per-token active params (MoE: routed top-k + shared only)."""
+        if not self.n_experts:
+            return self.param_count()
+        full = self.param_count()
+        e, ff, d = self.n_experts, self.moe_d_ff, self.d_model
+        n_moe_layers = sum(
+            sum(1 for s in seg.pattern if s.kind == "attn_moe") * seg.repeat
+            for seg in self.layout())
+        inactive = n_moe_layers * (e - self.top_k) * 3 * d * ff
+        return full - inactive
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

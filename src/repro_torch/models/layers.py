@@ -60,6 +60,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 # -------------------------------------------------------------- embeddings
 def embed_init(generator: torch.Generator, vocab: int, d: int, dtype,
                device) -> dict:
+    if torch.device(device).type == "meta":
+        return {"table": torch.empty((vocab, d), dtype=dtype, device=device)}
     tbl = torch.randn((vocab, d), generator=generator, dtype=torch.float32,
                       device=device)
     return {"table": tbl.to(dtype)}
@@ -75,6 +77,12 @@ def embed_lookup(params: dict, tokens: torch.Tensor, *, scale: bool,
     if scale:
         x = x * torch.tensor(np.sqrt(d), dtype=x.dtype)    # a CPU scalar
     return x
+
+
+def _card_route(x: torch.Tensor) -> bool:
+    """A low-precision product takes the card's f32-out route on CUDA, and
+    on meta (the dry run counts what the card runs)."""
+    return x.device.type in ("cuda", "meta") and x.dtype != torch.float32
 
 
 class _UnembedF32(torch.autograd.Function):
@@ -110,21 +118,43 @@ def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
     table = params["table"]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda and x.dtype != torch.float32:
+    if _card_route(x):
         out = _UnembedF32.apply(x2, table)
     else:
         out = torch.mm(x2.float(), table.float().t())
     return out.reshape(*lead, table.shape[0])
 
 
+class _MatmulF32(torch.autograd.Function):
+    """``torch.mm(x2, w, out_dtype=float32)``, which has no derivative,
+    under autograd: each grad computed in f32 from the f32 result's grad
+    and rounded once to its operand's dtype, as ``_UnembedF32``."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.mm(g, w.float().t()).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.mm(x2.float().t(), g).to(w.dtype)
+        return dx, dw
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., k) @ w (k, n) with an f32 result, unrounded: a tensor-parallel
     shard's partial product, summed over the shards before the one rounding
     to the model dtype.  On the card a bf16 product accumulates and returns
-    in f32 (``out_dtype``); elsewhere the operands are upcast."""
+    in f32 (``out_dtype``; ``_MatmulF32`` under autograd); elsewhere the
+    operands are upcast."""
     x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda and x.dtype != torch.float32:
-        out = torch.mm(x2, w, out_dtype=torch.float32)
+    if _card_route(x):
+        out = _MatmulF32.apply(x2, w)
     else:
         out = torch.mm(x2.float(), w.float())
     return out.reshape(*x.shape[:-1], w.shape[1])
@@ -139,6 +169,10 @@ def softcap(logits: torch.Tensor, cap: float | None) -> torch.Tensor:
 # ------------------------------------------------------------ initializers
 def dense_init(generator: torch.Generator, shape: tuple[int, ...], dtype,
                device, *, in_axis: int = 0) -> torch.Tensor:
+    """N(0, 1/fan_in) weights; on the meta device (the dry run's shapes) an
+    empty tensor, drawing nothing."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     fan_in = shape[in_axis]
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=device) / np.sqrt(fan_in)

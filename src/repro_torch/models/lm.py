@@ -14,10 +14,11 @@ differentiates; ``prefill`` and ``decode_step`` run the dense per-slot caches
 ``paged_mixed_step`` runs one packed tick
 against the paged KV pool, and ``paged_prefill`` / ``paged_decode_step``
 the phase-separated steps over it (attention through K1 in all three).  One
-block body (``_apply_block``: its attention half, then its MLP half) serves
-them all; the paged steps run it over a slice (``TensorParallel``: one
-shard when unsharded), each half on every shard, the partials reduced
-between them (``_paged_layers``).
+layer loop (``_layer``: an attention half, then an MLP half; a Mamba-2
+block; zamba2's shared block) serves them all, over a slice
+(``TensorParallel``: one shard when unsharded), each half on every shard,
+the partials reduced between them in shard order (``slices``).  A mesh
+of several slices (a 'data' axis) is driven by ``launch.spmd``.
 The JAX package scans each segment over
 ``repeat`` stacked parameter copies; the port keeps one flat list of layers
 in the same order (``layer_specs``): layer ``r·len(pattern) + i`` of a
@@ -39,22 +40,22 @@ step that uses them.
 """
 from __future__ import annotations
 
-import functools
-from dataclasses import dataclass
-
 import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.core.sharded import on_shard
 from repro_torch.tree import named_leaves, tree_map
 
 from . import attention as attn_mod
 from . import mamba2 as mamba_mod
+from . import slices
 from .config import LayerSpec, ModelConfig
 from .layers import (dtype_of, embed_axes, embed_init, embed_lookup, rmsnorm,
                      rmsnorm_axes, rmsnorm_init, softcap, unembed)
 from .mlp import mlp, mlp_axes, mlp_init
 from .moe import moe, moe_axes, moe_init
+from .slices import TensorParallel
 
 _PORTED_KINDS = {"attn_mlp", "attn_moe", "mamba", "shared_attn"}
 
@@ -130,9 +131,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     distributions as the JAX initialisers (N(0,1) embedding table, dense
     weights N(0, 1/fan_in), zero norm scales, A_log = dt_bias = 0, D = 1,
     the MoE router in f32); the draws differ, since the two frameworks'
-    generators differ."""
+    generators differ.  On the meta device nothing is drawn: the leaves
+    are shapes and dtypes (the dry run)."""
     _check_ported(cfg)
-    if generator is None:
+    if generator is None and torch.device(device).type != "meta":
         generator = torch.Generator(device=device).manual_seed(0)
     dt = dtype_of(cfg)
     specs = layer_specs(cfg)
@@ -381,69 +383,32 @@ def _head(params, x, cfg: ModelConfig):
     return softcap(unembed(table, x), cfg.final_logit_softcap)
 
 
-def _attend(p, h, positions, *, cfg, spec, mode, cache, max_len):
-    """The attention of an attn_mlp or shared_attn layer in ``mode``:
-    (y, the layer's cache)."""
-    if mode == "prefill":
-        return attn_mod.prefill_cache(p, h, positions, cfg=cfg, spec=spec,
-                                      max_len=max_len)
-    return attn_mod.attention(p, h, positions, cfg=cfg, spec=spec,
-                              cache=cache)
-
-
-def _apply_block(p, x, positions, *, cfg: ModelConfig, spec: LayerSpec,
-                 mode: str = "score", cache=None, shared=None, embeds0=None,
-                 max_len: int | None = None):
-    """One layer.  Returns (x, the layer's new cache or None, the MoE aux
-    loss of an attn_moe layer or None).
-
-    ``mode`` is "score" (whole sequences x (B, T, d), no cache), "prefill"
-    (builds the layer's dense cache for ``max_len`` positions; a mamba layer
-    starts from ``cache``'s state) or "decode" (one token per row against
-    ``cache``).  The paged steps run its two halves over a slice
-    (``_paged_layers``).  ``shared`` holds zamba2's shared-attention
-    parameters, ``embeds0`` the stack's input embeddings that its block
-    reads beside the hidden state."""
-    if spec.kind == "mamba":
-        y, new_cache = mamba_mod.mamba_block(p["mamba"], rmsnorm(p["norm"], x),
-                                             cfg=cfg, cache=cache)
-        return x + y, new_cache, None
-
-    if spec.kind == "shared_attn":
-        u = torch.cat([x, embeds0], dim=-1)
-        y, new_cache = _attend(shared["attn"], rmsnorm(shared["norm_attn"], u),
-                               positions, cfg=cfg, spec=spec, mode=mode,
-                               cache=cache, max_len=max_len)
-        x = x + y
-        v = torch.cat([x, embeds0], dim=-1)
-        return (x + mlp(shared["mlp"], rmsnorm(shared["norm_mlp"], v)),
-                new_cache, None)
-
-    y, new_cache = _attn_half(p, x, positions, cfg=cfg, spec=spec, mode=mode,
-                              cache=cache, max_len=max_len)
-    x = _residual(p, "post_norm_attn", x, y, cfg)
-    y, aux = _mlp_half(p, x, cfg=cfg, spec=spec)
-    return _residual(p, "post_norm_mlp", x, y, cfg), new_cache, aux
-
-
 def _attn_half(p, x, positions, *, cfg: ModelConfig, spec: LayerSpec,
                mode: str, cache=None, max_len=None, pool=None,
                block_table=None, row_ids=None, kv_heads=None,
-               partial: bool = False):
-    """The attention half of an attn_mlp / attn_moe layer: (y, the layer's
-    new cache or None).  ``mode`` "paged" runs against ``pool``, updated
-    in place: the packed row x (T, d) with ``row_ids``, or x (B, T, d)
-    with ``row_ids`` None, row b on ``block_table`` row b; ``kv_heads``
-    and ``partial`` are a tensor-parallel shard's
-    (``attention.paged_attention``)."""
+               partial: bool = False, seq=None):
+    """The attention of an attn_mlp / attn_moe layer (or, given the shared
+    block's params, of zamba2's shared block) after its norm: (y, the
+    layer's new cache or None).  ``mode`` "score" attends over whole
+    sequences, "prefill" also builds the layer's dense cache for
+    ``max_len`` positions, "decode" reads and updates ``cache``, "paged"
+    runs against ``pool`` (the packed row x (T, d) with ``row_ids``, or x
+    (B, T, d) with ``row_ids`` None, row b on ``block_table`` row b).
+    ``kv_heads`` and ``partial`` are a tensor-parallel shard's: the kv
+    heads its q heads read of a replicated cache or pool, and its
+    unrounded f32 share of the ``wo`` product; ``seq``: decode over a
+    cache split over the sequence (``attention.attention``)."""
     h = rmsnorm(p["norm_attn"], x)
+    kw = dict(cfg=cfg, spec=spec, kv_heads=kv_heads, partial=partial)
     if mode == "paged":
         return attn_mod.paged_attention(
-            p["attn"], h, positions, cfg=cfg, spec=spec, pool=pool,
-            block_table=block_table, row_ids=row_ids, kv_heads=kv_heads,
-            partial=partial), None
-    return _attend(p["attn"], h, positions, cfg=cfg, spec=spec, mode=mode,
-                   cache=cache, max_len=max_len)
+            p["attn"], h, positions, pool=pool, block_table=block_table,
+            row_ids=row_ids, **kw), None
+    if mode == "prefill":
+        return attn_mod.prefill_cache(p["attn"], h, positions,
+                                      max_len=max_len, **kw)
+    return attn_mod.attention(p["attn"], h, positions, cache=cache, seq=seq,
+                              **kw)
 
 
 def _mlp_half(p, x, *, cfg: ModelConfig, spec: LayerSpec,
@@ -475,149 +440,14 @@ def _copies(cfg: ModelConfig):
             li += len(seg.pattern)
 
 
-def forward(params, inputs, positions, cfg: ModelConfig, *,
-            mode: str = "score"):
-    """Full-sequence forward (no caches): inputs (B, S) int32 tokens or
-    (B, S, d) embeddings (``input_mode="embeds"``), positions (B, S) int32
-    (contiguous 0..S-1: K2 assumes them).  Returns (f32 logits (B, S, V),
-    aux): aux is the f32 sum of the attn_moe layers'
-    aux losses, in layer order (zero without MoE layers).
-
-    ``mode="train"`` computes the same values.  Under grad with
-    ``cfg.remat``, each pattern copy runs inside
-    ``torch.utils.checkpoint`` (non-reentrant), as the JAX package wraps its
-    scan body in ``jax.checkpoint``: the backward recomputes the copy's
-    forward (K2 and K3 launch again) instead of keeping its activations.
-    The kernels' gradients are their plain versions' (see their wrappers)."""
-    _check_ported(cfg)
-    if mode not in ("score", "train"):
-        raise ValueError(f"mode must be 'score' or 'train', got {mode!r}")
-    x = _embed_inputs(params, inputs, cfg)                     # (B, S, d)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    shared = params.get("shared_attn")
-    remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
-
-    def run_copy(layers, pattern, x, aux, embeds0):
-        for spec, p in zip(pattern, layers):
-            x, _, layer_aux = _apply_block(p, x, positions, cfg=cfg,
-                                           spec=spec, shared=shared,
-                                           embeds0=embeds0)
-            if layer_aux is not None:
-                aux = aux + layer_aux
-        return x, aux
-
-    embeds0 = x
-    for li, pattern in _copies(cfg):
-        layers = params["layers"][li:li + len(pattern)]
-        if remat:
-            x, aux = torch.utils.checkpoint.checkpoint(
-                run_copy, layers, pattern, x, aux, embeds0,
-                use_reentrant=False)
-        else:
-            x, aux = run_copy(layers, pattern, x, aux, embeds0)
-    return _head(params, x, cfg), aux
-
-
-def prefill(params, inputs, positions, cfg: ModelConfig, *, max_len: int):
-    """Run the prompt and build the dense decode caches: inputs (B, S)
-    int32 tokens or (B, S, d) embeddings, positions (B, S) int32 (0..S-1,
-    as the dense engine passes them).  Returns (f32 last-token logits (B, V), caches: one dict
-    per layer, each for ``max_len`` positions)."""
-    _check_ported(cfg)
-    x = _embed_inputs(params, inputs, cfg)
-    embeds0 = x
-    caches = []
-    for spec, p in zip(layer_specs(cfg), params["layers"]):
-        start = (mamba_mod.mamba_cache_init(cfg, x.shape[0], device=x.device)
-                 if spec.kind == "mamba" else None)
-        x, nc, _ = _apply_block(p, x, positions, cfg=cfg, spec=spec,
-                                mode="prefill", cache=start,
-                                shared=params.get("shared_attn"),
-                                embeds0=embeds0, max_len=max_len)
-        caches.append(nc)
-    return _head(params, x[:, -1:, :], cfg)[:, 0, :], caches
-
-
-def decode_step(params, caches, inputs, positions, cfg: ModelConfig):
-    """One decode step: inputs (B,) or (B, 1) int32 tokens, or (B, 1, d)
-    embeddings, positions (B, 1) int32.  Returns (f32 logits (B, V),
-    caches).  ``caches`` (one dict per layer, from ``prefill`` or
-    ``init_decode_caches``) is updated in place, where the JAX package
-    returns new trees."""
-    if cfg.input_mode == "tokens" and inputs.dim() == 1:
-        inputs = inputs[:, None]
-    x = _embed_inputs(params, inputs, cfg)
-    embeds0 = x
-    for spec, p, cache in zip(layer_specs(cfg), params["layers"], caches):
-        x, nc, _ = _apply_block(p, x, positions, cfg=cfg, spec=spec,
-                                mode="decode", cache=cache,
-                                shared=params.get("shared_attn"),
-                                embeds0=embeds0)
-        if spec.kind == "mamba":
-            for k, leaf in nc.items():
-                cache[k].copy_(leaf)
-    return _head(params, x, cfg)[:, 0, :], caches
-
-
-# ============================================================ paged slices
-@dataclass(frozen=True)
-class TensorParallel:
-    """How the paged steps run over a serving slice: one local param tree
-    and one local pool per shard, all driven by this one process.  An
-    unsharded call is a slice of one shard that splits nothing, so it
-    reduces nothing and launches what one block body in a loop does.
-
-    ``devices``: each shard's torch device, in mesh order (several shards
-    may share one).  ``heads``: the q heads (``wq``, ``wo``) are split, so
-    each shard's ``wo`` output is a partial sum; ``ffn``: the ffn columns
-    are split, so is each ``w_down`` output; ``vocab``: each shard's (lo,
-    hi) rows of the embedding table (and head), or None when the table is
-    replicated.  ``kv_heads``: for each shard, the (k0, k1) kv heads of a
-    replicated pool its q heads read, or None (pool split like the q
-    heads, or nothing split)."""
-    devices: tuple
-    heads: bool = False
-    ffn: bool = False
-    vocab: tuple | None = None
-    kv_heads: tuple = (None,)
-
-    @functools.cached_property
-    def first(self) -> dict:
-        """Each distinct device → the first shard on it (mesh order)."""
-        out: dict = {}
-        for s, d in enumerate(self.devices):
-            out.setdefault(d, s)
-        return out
-
-
-def _one_shard(params, pools, tp: TensorParallel | None):
-    """(params, pools, tp) as a slice: an unsharded call's trees become a
-    slice of one shard on their device."""
+# ================================================================= slices
+def _as_slice(params, tp: TensorParallel | None):
+    """(params, tp) as a slice: an unsharded call's tree becomes a slice of
+    one shard on its device."""
     if tp is not None:
-        return params, pools, tp
+        return params, tp
     dev = params["final_norm"]["scale"].device
-    return [params], [pools], TensorParallel(devices=(dev,))
-
-
-def _combine(ys: list, tp: TensorParallel, split: bool, dtype) -> dict:
-    """A half's output on every device.  Split: each shard's f32 parts
-    (a tensor, or ``moe``'s list) summed in shard order on every device,
-    rounded once to ``dtype``, the parts then added in order, so every
-    copy of the residual stream holds the same bits.  Not split: every
-    shard holds the whole output already (summing would scale it)."""
-    if not split:
-        return {d: ys[s] for d, s in tp.first.items()}
-    parts = [y if isinstance(y, list) else [y] for y in ys]
-    out = {}
-    for d in tp.first:
-        y = None
-        for j in range(len(parts[0])):
-            total = parts[0][j].to(d, non_blocking=True)
-            for shard in parts[1:]:
-                total = total + shard[j].to(d, non_blocking=True)
-            y = total.to(dtype) if y is None else y + total.to(dtype)
-        out[d] = y
-    return out
+    return [params], TensorParallel(devices=(dev,))
 
 
 def _embed(params: list, inputs: dict, cfg: ModelConfig,
@@ -630,66 +460,241 @@ def _embed(params: list, inputs: dict, cfg: ModelConfig,
                 for d, s in tp.first.items()}
     looked = []
     for s, d in enumerate(tp.devices):
-        lo, hi = tp.vocab[s]
-        local = inputs[d] - lo
-        hit = (local >= 0) & (local < hi - lo)
-        x = embed_lookup(params[s]["embed"], torch.where(hit, local, 0),
-                         scale=cfg.embed_scale, d=cfg.d_model)
-        looked.append(torch.where(hit[..., None], x, 0))
-    out = {}
-    for d in tp.first:
-        total = looked[0].to(d, non_blocking=True)
-        for x in looked[1:]:
-            total = total + x.to(d, non_blocking=True)
-        out[d] = total
+        with on_shard(s):
+            lo, hi = tp.vocab[s]
+            local = inputs[d] - lo
+            hit = (local >= 0) & (local < hi - lo)
+            x = embed_lookup(params[s]["embed"], torch.where(hit, local, 0),
+                             scale=cfg.embed_scale, d=cfg.d_model)
+            looked.append(torch.where(hit[..., None], x, 0))
+    out = {d: slices.sum_ordered(looked, d) for d in tp.first}
+    slices.record("all-reduce", looked[0], tp.size)
     return out
 
 
-def _paged_head(params: list, rows: dict, cfg: ModelConfig,
+def _slice_head(params: list, rows: dict, cfg: ModelConfig,
                 tp: TensorParallel) -> torch.Tensor:
-    """Final norm + unembed + softcap of ``rows`` (the rows to sample,
-    on every device) on the first shard's device; a split table's logits
-    concatenated in shard order."""
+    """Final norm + unembed + softcap of ``rows`` (the rows to score, on
+    every device) on the first shard's device; a split table's logits
+    concatenated in shard order (an all-gather)."""
     d0 = tp.devices[0]
     if tp.vocab is None:
         return _head(params[0], rows[d0], cfg)
     logits = []
     for s, d in enumerate(tp.devices):
-        h = rmsnorm(params[s]["final_norm"], rows[d])
-        table = params[s]["embed" if cfg.tie_embeddings else "head"]
-        logits.append(unembed(table, h).to(d0, non_blocking=True))
-    return softcap(torch.cat(logits, dim=-1), cfg.final_logit_softcap)
+        with on_shard(s):
+            h = rmsnorm(params[s]["final_norm"], rows[d])
+            table = params[s]["embed" if cfg.tie_embeddings else "head"]
+            logits.append(unembed(table, h).to(d0, non_blocking=True))
+    out = softcap(torch.cat(slices.tiled(logits, tp.size), dim=-1),
+                  cfg.final_logit_softcap)
+    slices.record("all-gather", out, tp.size)
+    return out
 
 
+def _attn_layer(ps, xs, positions, caches, *, cfg, spec, tp, mode,
+                max_len, paged):
+    """An attn_mlp / attn_moe layer over the slice: the attention half on
+    every shard, its partials reduced, the residual; then the MLP half
+    likewise.  Returns (xs, the shards' new caches, the MoE aux)."""
+    dt = dtype_of(cfg)
+    outs = slices.per_shard(tp, lambda s, d: _attn_half(
+        ps[s], xs[d], positions[d], cfg=cfg, spec=spec, mode=mode,
+        cache=None if caches is None else caches[s], max_len=max_len,
+        kv_heads=tp.kv_heads[s], partial=tp.heads, seq=tp.seq,
+        **(paged[s] if paged else {})))
+    y = slices.combine([o[0] for o in outs], tp, tp.heads, dt)
+    xs = {d: _residual(ps[s], "post_norm_attn", xs[d], y[d], cfg)
+          for d, s in tp.first.items()}
+    outs2 = slices.per_shard(tp, lambda s, d: _mlp_half(
+        ps[s], xs[d], cfg=cfg, spec=spec, partial=tp.ffn))
+    y = slices.combine([o[0] for o in outs2], tp, tp.ffn, dt)
+    xs = {d: _residual(ps[s], "post_norm_mlp", xs[d], y[d], cfg)
+          for d, s in tp.first.items()}
+    return xs, [o[1] for o in outs], outs2[0][1]
+
+
+def _shared_layer(shared, xs, embeds0, positions, caches, *, cfg, spec, tp,
+                  mode, max_len):
+    """zamba2's shared block over the slice: attention and MLP read
+    concat(hidden, the stack's input embeddings); each half's partials
+    reduced like any split half.  Returns (xs, the shards' new caches)."""
+    dt = dtype_of(cfg)
+    u = {d: torch.cat([xs[d], embeds0[d]], dim=-1) for d in tp.first}
+    outs = slices.per_shard(tp, lambda s, d: _attn_half(
+        shared[s], u[d], positions[d], cfg=cfg, spec=spec, mode=mode,
+        cache=None if caches is None else caches[s], max_len=max_len,
+        kv_heads=tp.kv_heads[s], partial=tp.heads, seq=tp.seq))
+    y = slices.combine([o[0] for o in outs], tp, tp.heads, dt)
+    xs = {d: xs[d] + y[d] for d in tp.first}
+    v = {d: torch.cat([xs[d], embeds0[d]], dim=-1) for d in tp.first}
+    ys = slices.per_shard(tp, lambda s, d: mlp(
+        shared[s]["mlp"], rmsnorm(shared[s]["norm_mlp"], v[d]),
+        **({"partial": True} if tp.ffn else {})))
+    y = slices.combine(ys, tp, tp.ffn, dt)
+    return {d: xs[d] + y[d] for d in tp.first}, [o[1] for o in outs]
+
+
+def _mamba_layer(ps, xs, caches, *, cfg, tp):
+    """A Mamba-2 layer over the slice (``mamba2.mamba_slice``: split by SSM
+    heads where ``tp.ssm``, else the whole block on every shard).  Returns
+    (xs, the shards' new caches)."""
+    hs = {d: rmsnorm(ps[s]["norm"], xs[d]) for d, s in tp.first.items()}
+    y, new = mamba_mod.mamba_slice([p["mamba"] for p in ps], hs, cfg=cfg,
+                                   tp=tp, caches=caches)
+    return {d: xs[d] + y[d] for d in tp.first}, new
+
+
+def _layer(shards, li, spec, xs, positions, *, cfg, tp, mode,
+           caches=None, embeds0=None, max_len=None, paged=None):
+    """Layer ``li`` over the slice: (xs, the shards' new caches (each None
+    where the mode builds none), the MoE aux or None).  ``caches``: each
+    shard's cache of this layer (decode; a mamba layer's prefill state)."""
+    ps = [sh["layers"][li] for sh in shards]
+    if spec.kind == "mamba":
+        xs, new = _mamba_layer(ps, xs, caches, cfg=cfg, tp=tp)
+        return xs, new, None
+    if spec.kind == "shared_attn":
+        xs, new = _shared_layer([sh["shared_attn"] for sh in shards], xs,
+                                embeds0, positions, caches, cfg=cfg,
+                                spec=spec, tp=tp, mode=mode, max_len=max_len)
+        return xs, new, None
+    return _attn_layer(ps, xs, positions, caches, cfg=cfg, spec=spec, tp=tp,
+                       mode=mode, max_len=max_len, paged=paged)
+
+
+# ============================================================ entry points
+def forward(params, inputs, positions, cfg: ModelConfig, *,
+            mode: str = "score", tp: TensorParallel | None = None):
+    """Full-sequence forward (no caches): inputs (B, S) int32 tokens or
+    (B, S, d) embeddings (``input_mode="embeds"``), positions (B, S) int32
+    (contiguous 0..S-1: K2 assumes them).  Returns (f32 logits (B, S, V),
+    aux): aux is the f32 sum of the attn_moe layers'
+    aux losses, in layer order (zero without MoE layers).
+
+    ``mode="train"`` computes the same values.  Under grad with
+    ``cfg.remat``, each pattern copy runs inside
+    ``torch.utils.checkpoint`` (non-reentrant), as the JAX package wraps its
+    scan body in ``jax.checkpoint``: the backward recomputes the copy's
+    forward (K2 and K3 launch again) instead of keeping its activations.
+    The kernels' gradients are their plain versions' (see their wrappers).
+
+    ``tp``: a tensor-parallel slice; ``params`` is then the shards' local
+    trees (a list, in mesh order) and the logits land on the first shard's
+    device.  Without it, one param tree runs as a slice of one shard."""
+    _check_ported(cfg)
+    if mode not in ("score", "train"):
+        raise ValueError(f"mode must be 'score' or 'train', got {mode!r}")
+    shards, tp = _as_slice(params, tp)
+    xs = _embed(shards, slices.on_devices(inputs, tp), cfg, tp)            # (B, S, d)
+    pos = slices.on_devices(positions, tp)
+    aux = torch.zeros((), dtype=torch.float32, device=tp.devices[0])
+    remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
+
+    def run_copy(li, pattern, xs, aux, embeds0):
+        for i, spec in enumerate(pattern):
+            xs, _, layer_aux = _layer(shards, li + i, spec, xs, pos, cfg=cfg,
+                                      tp=tp, mode="score", embeds0=embeds0)
+            if layer_aux is not None:
+                aux = aux + layer_aux
+        return xs, aux
+
+    embeds0 = xs
+    for li, pattern in _copies(cfg):
+        if remat:
+            xs, aux = torch.utils.checkpoint.checkpoint(
+                run_copy, li, pattern, xs, aux, embeds0, use_reentrant=False)
+        else:
+            xs, aux = run_copy(li, pattern, xs, aux, embeds0)
+    return _slice_head(shards, xs, cfg, tp), aux
+
+
+def prefill(params, inputs, positions, cfg: ModelConfig, *, max_len: int,
+            tp: TensorParallel | None = None):
+    """Run the prompt and build the dense decode caches: inputs (B, S)
+    int32 tokens or (B, S, d) embeddings, positions (B, S) int32 (0..S-1,
+    as the dense engine passes them).  Returns (f32 last-token logits (B,
+    V), caches: one dict per layer, each for ``max_len`` positions).
+
+    ``tp``: as in ``forward``; the caches are then one list per shard of
+    its local caches (a kv-head split or replicated cache, a Mamba-2
+    layer's local conv channels and SSM heads)."""
+    _check_ported(cfg)
+    sharded = tp is not None
+    shards, tp = _as_slice(params, tp)
+    xs = _embed(shards, slices.on_devices(inputs, tp), cfg, tp)
+    pos = slices.on_devices(positions, tp)
+    embeds0 = xs
+    caches: list[list] = [[] for _ in tp.devices]
+    for li, spec in enumerate(layer_specs(cfg)):
+        start = None
+        if spec.kind == "mamba":
+            start = slices.per_shard(tp, lambda s, d: mamba_mod.mamba_cache_init(
+                cfg, inputs.shape[0], device=d, tp=tp, shard=s))
+        xs, new, _ = _layer(shards, li, spec, xs, pos, cfg=cfg, tp=tp,
+                            mode="prefill", caches=start, embeds0=embeds0,
+                            max_len=max_len)
+        for s, c in enumerate(new):
+            caches[s].append(c)
+    logits = _slice_head(shards, {d: x[:, -1:, :] for d, x in xs.items()},
+                         cfg, tp)[:, 0, :]
+    return logits, (caches if sharded else caches[0])
+
+
+def decode_step(params, caches, inputs, positions, cfg: ModelConfig, *,
+                tp: TensorParallel | None = None):
+    """One decode step: inputs (B,) or (B, 1) int32 tokens, or (B, 1, d)
+    embeddings, positions (B, 1) int32.  Returns (f32 logits (B, V),
+    caches).  ``caches`` (one dict per layer, from ``prefill`` or
+    ``init_decode_caches``) is updated in place, where the JAX package
+    returns new trees.  ``tp``: as in ``prefill`` (``caches`` one list per
+    shard)."""
+    if cfg.input_mode == "tokens" and inputs.dim() == 1:
+        inputs = inputs[:, None]
+    shards, tp2 = _as_slice(params, tp)
+    local = caches if tp is not None else [caches]
+    xs = _embed(shards, slices.on_devices(inputs, tp2), cfg, tp2)
+    pos = slices.on_devices(positions, tp2)
+    embeds0 = xs
+    for li, spec in enumerate(layer_specs(cfg)):
+        layer = [c[li] for c in local]
+        xs, new, _ = _layer(shards, li, spec, xs, pos, cfg=cfg, tp=tp2,
+                            mode="decode", caches=layer, embeds0=embeds0)
+        if spec.kind == "mamba":
+            for cache, nc in zip(layer, new):
+                for k, leaf in nc.items():
+                    cache[k].copy_(leaf)
+    return _slice_head(shards, xs, cfg, tp2)[:, 0, :], caches
+
+
+# ============================================================ paged steps
 def _paged_layers(params: list, pools: list, inputs, positions, block_tables,
                   row_ids, cfg: ModelConfig, tp: TensorParallel) -> dict:
-    """The lookup and every layer over the slice, each half on every shard,
-    its partials reduced before the next half (only where the leaf is
-    split); post-norms after the reduction.  The operands are copied to
-    each shard's device (no copy where they lie already); returns the
-    hidden states on every device."""
-    on = lambda t: {d: None if t is None else t.to(d, non_blocking=True)
-                    for d in tp.first}
-    xs = _embed(params, on(inputs), cfg, tp)
-    positions, block_tables, row_ids = (on(positions), on(block_tables),
-                                        on(row_ids))
-    dt = dtype_of(cfg)
+    """The lookup and every layer against the paged pools over the slice
+    (``_layer`` in "paged" mode: each half on every shard, its partials
+    reduced before the next half, only where the leaf is split;
+    post-norms after the reduction).  The operands are copied to each
+    shard's device (no copy where they lie already); returns the hidden
+    states on every device."""
+    xs = _embed(params, slices.on_devices(inputs, tp), cfg, tp)
+    positions, block_tables, row_ids = (slices.on_devices(positions, tp),
+                                        slices.on_devices(block_tables, tp),
+                                        slices.on_devices(row_ids, tp))
     for li, spec in enumerate(layer_specs(cfg)):
-        ps = [shard["layers"][li] for shard in params]
-        ys = [_attn_half(ps[s], xs[d], positions[d], cfg=cfg, spec=spec,
-                         mode="paged", pool=pools[s][li],
-                         block_table=block_tables[d], row_ids=row_ids[d],
-                         kv_heads=tp.kv_heads[s], partial=tp.heads)[0]
-              for s, d in enumerate(tp.devices)]
-        y = _combine(ys, tp, tp.heads, dt)
-        xs = {d: _residual(ps[s], "post_norm_attn", xs[d], y[d], cfg)
-              for d, s in tp.first.items()}
-        ys = [_mlp_half(ps[s], xs[d], cfg=cfg, spec=spec, partial=tp.ffn)[0]
-              for s, d in enumerate(tp.devices)]
-        y = _combine(ys, tp, tp.ffn, dt)
-        xs = {d: _residual(ps[s], "post_norm_mlp", xs[d], y[d], cfg)
-              for d, s in tp.first.items()}
+        paged = [dict(pool=pools[s][li], block_table=block_tables[d],
+                      row_ids=row_ids[d]) for s, d in enumerate(tp.devices)]
+        xs, _, _ = _layer(params, li, spec, xs, positions, cfg=cfg, tp=tp,
+                          mode="paged", paged=paged)
     return xs
+
+
+def _one_shard(params, pools, tp: TensorParallel | None):
+    """(params, pools, tp) as a slice: an unsharded call's trees become a
+    slice of one shard on their device."""
+    if tp is not None:
+        return params, pools, tp
+    shards, tp = _as_slice(params, None)
+    return shards, [pools], tp
 
 
 def paged_prefill(params, pools, block_tables, inputs, positions,
@@ -706,7 +711,7 @@ def paged_prefill(params, pools, block_tables, inputs, positions,
     xs = _paged_layers(shards, local, inputs, positions, block_tables, None,
                        cfg, tp)
     rows = {d: x[:, -1:, :] for d, x in xs.items()}
-    return _paged_head(shards, rows, cfg, tp)[:, 0, :], pools
+    return _slice_head(shards, rows, cfg, tp)[:, 0, :], pools
 
 
 def paged_decode_step(params, pools, block_tables, inputs, positions,
@@ -720,7 +725,7 @@ def paged_decode_step(params, pools, block_tables, inputs, positions,
     shards, local, tp = _one_shard(params, pools, tp)
     xs = _paged_layers(shards, local, inputs, positions, block_tables, None,
                        cfg, tp)
-    return _paged_head(shards, xs, cfg, tp)[:, 0, :], pools
+    return _slice_head(shards, xs, cfg, tp)[:, 0, :], pools
 
 
 def paged_mixed_step(params, pools, block_tables, tokens, positions, row_ids,
@@ -745,11 +750,11 @@ def paged_mixed_step(params, pools, block_tables, tokens, positions, row_ids,
                        row_ids, cfg, tp)                 # (T, d) a device
     idx = {d: sample_idx.to(d, non_blocking=True).long() for d in xs}
     if sample_idx.dim() == 1:
-        return _paged_head(shards, {d: xs[d][i] for d, i in idx.items()},
+        return _slice_head(shards, {d: xs[d][i] for d, i in idx.items()},
                            cfg, tp)
     # (R, J): one head product per fed position j, each of R rows, so a
     # row's logits at position 0 do not depend on J (the product's shape
     # stays (R, d) x (d, V) whatever the number of verified drafts)
-    return torch.stack([_paged_head(shards, {d: xs[d][i[:, j]] for d, i in
+    return torch.stack([_slice_head(shards, {d: xs[d][i[:, j]] for d, i in
                                              idx.items()}, cfg, tp)
                         for j in range(sample_idx.shape[1])], dim=1)

@@ -15,6 +15,15 @@ kernel covers it.
 
 Decode carries {"conv": (B, W-1, conv_dim), "ssm": (B, H, P, N) f32}: O(1)
 state whatever the context length.
+
+Split over m shards by SSM heads (``mamba_slice``, of which the one-device
+``mamba_block`` is the one-shard case), each shard holds
+its heads' z, x and dt columns of ``in_proj`` and 1/m of its B|C columns,
+as ``shard_columns`` lays them out (so the rules' even split of the
+``ffn`` dim is a split by heads), its heads' conv channels and 1/m of the
+B|C ones, and its rows of ``out_proj``.  The conv'ed B|C pieces are
+gathered, K3 runs on the shard's heads, and ``out_norm``'s sum of squares
+and ``out_proj``'s partials are summed over the shards in shard order.
 """
 from __future__ import annotations
 
@@ -23,9 +32,11 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssd import ops as ssd_ops
 
+from . import slices
 from .config import ModelConfig
-from .layers import (dense_init, dtype_of, rmsnorm, rmsnorm_axes,
-                     rmsnorm_init)
+from .layers import (dense_init, dtype_of, matmul_f32, rmsnorm,
+                     rmsnorm_axes, rmsnorm_init)
+from .slices import TensorParallel
 
 
 # ------------------------------------------------------------------ params
@@ -64,14 +75,44 @@ def mamba_cache_axes() -> dict:
             "ssm": ("cache_batch", "heads", None, None)}
 
 
-def mamba_cache_init(cfg: ModelConfig, batch: int, *, device) -> dict:
+def mamba_cache_init(cfg: ModelConfig, batch: int, *, device, tp=None,
+                     shard: int = 0) -> dict:
+    """A zero decode state; a split slice's shard (``tp.ssm``) holds its
+    conv channels and, when ``tp.ssm_state``, its SSM heads."""
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    m = tp.size if tp is not None and tp.ssm else 1
+    conv = (di + 2 * N) // m
+    heads = H // m if tp is not None and tp.ssm_state else H
     return {
-        "conv": torch.zeros((batch, cfg.conv_width - 1, di + 2 * N),
+        "conv": torch.zeros((batch, cfg.conv_width - 1, conv),
                             dtype=dtype_of(cfg), device=device),
-        "ssm": torch.zeros((batch, H, P, N), dtype=torch.float32,
+        "ssm": torch.zeros((batch, heads, P, N), dtype=torch.float32,
                            device=device),
     }
+
+
+def shard_columns(cfg: ModelConfig, m: int) -> tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """(in_proj column order, conv channel order) of the shard-major layout
+    over m shards: shard s's contiguous 1/m holds [z_s | x_s | BC_s | dt_s]
+    of ``in_proj`` and [x_s | BC_s] of the conv, where z_s, x_s, dt_s are
+    its H/m heads' columns and BC_s the s-th 1/m of the B|C columns.  The
+    identity for m = 1."""
+    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    if H % m or (2 * N) % m:
+        raise NotImplementedError(
+            f"Stage 3 (Mamba-2 split by SSM heads) needs model={m} to "
+            f"divide the {H} SSM heads and the {2 * N} B|C columns of "
+            f"config {cfg.name}")
+    hp, bc = H // m * P, 2 * N // m
+    ar = lambda lo, n: torch.arange(lo, lo + n)
+    proj, conv = [], []
+    for s in range(m):
+        proj += [ar(s * hp, hp), ar(di + s * hp, hp),
+                 ar(2 * di + s * bc, bc), ar(2 * di + 2 * N + s * (H // m),
+                                             H // m)]
+        conv += [ar(s * hp, hp), ar(di + s * bc, bc)]
+    return torch.cat(proj), torch.cat(conv)
 
 
 # ------------------------------------------------------------------- split
@@ -105,42 +146,120 @@ def ssd_decode_step(h, x, dt, A, B_, C_):
 def mamba_block(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
                 cache: dict | None = None
                 ) -> tuple[torch.Tensor, dict | None]:
-    """x: (B,S,d).  cache=None → full sequence; with a cache, S = 1 decodes
-    one step and S > 1 prefills from the cache's state.  Returns (out, the
-    new cache or None); the given cache is not modified."""
-    Bb, S, _ = x.shape
+    """x: (B,S,d) on one device, the one-shard case of ``mamba_slice``.
+    cache=None → full sequence; with a cache, S = 1 decodes one step and
+    S > 1 prefills from the cache's state.  Returns (out, the new cache or
+    None); the given cache is not modified."""
+    d = x.device
+    out, new = mamba_slice([params], {d: x}, cfg=cfg,
+                           tp=TensorParallel(devices=(d,)),
+                           caches=None if cache is None else [cache])
+    return out[d], new[0]
+
+
+def mamba_slice(ps: list, hs: dict, *, cfg: ModelConfig, tp: TensorParallel,
+                caches: list | None = None) -> tuple[dict, list]:
+    """The block over a slice.  ``ps``: each shard's local params; ``hs``:
+    the normed input (B, S, d) on every device; ``caches``: each shard's
+    local cache (None: the full sequence; S = 1: one decode step; S > 1: a
+    prefill from the caches' state).  Returns (out on every device, each
+    shard's new cache, or Nones without caches).
+
+    Split by SSM heads (``tp.ssm``, the ``shard_columns`` layout;
+    ``A_log``, ``D``, ``dt_bias`` and ``out_norm`` whole on every shard):
+    the conv'ed B|C pieces are gathered, K3 runs on the shard's heads, and
+    ``out_norm``'s sum of squares and ``out_proj``'s f32 partials are
+    summed in shard order (all-reduces); a replicated SSM state's heads
+    are gathered.  Not split: every shard runs the whole block on its own
+    copy, and each device reads its first shard's output."""
+    split = tp.ssm
+    m = tp.size if split else 1
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    A = -torch.exp(params["A_log"])
-    proj = x @ params["in_proj"]
-    z, xBC, dt_raw = _split_proj(cfg, proj)
-    dt = F.softplus(dt_raw.float() + params["dt_bias"])
+    hl, hp = H // m, H // m * P
+    x0 = next(iter(hs.values()))
+    Bb, S, _ = x0.shape
+    decode = caches is not None and S == 1
 
-    if cache is not None and S == 1:
-        win = torch.cat([cache["conv"], xBC], dim=1)           # (B,W,conv)
-        conv_out = F.silu(torch.einsum("bwc,wc->bc", win, params["conv_w"])
-                          + params["conv_b"])[:, None, :]
-        xs = conv_out[..., :di].reshape(Bb, H, P)
-        B_ = conv_out[:, 0, di:di + N]
-        C_ = conv_out[:, 0, di + N:]
-        y, h = ssd_decode_step(cache["ssm"], xs, dt[:, 0], A, B_, C_)
-        y = y + params["D"][None, :, None] * xs
-        y = y.reshape(Bb, 1, di).to(x.dtype)
-        new_cache = {"conv": win[:, 1:, :], "ssm": h}
-    else:
-        conv_out = _causal_conv(xBC, params["conv_w"], params["conv_b"])
-        xs = conv_out[..., :di].reshape(Bb, S, H, P)
-        h0 = cache["ssm"] if cache is not None else None
-        y, h_final = ssd_ops.ssd(
-            xs.contiguous(), dt.contiguous(), A,
-            conv_out[..., di:di + N].contiguous(),
-            conv_out[..., di + N:].contiguous(), chunk=cfg.ssm_chunk, h0=h0)
-        y = y + params["D"][None, None, :, None] * xs.float()
-        y = y.reshape(Bb, S, di).to(x.dtype)
-        new_cache = None
-        if cache is not None:
-            new_cache = {"conv": xBC[:, -(cfg.conv_width - 1):, :],
-                         "ssm": h_final}
+    def stage_in(s, d):
+        p = ps[s]
+        proj = hs[d] @ p["in_proj"]
+        z, xBC, dt_raw = proj[..., :hp], proj[..., hp:-hl], proj[..., -hl:]
+        bias = p["dt_bias"][s * hl:(s + 1) * hl] if split else p["dt_bias"]
+        dt = F.softplus(dt_raw.float() + bias)
+        new_conv = None
+        if decode:
+            win = torch.cat([caches[s]["conv"], xBC], dim=1)  # (B,W,conv)
+            conv = F.silu(torch.einsum("bwc,wc->bc", win, p["conv_w"])
+                          + p["conv_b"])[:, None, :]
+            new_conv = win[:, 1:, :]
+        else:
+            conv = _causal_conv(xBC, p["conv_w"], p["conv_b"])
+            if caches is not None:
+                # a copy: a view would keep the whole projection alive
+                new_conv = xBC[:, -(cfg.conv_width - 1):, :].clone()
+        return z, dt, conv, new_conv
 
-    y = y * F.silu(z)
-    y = rmsnorm(params["out_norm"], y)
-    return y @ params["out_proj"], new_cache
+    ins = slices.per_shard(tp, stage_in)
+    # B|C: the gathered pieces (split), else each shard's own columns
+    bc = slices.gather([i[2][..., hp:] for i in ins], tp, dim=-1) \
+        if split else None
+    at = 0 if split else hp
+
+    def stage_scan(s, d):
+        p = ps[s]
+        z, dt, conv, _ = ins[s]
+        src = bc[d] if split else conv
+        # a split shard's heads of the per-head leaves
+        heads = slice(s * hl, (s + 1) * hl)
+        A_log, D = ((p["A_log"][heads], p["D"][heads]) if split
+                    else (p["A_log"], p["D"]))
+        A = -torch.exp(A_log)
+        h0 = None
+        if caches is not None:
+            h0 = caches[s]["ssm"]
+            if split and not tp.ssm_state:
+                h0 = h0[:, heads].contiguous()
+        if decode:
+            xs = conv[..., :hp].reshape(Bb, hl, P)
+            y, h = ssd_decode_step(h0, xs, dt[:, 0], A,
+                                   src[:, 0, at:at + N], src[:, 0, at + N:])
+            y = y + D[None, :, None] * xs
+        else:
+            xs = conv[..., :hp].reshape(Bb, S, hl, P)
+            y, h = ssd_ops.ssd(xs.contiguous(), dt.contiguous(), A,
+                               src[..., at:at + N].contiguous(),
+                               src[..., at + N:].contiguous(),
+                               chunk=cfg.ssm_chunk, h0=h0)
+            y = y + D[None, None, :, None] * xs.float()
+        y = y.reshape(Bb, -1, hp).to(x0.dtype) * F.silu(z)
+        if not split:
+            return y, h, None
+        yf = y.float()
+        return y, h, torch.sum(yf * yf, dim=-1, keepdim=True)
+
+    scans = slices.per_shard(tp, stage_scan)
+    if split:
+        sq = slices.combine([sc[2] for sc in scans], tp, True, torch.float32)
+
+    def stage_out(s, d):
+        p, y = ps[s], scans[s][0]
+        if not split:
+            return rmsnorm(p["out_norm"], y) @ p["out_proj"]
+        # the RMSNorm over the whole d_inner, from the summed squares
+        rs = torch.rsqrt(sq[d] / di + 1e-6)
+        scale = p["out_norm"]["scale"][s * hp:(s + 1) * hp]
+        yn = (y.float() * rs * (1.0 + scale)).to(y.dtype)
+        return matmul_f32(yn, p["out_proj"])
+
+    out = slices.combine(slices.per_shard(tp, stage_out), tp, split,
+                         x0.dtype)
+    if caches is None:
+        return out, [None] * len(tp.devices)
+    states = [sc[1] for sc in scans]
+    if split and not tp.ssm_state:
+        # every shard keeps its own copy of the replicated state
+        full = slices.gather(states, tp, dim=1)
+        states = [full[d] if tp.first[d] == s else full[d].clone()
+                  for s, d in enumerate(tp.devices)]
+    return out, [{"conv": ins[s][3], "ssm": states[s]}
+                 for s in range(len(tp.devices))]

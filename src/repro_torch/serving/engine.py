@@ -333,6 +333,10 @@ class ServeEngine:
         # shard; a one-device slice's one tree holds the given tensors
         if self.paged:
             slice_ = mesh if mesh is not None else device_mesh(self.device)
+            for axis, n in slice_.shape.items():
+                if axis != "model" and n > 1:
+                    raise ValueError(f"a serving slice is (data=1, model=m); "
+                                     f"mesh {slice_.shape} has {axis}={n}")
             self._tp = tensor_parallel(cfg, slice_)
             placed = place_tree(params, param_shardings(cfg, slice_))
             self._local_params = [local_tree(placed, i)

@@ -31,6 +31,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.core.sharded import record_collective
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -45,6 +46,33 @@ class Optimizer:
     init: Callable[[dict], OptState]
     update: Callable[[dict, OptState, dict], tuple[dict, OptState]]
     name: str = "opt"
+    # the update over one slice of shards, in lockstep (``launch.spmd``):
+    # (each shard's leaves, OptState and grads; each leaf's split dim or
+    # None) -> each shard's new OptState
+    update_shards: Callable | None = None
+
+
+def _mean(ts: list, dim: int, split: bool, group: int) -> list:
+    """Each shard's mean of its tensor over ``dim``; ``split``: the dim is
+    split over the ``group`` shards, so the local sums are added in shard
+    order (an all-reduce) and divided by the whole dim."""
+    if not split:
+        return [torch.mean(t, dim=dim) for t in ts]
+    sums = [torch.sum(t, dim=dim) for t in ts]
+    total = sums[0]
+    for t in sums[1:]:
+        total = total + t.to(total.device)
+    record_collective("all-reduce", total.numel() * 4, group)
+    n = ts[0].shape[dim] * group
+    return [(total / n).to(t.device) for t in ts]
+
+
+def _each(update):
+    """``update_shards`` of an elementwise optimizer: every shard alone."""
+    def update_shards(leaves, states, grads, splits, group=None):
+        return [update(lv, st, g)[1] for lv, st, g in zip(leaves, states,
+                                                         grads)]
+    return update_shards
 
 
 def _global_norm(tree) -> torch.Tensor:
@@ -93,7 +121,8 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
                 p.copy_(pf - lr_t * upd)
         return leaves, OptState(step=step, mu=state.mu, nu=state.nu)
 
-    return Optimizer(init=init, update=update, name="adamw")
+    return Optimizer(init=init, update=update, name="adamw",
+                     update_shards=_each(update))
 
 
 def _stacked(leaf) -> torch.Tensor:
@@ -127,41 +156,64 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
                         nu=nu)
 
     @torch.no_grad()
-    def update(leaves, state, grads):
-        step = state.step + 1
+    def update_shards(leaves, states, grads, splits, group=None):
+        """Every shard's leaves of one slice in lockstep: a statistic over a
+        dim the shards split (``splits[name]``: the stacked leaf's split
+        dim, or None) is the mean over the whole dim; the update clip's RMS
+        is over the whole leaf.  ``group``: the slice's shard count, when
+        only the first shards' leaves are given (the dry run)."""
+        step = states[0].step + 1
         stepf = step.float()
         lr_t = lr * torch.clamp(stepf / max(1, warmup_steps), max=1.0)
         rho = 1.0 - stepf ** (-decay)
-        for name, leaf in leaves.items():
-            p = _stacked(leaf)
-            g = _stacked(grads[name]).float()
-            nu = state.nu[name]
-            g2 = g * g + eps
-            if "row" in nu:
-                nu["row"].copy_(rho * nu["row"]
-                                + (1 - rho) * torch.mean(g2, dim=-1))
-                nu["col"].copy_(rho * nu["col"]
-                                + (1 - rho) * torch.mean(g2, dim=-2))
-                rmean = torch.mean(nu["row"], dim=-1, keepdim=True)
-                vhat = ((nu["row"] / torch.clamp(rmean, min=eps))[..., None]
-                        * nu["col"][..., None, :])
+        n = group or len(leaves)
+        for name in leaves[0]:
+            split = splits.get(name)
+            ps = [_stacked(lv[name]) for lv in leaves]
+            gs = [_stacked(g[name]).float() for g in grads]
+            nus = [st.nu[name] for st in states]
+            nd = gs[0].dim()
+            g2 = [g * g + eps for g in gs]
+            if "row" in nus[0]:
+                rows = _mean(g2, -1, split == nd - 1, n)
+                cols = _mean(g2, -2, split == nd - 2, n)
+                for nu, r, c in zip(nus, rows, cols):
+                    nu["row"].copy_(rho * nu["row"] + (1 - rho) * r)
+                    nu["col"].copy_(rho * nu["col"] + (1 - rho) * c)
+                rmeans = _mean([nu["row"] for nu in nus], -1,
+                               split == nd - 2, n)
+                vhats = [((nu["row"] / torch.clamp(rm[..., None], min=eps))
+                          [..., None] * nu["col"][..., None, :])
+                         for nu, rm in zip(nus, rmeans)]
             else:
-                nu["full"].copy_(rho * nu["full"] + (1 - rho) * g2)
-                vhat = nu["full"]
-            u = g / torch.sqrt(torch.clamp(vhat, min=eps))
-            # update clipping (RMS <= 1) over the whole leaf, as in the paper
-            rms = torch.sqrt(torch.mean(u * u) + 1e-12)
-            u = u / torch.clamp(rms, min=1.0)
-            pf = p.float()
-            new = (pf - lr_t * (u + weight_decay * pf)).to(p.dtype)
-            if isinstance(leaf, tuple):
-                for r, t in enumerate(leaf):
-                    t.copy_(new[r])
-            else:
-                leaf.copy_(new)
-        return leaves, OptState(step=step, mu=state.mu, nu=state.nu)
+                for nu, q in zip(nus, g2):
+                    nu["full"].copy_(rho * nu["full"] + (1 - rho) * q)
+                vhats = [nu["full"] for nu in nus]
+            us = [g / torch.sqrt(torch.clamp(v, min=eps))
+                  for g, v in zip(gs, vhats)]
+            # update clipping (RMS <= 1) over the whole leaf
+            sq = _mean([(u * u).reshape(-1) for u in us], 0,
+                       split is not None and n > 1, n)
+            for lv, p, u, q in zip(leaves, ps, us, sq):
+                u = u / torch.clamp(torch.sqrt(q + 1e-12), min=1.0)
+                pf = p.float()
+                new = (pf - lr_t * (u + weight_decay * pf)).to(p.dtype)
+                leaf = lv[name]
+                if isinstance(leaf, tuple):
+                    for r, t in enumerate(leaf):
+                        t.copy_(new[r])
+                else:
+                    leaf.copy_(new)
+        return [OptState(step=step.to(st.step.device), mu=st.mu, nu=st.nu)
+                for st in states]
 
-    return Optimizer(init=init, update=update, name="adafactor")
+    @torch.no_grad()
+    def update(leaves, state, grads):
+        return leaves, update_shards([leaves], [state], [grads], {})[0]
+
+    return Optimizer(init=init, update=update, name="adafactor",
+                     update_shards=update_shards)
+
 
 
 def get_optimizer(name: str, **kw) -> Optimizer:

@@ -1,13 +1,15 @@
 """The training step: CE loss, microbatch grad accumulation, clipping.
 
 Port of the JAX package's ``training/train.py``.  ``make_train_step(cfg,
-opt)`` returns ``train_step(state, batch) -> (state, metrics)``: the loss
-and its gradients through ``models.forward(mode="train")`` (K2 and K3 on
-the card, their plain versions' gradients; each pattern copy recomputed in
-the backward when ``cfg.remat``, as the reference's scan body is), the
-gradients' global norm clipped to ``max_grad_norm``, then the optimizer's
-in-place update (``optimizer.py``).  The step reads nothing back to the
-host: metrics are device scalars.
+opt)`` returns ``train_step(state, batch) -> (state, metrics)``, one
+program on one device or over a mesh (``launch.spmd.Program.train_step``):
+the loss and its gradients through ``models.forward(mode="train")`` (K2
+and K3 on the card, their plain versions' gradients; each pattern copy
+recomputed in the backward when ``cfg.remat``, as the reference's scan
+body is), the gradients' global norm clipped to ``max_grad_norm``, then
+the optimizer's in-place update (``optimizer.py``).  The step reads
+nothing back to the host: metrics are device scalars.  ``make_loss_fn``
+and ``value_and_grad`` give one batch's loss and gradients alone.
 
 The loss materialises the (B, S, V) f32 logits once, as the reference's
 does.
@@ -19,14 +21,14 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.sharded import local_tree
 from repro_torch.models import (forward, init_params, params_from_numpy,
                                 stacked_leaves)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import _to_torch
-
 from repro_torch.tree import named_leaves, tree_leaves, tree_map
 
-from .optimizer import Optimizer, OptState, clip_by_global_norm
+from .optimizer import Optimizer, OptState
 
 
 class TrainState(NamedTuple):
@@ -34,16 +36,26 @@ class TrainState(NamedTuple):
     opt_state: OptState
 
 
-def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
-                  mask: torch.Tensor | None = None) -> torch.Tensor:
-    """logits (B,S,V) f32; targets (B,S) int."""
+def nll_sum(logits: torch.Tensor, targets: torch.Tensor,
+            mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Σ of the (masked) token NLLs of f32 logits (B, S, V), targets (B, S)
+    int."""
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, targets.long()[..., None],
-                                dim=-1)[..., 0]
+    gold = torch.take_along_dim(logits, targets.long()[..., None].to(
+        logits.device), dim=-1)[..., 0]
     nll = logz - gold
     if mask is not None:
-        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
-    return torch.mean(nll)
+        return torch.sum(nll * mask.to(nll.device))
+    return torch.sum(nll)
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """The mean NLL of the (masked) tokens: logits (B,S,V) f32; targets
+    (B,S) int."""
+    n = (torch.clamp(torch.sum(mask), min=1.0) if mask is not None
+         else targets.numel())
+    return nll_sum(logits, targets, mask) / n
 
 
 def make_loss_fn(cfg: ModelConfig):
@@ -76,38 +88,35 @@ def value_and_grad(loss_fn, params, batch):
 
 
 def make_train_step(cfg: ModelConfig, opt: Optimizer, *,
-                    grad_accum: int = 1, max_grad_norm: float = 1.0):
-    loss_fn = make_loss_fn(cfg)
+                    grad_accum: int = 1, max_grad_norm: float = 1.0,
+                    mesh=None):
+    """``train_step(state, batch) -> (state, metrics)``, the program of
+    ``launch.spmd.Program.train_step``.  ``mesh``: a (data, model) or
+    (pod, data, model) mesh, ``state`` and ``batch`` placed by the rules
+    (``Program.place_state``, ``place_batch``); gradients reduced over the
+    batch rows and the shards that replicate a leaf, the global norm over
+    every shard's leaves, the optimizer's update on each shard's local
+    leaves.  Without a mesh the step runs over a one-device mesh of the
+    state's device (``launch.mesh.device_mesh``), whose placement holds
+    the given tensors themselves: it takes and returns an unplaced
+    ``TrainState``, updated in place."""
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.launch.spmd import Program
+
+    kw = dict(grad_accum=grad_accum, max_grad_norm=max_grad_norm)
+    if mesh is not None:
+        return Program(cfg, mesh).train_step(opt, **kw)
+    programs: dict = {}
 
     def train_step(state: TrainState, batch):
-        if grad_accum > 1:
-            # microbatch over the leading batch axis; grads summed in f32
-            def split(x, i):
-                b = x.shape[0] // grad_accum
-                return x[i * b:(i + 1) * b]
-
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), state.params)
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=state.opt_state.step.device)
-            for i in range(grad_accum):
-                mb = {k: split(v, i) for k, v in batch.items()}
-                (l_i, metrics), g_i = value_and_grad(loss_fn, state.params,
-                                                      mb)
-                grads = tree_map(torch.add, grads, g_i)
-                loss = loss + l_i
-            grads = tree_map(lambda g: g / grad_accum, grads)
-            loss = loss / grad_accum
-        else:
-            (loss, metrics), grads = value_and_grad(loss_fn, state.params,
-                                                     batch)
-        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
-        _, new_opt = opt.update(stacked_leaves(state.params, cfg),
-                                state.opt_state,
-                                stacked_leaves(grads, cfg))
-        metrics = dict(metrics, loss=loss, grad_norm=gnorm,
-                       step=new_opt.step)
-        return TrainState(state.params, new_opt), metrics
+        dev = state.opt_state.step.device
+        if dev not in programs:
+            prog = Program(cfg, device_mesh(dev))
+            programs[dev] = prog, prog.train_step(opt, **kw)
+        prog, step = programs[dev]
+        placed, metrics = step(prog.place_state(state, opt.name),
+                               prog.place_batch(batch))
+        return local_tree(placed, 0), metrics
 
     return train_step
 

@@ -1,8 +1,9 @@
 """The PyTorch port's import boundary and device default.
 
-``src/repro_torch/``, ``chip_smoke.py``, ``trace_records.py`` and the
-example twins in ``examples_torch/`` import no jax and nothing of the JAX
-package ``repro`` (whose package ``__init__`` files pull in jax); the
+``src/repro_torch/``, ``chip_smoke.py``, ``trace_records.py``,
+``ab_dense.py`` and the example twins in ``examples_torch/`` import no
+jax and nothing of the JAX package ``repro`` (whose package ``__init__``
+files pull in jax); the
 port's entry points and the twins run on the card unless the caller asks
 for the CPU.
 """
@@ -21,7 +22,8 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 TWINS = sorted((ROOT / "examples_torch").glob("*.py"))
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py", ROOT / "trace_records.py"] + TWINS
+    [ROOT / "chip_smoke.py", ROOT / "trace_records.py",
+     ROOT / "ab_dense.py"] + TWINS
 
 
 def _imported_modules(path: Path) -> list[str]:
