@@ -327,12 +327,27 @@ on the first phase that fails (exit code != 0):
                   the placed arguments hold equal to the dry run's trace of
                   the same mesh and shapes on meta; no program faster than
                   that trace's roofline bound; the trace's peak reported
-                  beside ``max_memory_allocated``.
+                  beside ``max_memory_allocated``.  Then ``sharded_moe``
+                  (Stage 5: the experts over 'data'): deepseek-moe-16b at
+                  full width and depth, bf16, on (data 2, model 2), one
+                  device's run first (logits and routing kept on the host,
+                  its params then placed leaf by leaf): a prefill of 4 x
+                  2,048, 16 decode steps and a prefill of 4 x 120 (one
+                  group of 480 over both rows, with drops), the checks
+                  above but the logits' (K2 = 28 x 4 a prefill, K4 = 28 x
+                  4 a step): bf16 at 28 MoE-routed layers is chaotic, so
+                  the MoE inputs are held layer by layer within twice the
+                  drift of two one-device runs that differ only in
+                  attention rounding, and the logits, the routing choices
+                  that differ per layer and the dropped share reported;
+                  its first 4 layers upcast to f32, every routing choice
+                  equal (but at near-ties) and the logits within 1e-3 of
+                  the scale; AdamW steps cut to 3 layers (B 4 x 2,048, 3
+                  steps) against one device's, the aux loss within 1e-2.
 26. dryrun      — ``python -m repro_torch.launch.dryrun --all`` on the
                   card's host (single-pod mesh, ``DRYRUN_JOBS`` cells at
-                  once, its own time limit): one line per cell; every
-                  covered cell wrote its JSON, every other raised naming its
-                  stage.
+                  once, its own time limit): one line per cell; every cell
+                  wrote its JSON, none uncovered.
 27. examples    — the six twins of ``examples/*.py`` in
                   ``examples_torch/`` (quickstart, smart_farming,
                   collision_detection, serve_lm, serve_cluster, train_lm),
@@ -352,8 +367,8 @@ It prints one JSON line per phase, then each phase's seconds, then the
 card's name and power limit as nvidia-smi gives them, then the kernels line
 (K1-K4, with K1's launches per model-2 tick and its shard-width cases,
 K2's and K3's launches per train step and their autograd times, K2's, K3's
-and K4's launches in the sharded programs, and each kernel's launches in
-each twin), and last
+and K4's launches in the sharded programs, K2's and K4's with the experts
+over 'data', and each kernel's launches in each twin), and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -1391,19 +1406,26 @@ def ssd_build_report() -> dict:
     return rep
 
 
-def ssd_stage_split(fn) -> dict:
-    """Device time (ms) of each K3 kernel in one profiled call of ``fn``."""
+def ssd_stage_split(fn, want=()) -> dict:
+    """Device time (ms) of each K3 kernel in one profiled call of ``fn``,
+    profiled again, at most ``TRACE_ATTEMPTS`` times in all, while a
+    kernel of ``want`` has no record (``torch.profiler`` loses device
+    records now and then, W6)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {_ssd_label(key): us / 1e3
-            for key, (_, us) in device_kernels(prof).items()
-            if us > 0 and "ssd_" in key}
+    for _ in range(TRACE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = {_ssd_label(key): us / 1e3
+               for key, (_, us) in device_kernels(prof).items()
+               if us > 0 and "ssd_" in key}
+        if all(k in out for k in want):
+            break
+    return out
 
 
 def ssd_kernel_phase(dev, shapes=SSD_SHAPES, reps=(10, 3),
@@ -1474,9 +1496,10 @@ def ssd_kernel_phase(dev, shapes=SSD_SHAPES, reps=(10, 3),
                         case["route"] == "tensor_core", case
                     del y, h, yp, hp, y2, h2
                     if with_h0 and not with_d:
-                        case["stage_ms"] = ssd_stage_split(kernel)
-                        assert dtype != torch.bfloat16 or \
-                            "ssd_scan_kernel" in case["stage_ms"], case
+                        want = (("ssd_scan_kernel",)
+                                if dtype == torch.bfloat16 else ())
+                        case["stage_ms"] = ssd_stage_split(kernel, want)
+                        assert all(k in case["stage_ms"] for k in want), case
                     nbytes, flops = ssd_work(B, S, H, P, N, min(chunk, S),
                                              x.element_size(), with_h0,
                                              with_d)
@@ -2986,24 +3009,37 @@ def combine_checked(out: list, control: bool = False):
     (``models.slices.combine``) is held against the f64 sum of the shards'
     f32 parts: the largest distance, in bf16 ulps of that sum, is appended
     to ``out``.  ``control``: the combine is given each part rounded to
-    the model's dtype first (the fault the check exists to catch)."""
+    the model's dtype first (the fault the check exists to catch).  A MoE
+    half's shares (routed, shared: each summed and rounded alone, then
+    added) are held one share at a time, each share's reduction run again
+    alone for the check."""
     import repro_torch.models.slices as slices
 
     inner = slices.combine
 
+    def ulps(parts, got) -> float:
+        with torch.no_grad():
+            exact = parts[0].double()
+            for y in parts[1:]:
+                exact = exact + y.to(exact.device).double()
+            return max(((y.double() - exact.to(d)).abs()
+                        / _bf16_ulp(exact.to(d))).max().item()
+                       for d, y in got.items())
+
     def spy(ys, tp, split, dtype):
         if not split:
             return inner(ys, tp, split, dtype)
-        assert not isinstance(ys[0], list), "MoE parts: not checked here"
-        fed = [y.to(dtype).float() for y in ys] if control else ys
+        rounded = lambda y: y.to(dtype).float()
+        if isinstance(ys[0], list):
+            fed = [[rounded(t) for t in y] for y in ys] if control else ys
+            for j in range(len(ys[0])):
+                with torch.no_grad():
+                    alone = inner([y[j] for y in fed], tp, split, dtype)
+                out.append(ulps([y[j] for y in ys], alone))
+            return inner(fed, tp, split, dtype)
+        fed = [rounded(y) for y in ys] if control else ys
         got = inner(fed, tp, split, dtype)
-        with torch.no_grad():
-            exact = ys[0].double()
-            for y in ys[1:]:
-                exact = exact + y.to(exact.device).double()
-            out.append(max(((y.double() - exact.to(d)).abs()
-                            / _bf16_ulp(exact.to(d))).max().item()
-                           for d, y in got.items()))
+        out.append(ulps(ys, got))
         return got
 
     slices.combine = spy
@@ -4911,9 +4947,35 @@ def train_ft_phase(dev, n_layers=6, S=1024, steps=3) -> dict:
 # of the same mesh and shapes on meta (``launch.dryrun.trace``)
 # (arch, mesh, B, S, steps); (arch, mesh, B, S, decode steps); (arch,
 # mesh, prompt, decode steps at B 1)
-SHARDED_TRAIN = ("h2o-danube-1.8b", (2, 2), 4, 4096, 3)
+SHARDED_TRAIN = ("h2o-danube-1.8b", (2, 2), 4, 4096, 3, None)
 SHARDED_SERVE = ("zamba2-2.7b", (1, 2), 2, 4096, 32)
 SHARDED_SEQ = ("h2o-danube-1.8b", (2, 2), 4000, 16)
+# the experts over 'data' (Stage 5): deepseek-moe-16b at full width on
+# (data 2, model 2), (arch, mesh, B, S, decode steps, a second prompt's
+# length: B x 120 is one group of 480 over both rows, capacity 57); its
+# train steps cut to 3 layers (one dense, two MoE: AdamW's f32 moments of
+# all 16.4B params would take 131 GB); an f32 check cut to 4 layers
+SHARDED_MOE = ("deepseek-moe-16b", (2, 2), 4, 2048, 16, 120)
+SHARDED_MOE_TRAIN = ("deepseek-moe-16b", (2, 2), 4, 2048, 3, 3)
+SHARDED_MOE_F32 = (4, 512, 4)          # layers, prompt length, decode steps
+SHARDED_MOE_F32_TOL = 1e-3             # logits, over the one-device scale
+# bf16 at full depth is chaotic: a rounding change flips near-tie routing
+# choices, and capacity hands each flip on to the other tokens of its
+# group.  The one-device program against itself with K2's plain version
+# in K2's place (``bf16_floor``) drifts from 3.3e-3 at the first MoE
+# layer's input to 0.94 at the last, its logits 1.11 of their scale apart
+# (first card run, NVIDIA H100 80GB HBM3, 700.00 W).  So the sharded bf16
+# run's MoE inputs are held, layer by layer, within this factor of that
+# drift (plus SHARDED_LOGIT_TOL's slack), and its logits only reported;
+# the f32 cut above holds the logits themselves
+SHARDED_MOE_FLOOR_FACTOR = 2.0
+# a token whose routing may differ between two f32 runs that sum in
+# different orders: two of its top-(k+1) router probabilities within this
+# of each other, relative.  Set after the first f32 runs on the card
+# (NVIDIA H100 80GB HBM3, 700.00 W) swapped one token's slot order in
+# layer 3's 12,288 entries, at a relative gap of 1.34e-5
+MOE_TIE_RTOL = 1e-4
+MOE_AUX_RTOL = 1e-2
 # the bf16 bounds, written down before the first run on the card: each
 # sharded step's loss within 1e-2 of the one-device step's (relative), every
 # logit within 5e-2 of the one-device logits' largest magnitude, and the
@@ -5027,14 +5089,16 @@ def train_agreement(prog, state, one: dict, norms: list,
     its initial params ``p0``, final params ``p`` and first moment ``mu``,
     on the card): the largest relative distance of the pre-clip gradient
     norms over the steps, and the worst leaf's ||sharded - one|| / ||one||
-    of AdamW's first moment and of the parameters' change."""
+    of AdamW's first moment and of the parameters' change.  ``state`` may
+    be another one-device state (its leaves plain tensors)."""
     from repro_torch.tree import named_leaves
 
     def worst(placed, ref, base=None):
         dists = []
         base = dict(base) if base is not None else None
         for name, st in named_leaves(placed):
-            a = st.gather(dev).float()
+            a = (st if isinstance(st, torch.Tensor) else st.gather(dev)
+                 ).float()
             b = ref[name].float()
             if base is not None:
                 a, b = a - base[name].float(), b - base[name].float()
@@ -5054,19 +5118,30 @@ def train_agreement(prog, state, one: dict, norms: list,
             "delta_rel": delta, "delta_worst_leaf": delta_leaf}
 
 
-def check_train_agreement(agree: dict) -> None:
-    assert agree["grad_norm_rel"] <= SHARDED_NORM_RTOL, agree
-    assert agree["mu_rel"] <= SHARDED_MU_RTOL, agree
-    assert agree["delta_rel"] <= SHARDED_DELTA_RTOL, agree
+def check_train_agreement(agree: dict, floor: dict | None = None) -> None:
+    """``agree`` within the ``SHARDED_*`` bounds, or, given the distance
+    of two one-device runs that differ only in K2's rounding (``floor``),
+    within ``SHARDED_MOE_FLOOR_FACTOR`` times it where that is larger."""
+    for key, bound in (("grad_norm_rel", SHARDED_NORM_RTOL),
+                       ("mu_rel", SHARDED_MU_RTOL),
+                       ("delta_rel", SHARDED_DELTA_RTOL)):
+        if floor is not None:
+            bound = max(bound, SHARDED_MOE_FLOOR_FACTOR * floor[key])
+        assert agree[key] <= bound, (key, agree, floor)
 
 
-def sharded_train(dev, smi: str) -> dict:
+def sharded_train(dev, smi: str, spec=SHARDED_TRAIN,
+                  drop_control: bool = True) -> dict:
     """h2o-danube-1.8b at full width and depth, bf16, AdamW, over a (data
     2, model 2) mesh of four logical devices on the card: global batch 4 x
     4,096 (``synthetic_batch``), ``SHARDED_TRAIN``'s steps, against the
     same steps on one logical device (``check_train_agreement``), and
     again with a planted fault (``_drop_row_grads``) that the same check
-    must refuse."""
+    must refuse (``drop_control``).  ``spec``: another (arch, mesh, B, S,
+    steps, layers kept or None).  A MoE config's first aux loss is held
+    within ``MOE_AUX_RTOL`` of one device's, and its agreement within
+    twice that of two one-device runs differing only in K2's rounding
+    where that is larger than the bounds (a router's bf16 floor)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.spmd import Program
     from repro_torch.models import layer_specs, stacked_leaves
@@ -5074,9 +5149,11 @@ def sharded_train(dev, smi: str) -> dict:
                                       make_train_step, synthetic_batch)
     from repro_torch.tree import named_leaves, tree_map
 
-    arch, shape, B, S, steps = SHARDED_TRAIN
+    arch, shape, B, S, steps, n_layers = spec
     cfg = get_config(arch)
-    assert cfg.optimizer == "adamw" and cfg.remat
+    if n_layers:
+        cfg = cfg.replace(n_layers=n_layers)
+    assert cfg.remat
     n_attn = sum(s.kind != "mamba" for s in layer_specs(cfg))
     pred = predicted(cfg, shape, B, S, "train")
     mesh = _mesh_on(shape, dev)
@@ -5095,11 +5172,12 @@ def sharded_train(dev, smi: str) -> dict:
     one = tree_map(torch.clone, params)
     one = TrainState(one, opt.init(stacked_leaves(one, cfg)))
     one_step = make_train_step(cfg, opt)
-    one_losses, one_norms = [], []
+    one_losses, one_norms, one_aux = [], [], []
     for b in batches:
         one, m = one_step(one, b)
         one_losses.append(float(m["loss"]))
         one_norms.append(float(m["grad_norm"]))
+        one_aux.append(float(m["aux_loss"]))
     one = {"p0": dict(named_leaves(params)),
            "p": dict(named_leaves(one.params)),
            "mu": dict(named_leaves(one.opt_state.mu))}
@@ -5109,6 +5187,21 @@ def sharded_train(dev, smi: str) -> dict:
     del one_step, m
     gc.collect()
     torch.cuda.empty_cache()
+    floor = None
+    if cfg.n_experts:
+        # a MoE router's bf16 floor: the same one-device steps with K2's
+        # plain version in K2's place, against the first run
+        alt = tree_map(torch.clone, params)
+        alt = TrainState(alt, opt.init(stacked_leaves(alt, cfg)))
+        alt_step, alt_norms = make_train_step(cfg, opt), []
+        with swapped_routes(k2=cuda_routes()["plain"][0]):
+            for b in batches:
+                alt, m = alt_step(alt, b)
+                alt_norms.append(float(m["grad_norm"]))
+        floor = train_agreement(None, alt, one, alt_norms, one_norms)
+        del alt, alt_step, m
+        gc.collect()
+        torch.cuda.empty_cache()
     state = prog.init_state(opt, prog.place_params(params))
     step = prog.train_step(opt)
     placed = [prog.place_batch(b) for b in batches]
@@ -5129,53 +5222,52 @@ def sharded_train(dev, smi: str) -> dict:
                      placed[0]["positions"], mode="train")
     torch.cuda.synchronize()
     losses, step_s, launches = [float(m0["loss"])], [], []
-    norms = [float(m0["grad_norm"])]
+    norms, aux = [float(m0["grad_norm"])], [float(m0["aux_loss"])]
     for b in placed[1:]:
         ((state, m), n), dt = _timed(lambda: _counted(lambda: step(state, b)))
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
+        aux.append(float(m["aux_loss"]))
         step_s.append(dt)
         launches.append(n)
     agree = train_agreement(prog, state, one, norms, one_norms)
     del state, step, prog
     gc.collect()
     torch.cuda.empty_cache()
-    # the planted control: the same steps with row 1's gradients dropped
-    bad = _drop_row_grads()(cfg, mesh, batch=B)
-    bad_state = bad.init_state(opt, bad.place_params(params))
-    bad_step = bad.train_step(opt)
-    bad_norms = []
-    for b in placed:
-        bad_state, m = bad_step(bad_state, b)
-        bad_norms.append(float(m["grad_norm"]))
-    bad_agree = train_agreement(bad, bad_state, one, bad_norms, one_norms)
-    del bad_state, bad_step, bad, params, one
+    bad_agree = None
+    if drop_control:
+        # the planted control: the same steps with row 1's gradients
+        # dropped
+        bad = _drop_row_grads()(cfg, mesh, batch=B)
+        bad_state = bad.init_state(opt, bad.place_params(params))
+        bad_step = bad.train_step(opt)
+        bad_norms = []
+        for b in placed:
+            bad_state, m = bad_step(bad_state, b)
+            bad_norms.append(float(m["grad_norm"]))
+        bad_agree = train_agreement(bad, bad_state, one, bad_norms,
+                                    one_norms)
+        del bad_state, bad_step, bad
+    del params, one
     want = {"K2": 2 * n_attn * mesh.size, "K3": 0, "K4": 0}
-    assert launches0 == want and all(l == want for l in launches), (
-        launches0, launches, want)
-    assert max(ulps) <= MESH_COMBINE_ULPS, max(ulps)
-    assert max(control) > MESH_COMBINE_ULPS, max(control)
-    assert all(map(math.isfinite, losses)), losses
     rel = max(abs(a - b) / b for a, b in zip(losses, one_losses))
-    assert rel <= SHARDED_LOSS_RTOL, (losses, one_losses)
-    emit({"phase": "sharded_train_agreement", "sound": agree,
-          "control": bad_agree})
-    check_train_agreement(agree)
-    try:
-        check_train_agreement(bad_agree)
-    except AssertionError:
-        pass
-    else:
-        raise AssertionError(f"the control passed the check: {bad_agree}")
+    # the aux of the same params: the first step's (the later steps' params
+    # part by AdamW's sign flips of near-zero bf16 gradients, which a MoE
+    # router's balance follows far: reported)
+    aux_rel = abs(aux[0] - one_aux[0]) / one_aux[0] if cfg.n_experts \
+        else 0.0
     p50 = statistics.median(step_s)
-    assert p50 >= pred["bound_s"], (p50, pred["bound_s"])
     res = {"phase": "sharded", "program": "train_step", "arch": arch,
            "card": smi, "mesh": dict(mesh.shape), "B": B, "S": S,
+           "reduced": (f"n_layers {get_config(arch).n_layers} -> "
+                       f"{n_layers}" if n_layers else None),
            "optimizer": "adamw", "losses": losses,
+           "aux_losses": aux, "one_device_aux_losses": one_aux,
+           "aux_rel_diff_first_step": aux_rel,
            "lr": SHARDED_LR, "one_device_losses": one_losses,
            "loss_rel_diff": rel, "grad_norms": norms,
            "one_device_grad_norms": one_norms, "agreement": agree,
-           "control_agreement": bad_agree,
+           "control_agreement": bad_agree, "one_device_floor": floor,
            "combine_max_ulps": max(ulps), "combines_checked": len(ulps),
            "control_max_ulps": max(control), "launches_per_step": want,
            "step_s": step_s, "step_p50_s": p50,
@@ -5189,7 +5281,26 @@ def sharded_train(dev, smi: str) -> dict:
            "collective_bytes": pred["collective_bytes"],
            "flops_per_step": pred["flops"], "dryrun_trace_s":
            pred["trace_s"]}
+    emit({"phase": "sharded_train_agreement", "arch": arch, "sound": agree,
+          "control": bad_agree, "one_device_floor": floor})
     emit(res)
+    assert launches0 == want and all(l == want for l in launches), (
+        launches0, launches, want)
+    assert max(ulps) <= MESH_COMBINE_ULPS, max(ulps)
+    assert max(control) > MESH_COMBINE_ULPS, max(control)
+    assert all(map(math.isfinite, losses)), losses
+    assert rel <= SHARDED_LOSS_RTOL, (losses, one_losses)
+    assert aux_rel <= MOE_AUX_RTOL, (aux, one_aux)
+    check_train_agreement(agree, floor)
+    if drop_control:
+        try:
+            check_train_agreement(bad_agree)
+        except AssertionError:
+            pass
+        else:
+            raise AssertionError(
+                f"the control passed the check: {bad_agree}")
+    assert p50 >= pred["bound_s"], (p50, pred["bound_s"])
     del placed
     gc.collect()
     torch.cuda.empty_cache()
@@ -5368,6 +5479,398 @@ def sharded_seq(dev, smi: str) -> dict:
     return res
 
 
+@contextlib.contextmanager
+def moe_routes(out: dict, inputs: bool = False):
+    """Inside the block, each MoE layer's routing as the one device, or
+    shard 0 of each row, computes it, in call order: its (n, k) expert ids
+    to ``out["idx"]``, its tokens' top k + 1 router probabilities to
+    ``out["top"]``, its entries' (n, k) fit in capacity to ``out["keep"]``
+    (``models/moe.py``'s ``route`` and ``dispatch_plan`` spied on);
+    ``inputs``: its router inputs too, to ``out["x"]`` (on the host)."""
+    import importlib
+
+    from repro_torch.core.sharded import current_shard
+
+    moe_mod = importlib.import_module("repro_torch.models.moe")
+    route, plan = moe_mod.route, moe_mod.dispatch_plan
+    for key in ("idx", "top", "keep") + (("x",) if inputs else ()):
+        out.setdefault(key, [])
+
+    def spy_route(params, x_flat, cfg):
+        res = route(params, x_flat, cfg)
+        if current_shard() in (None, 0):
+            with torch.no_grad():
+                out["top"].append(torch.topk(res[2], cfg.top_k + 1,
+                                             dim=-1).values)
+                if inputs:
+                    out["x"].append(x_flat.detach().float().cpu())
+            out["idx"].append(res[1].detach().clone())
+        return res
+
+    def spy_plan(*a, **kw):
+        res = plan(*a, **kw)
+        if current_shard() in (None, 0):
+            out["keep"].append(res.keep.clone())
+        return res
+
+    moe_mod.route, moe_mod.dispatch_plan = spy_route, spy_plan
+    try:
+        yield out
+    finally:
+        moe_mod.route, moe_mod.dispatch_plan = route, plan
+
+
+def routes_by_layer(rec: dict, rows: int) -> dict:
+    """A run's routing records per MoE layer, the rows' records (each row
+    runs its layers in turn) concatenated in token order, on the host."""
+    out = {}
+    for key, ts in rec.items():
+        n = len(ts) // rows
+        out[key] = [torch.cat([ts[r * n + li] for r in range(rows)]).cpu()
+                    for li in range(n)]
+    return out
+
+
+def route_diffs(a: dict, b: dict) -> dict:
+    """Per MoE layer, the tokens of run ``a`` whose experts differ from run
+    ``b``'s as a set (``sets``) and those whose slot order alone differs
+    (``orders``); and of all those tokens, the ones whose top k + 1 router
+    probabilities in ``b`` hold no near-tie (``untied``, which no
+    difference of rounding explains) and their smallest relative gap."""
+    sets, orders, untied, gap = [], [], 0, None
+    for x, y, top in zip(a["idx"], b["idx"], b["top"]):
+        differ = (x != y).any(-1)
+        by_set = (x.sort(-1).values != y.sort(-1).values).any(-1)
+        sets.append(int(by_set.sum()))
+        orders.append(int((differ & ~by_set).sum()))
+        if differ.any():
+            t = top[differ]
+            g = ((t[:, :-1] - t[:, 1:]) / t[:, :-1]).amin(-1)
+            untied += int((g >= MOE_TIE_RTOL).sum())
+            gap = max(gap or 0.0, float(g.max()))
+    return {"sets": sets, "orders": orders, "untied": untied,
+            "largest_gap_of_a_difference": gap}
+
+
+def place_freeing(prog, params):
+    """``prog.place_params(params)`` leaf by leaf, each tensor dropped from
+    ``params`` once placed: the one-device tree empties as its placement
+    grows, so the card never holds both whole (deepseek-moe-16b: 32.8 GB
+    and 35.6 GB placed)."""
+    from repro_torch.core.sharded import place
+    from repro_torch.tree import tree_leaves
+
+    pls = iter(tree_leaves(prog.param_placements))
+
+    def walk(node):
+        keys = sorted(node) if isinstance(node, dict) else range(len(node))
+        for k in keys:
+            if isinstance(node[k], (dict, list)):
+                walk(node[k])
+            else:
+                t, node[k] = node[k], None
+                node[k] = place(t, prog.mesh, next(pls).spec)
+                del t
+
+    walk(params)
+    return params
+
+
+def moe_serve_run(prog, params, toks, pos, toks2, pos2, new: int,
+                  feed: list, cfg=None) -> dict:
+    """prefill(toks), ``new`` greedy decode steps fed ``feed`` (or the
+    run's own greedy tokens, ``feed`` then filled), prefill(toks2); one
+    device (``prog`` None) or over ``prog``'s mesh, no grad.  The logits
+    and both prefills' routing (``moe_routes``) on the host; over the mesh
+    also each program's seconds and launches."""
+    from repro_torch.models import decode_step, prefill
+
+    B, S = toks.shape
+    cfg = prog.cfg if prog is not None else cfg
+    rows = prog.n_rows if prog is not None else 1
+    res = {"decode": [], "decode_s": [], "decode_launches": []}
+    with torch.no_grad():
+        rec: dict = {}
+        if prog is None:
+            with moe_routes(rec):
+                logits, caches = prefill(params, toks, pos, cfg,
+                                         max_len=S + new)
+        else:
+            pb = prog.place_batch({"inputs": toks, "positions": pos})
+            run = lambda: prog.prefill(params, pb["inputs"],
+                                       pb["positions"], max_len=S + new)
+            with moe_routes(rec):
+                ((logits, caches), res["prefill_launches"]), \
+                    res["prefill_s"] = _timed(lambda: _counted(run))
+            res["held_prefill"] = held_bytes((params, pb))
+            logits = logits.gather(toks.device)
+        res["prefill"] = logits.cpu()
+        res["routes"] = routes_by_layer(rec, rows)
+        for i in range(new):
+            if len(feed) <= i:
+                feed.append(logits.argmax(-1).to(torch.int32))
+            nxt = feed[i].to(toks.device)
+            p1 = torch.full((B, 1), S + i, dtype=torch.int32,
+                            device=toks.device)
+            if prog is None:
+                logits, caches = decode_step(params, caches, nxt, p1, cfg)
+            else:
+                b = prog.place_batch({"inputs": nxt, "positions": p1})
+                if i == 0:
+                    res["held_decode"] = held_bytes((params, caches, b))
+                (got, n), dt = _timed(lambda: _counted(
+                    lambda: prog.decode_step(params, caches, b["inputs"],
+                                             b["positions"])))
+                logits = got.gather(toks.device)
+                res["decode_s"].append(dt)
+                res["decode_launches"].append(n)
+            res["decode"].append(logits.cpu())
+        del caches
+        rec2: dict = {}
+        with moe_routes(rec2, inputs=True):
+            if prog is None:
+                logits, _ = prefill(params, toks2, pos2, cfg,
+                                    max_len=toks2.shape[1])
+            else:
+                b2 = prog.place_batch({"inputs": toks2, "positions": pos2})
+                logits, _ = prog.prefill(params, b2["inputs"],
+                                         b2["positions"],
+                                         max_len=toks2.shape[1])
+                logits = logits.gather(toks.device)
+        res["prefill2"] = logits.cpu()
+        res["routes2"] = routes_by_layer(rec2, rows)
+    return res
+
+
+def moe_compare(sh: dict, one: dict, tol: float) -> dict:
+    """The sharded run against one device's: each program's logits
+    (``logit_check`` against ``tol``), the routing choices that differ per
+    MoE layer, and the second prefill's dropped shares."""
+    logits = [("prefill", sh["prefill"], one["prefill"])] + [
+        (f"decode {i}", a, b) for i, (a, b) in enumerate(
+            zip(sh["decode"], one["decode"]))] + [
+        ("prefill2", sh["prefill2"], one["prefill2"])]
+    errs = []
+    for name, a, b in logits:
+        a, b = a.float(), b.float()
+        scale = b.abs().max().item()
+        top2 = b.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * tol * scale
+        same = a.argmax(-1) == b.argmax(-1)
+        errs.append((name, (a - b).abs().max().item() / scale,
+                     int(sure.sum()), int((same & sure).sum())))
+    drop = lambda r: float(torch.stack([~k for k in r["keep"]]).float()
+                           .mean())
+    # how far the two runs' MoE inputs lie apart, layer by layer
+    hidden = [float(torch.linalg.vector_norm(a - b)
+                    / torch.linalg.vector_norm(b))
+              for a, b in zip(sh["routes2"]["x"], one["routes2"]["x"])]
+    return {"logit_errs": errs,
+            "worst": max(e[1] for e in errs),
+            "greedy_sure": sum(e[2] for e in errs),
+            "greedy_sure_agree": sum(e[3] for e in errs),
+            "route_diffs_prefill": route_diffs(sh["routes"], one["routes"]),
+            "route_diffs_prefill2": route_diffs(sh["routes2"],
+                                                one["routes2"]),
+            "entries_per_layer": int(one["routes"]["idx"][0].numel()),
+            "entries_per_layer2": int(one["routes2"]["idx"][0].numel()),
+            "hidden_rel_per_layer2": hidden,
+            "dropped_share2": drop(sh["routes2"]),
+            "one_device_dropped_share2": drop(one["routes2"]),
+            "keep2_equal": all(torch.equal(a, b) for a, b in zip(
+                sh["routes2"]["keep"], one["routes2"]["keep"]))}
+
+
+def bf16_floor(cfg, params, toks2, pos2, one: dict) -> dict:
+    """How far two one-device bf16 runs lie apart that differ only in the
+    rounding of their attention: the second prefill again with K2's plain
+    version in its place, against ``one``'s (its logits over the scale,
+    its MoE inputs layer by layer, its routing)."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.models import attention, prefill
+
+    kernel_fn = attention.fa_ops.flash_attention
+
+    def plain_fn(q, k, v, *, positions=None, **kw):
+        return fa_ref.attention_ref(q, k, v, **kw)
+
+    rec: dict = {}
+    attention.fa_ops.flash_attention = plain_fn
+    try:
+        with torch.no_grad(), moe_routes(rec, inputs=True):
+            logits, _ = prefill(params, toks2, pos2, cfg,
+                                max_len=toks2.shape[1])
+    finally:
+        attention.fa_ops.flash_attention = kernel_fn
+    alt = routes_by_layer(rec, 1)
+    b = one["prefill2"].float()
+    return {"logit_err_over_scale": float((logits.cpu() - b).abs().max()
+                                          / b.abs().max()),
+            "hidden_rel_per_layer": [
+                float(torch.linalg.vector_norm(x - y)
+                      / torch.linalg.vector_norm(y))
+                for x, y in zip(alt["x"], one["routes2"]["x"])],
+            "route_diffs": route_diffs(alt, one["routes2"])}
+
+
+def moe_f32_check(cfg, params, mesh, dev, toks, pos, toks2, pos2) -> dict:
+    """The first ``SHARDED_MOE_F32`` layers of the same weights upcast to
+    f32, one device against the mesh: every routing choice equal, the
+    logits within ``SHARDED_MOE_F32_TOL`` of the one-device scale, the
+    second prefill's drops equal."""
+    from repro_torch.launch.spmd import Program
+    from repro_torch.tree import tree_map
+
+    n_layers, S, new = SHARDED_MOE_F32
+    c32 = cfg.replace(n_layers=n_layers, dtype="float32")
+    cut = {k: v for k, v in params.items() if k != "layers"}
+    cut["layers"] = params["layers"][:n_layers]
+    p32 = tree_map(lambda t: t.float(), cut)
+    toks, pos = toks[:, :S].contiguous(), pos[:, :S].contiguous()
+    feed: list = []
+    one = moe_serve_run(None, p32, toks, pos, toks2, pos2, new, feed, c32)
+    prog = Program(c32, mesh, batch=toks.shape[0])
+    placed = place_freeing(prog, p32)
+    sh = moe_serve_run(prog, placed, toks, pos, toks2, pos2, new, feed)
+    cmp = moe_compare(sh, one, SHARDED_MOE_F32_TOL)
+    del placed, p32, prog
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert cmp["worst"] <= SHARDED_MOE_F32_TOL, cmp["logit_errs"]
+    # every routing choice equal, but where one device's probabilities tie
+    diffs = (cmp["route_diffs_prefill"], cmp["route_diffs_prefill2"])
+    assert not any(d["untied"] for d in diffs), diffs
+    assert cmp["keep2_equal"] or any(diffs[1]["sets"] + diffs[1]["orders"]
+                                     ), cmp
+    return {"reduced": f"n_layers {cfg.n_layers} -> {n_layers}, f32",
+            "prompt": S, "decode_steps": new, **cmp}
+
+
+def sharded_moe_serve(dev, smi: str) -> dict:
+    """deepseek-moe-16b at full width and depth (28 layers, 27 MoE: 64
+    experts top-6, 2 shared; bf16) with its experts over 'data' on a (data
+    2, model 2) mesh of four logical devices on the card: a prefill of 4 x
+    2,048 (groups of 512 inside the rows), 16 decode steps (each one group
+    of 4 tokens over both rows) and a prefill of 4 x 120 (one group of 480
+    over both rows, capacity 57: drops), teacher-forced with the
+    one-device program's tokens.  The one-device program runs first and
+    keeps its logits and routing on the host; its params are then placed
+    leaf by leaf (``place_freeing``).  Before that, the first 4 layers in
+    f32 (``moe_f32_check``: the logits held), and the bf16 drift between
+    two one-device runs (``bf16_floor``), within whose envelope the
+    sharded run's MoE inputs are held (``SHARDED_MOE_FLOOR_FACTOR``)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.spmd import Program
+
+    arch, shape, B, S, new, S2 = SHARDED_MOE
+    cfg = get_config(arch)
+    pre_pred = predicted(cfg, shape, B, S, "prefill")
+    dec_pred = predicted(cfg, shape, B, S + new, "decode")
+    mesh = _mesh_on(shape, dev)
+    params = _seeded_params(cfg, dev, 0)
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(
+        np.int32)).to(dev)
+    toks2 = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S2)).astype(
+        np.int32)).to(dev)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None].repeat(B, 1)
+    pos2 = pos[:, :S2].contiguous()
+    feed: list = []
+    one = moe_serve_run(None, params, toks, pos, toks2, pos2, new, feed, cfg)
+    floor = bf16_floor(cfg, params, toks2, pos2, one)
+    f32 = moe_f32_check(cfg, params, mesh, dev, toks, pos, toks2, pos2)
+    emit({"phase": "sharded_moe_f32", "arch": arch, "card": smi, **f32})
+    prog = Program(cfg, mesh, batch=B)
+    placed = place_freeing(prog, params)
+    del params
+    gc.collect()
+    # the per-reduction check (a prefill), then its control
+    pb = prog.place_batch({"inputs": toks, "positions": pos})
+    run = lambda: prog.prefill(placed, pb["inputs"], pb["positions"],
+                               max_len=S + new)
+    ulps: list = []
+    with torch.no_grad(), combine_checked(ulps):
+        run()
+    control: list = []
+    with torch.no_grad(), combine_checked(control, control=True):
+        run()
+    del pb
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sh = moe_serve_run(prog, placed, toks, pos, toks2, pos2, new, feed)
+    peak = torch.cuda.max_memory_allocated()
+    cmp = moe_compare(sh, one, SHARDED_LOGIT_TOL)
+    want_pre = {"K2": cfg.n_layers * mesh.size, "K3": 0, "K4": 0}
+    want_dec = {"K2": 0, "K3": 0, "K4": cfg.n_layers * mesh.size}
+    p50 = statistics.median(sh["decode_s"])
+    res = {"phase": "sharded", "program": "prefill+decode_step, experts "
+           "over data", "arch": arch, "card": smi, "mesh": dict(mesh.shape),
+           "B": B, "S": S, "decode_steps": new, "S2": S2,
+           "prefill_s": sh["prefill_s"], "prefill_bound_s":
+           pre_pred["bound_s"], "decode_step_p50_s": p50,
+           "decode_bound_s": dec_pred["bound_s"],
+           "launches_prefill": want_pre,
+           "launches_decode": {"K4": want_dec["K4"] * new},
+           "combine_max_ulps": max(ulps), "combines_checked": len(ulps),
+           "control_max_ulps": max(control),
+           "logit_err_over_scale": cmp["worst"],
+           "logit_errs": cmp["logit_errs"],
+           "hidden_rel_per_layer_480": cmp["hidden_rel_per_layer2"],
+           "floor": floor,
+           "greedy_sure": cmp["greedy_sure"],
+           "greedy_sure_agree": cmp["greedy_sure_agree"],
+           "route_diffs_per_layer_prefill": cmp["route_diffs_prefill"],
+           "route_diffs_per_layer_prefill2": cmp["route_diffs_prefill2"],
+           "route_entries_per_layer": cmp["entries_per_layer"],
+           "dropped_share_480": cmp["dropped_share2"],
+           "one_device_dropped_share_480": cmp["one_device_dropped_share2"],
+           "keep_480_equal": cmp["keep2_equal"],
+           "held_bytes_prefill": sh["held_prefill"],
+           "held_bytes_decode": sh["held_decode"],
+           "predicted_prefill_peak_bytes": pre_pred["peak"],
+           "predicted_decode_peak_bytes": dec_pred["peak"],
+           "measured_peak_bytes": peak,
+           "collective_bytes_prefill": pre_pred["collective_bytes"],
+           "collective_bytes_decode_step": dec_pred["collective_bytes"],
+           "dryrun_trace_s": pre_pred["trace_s"] + dec_pred["trace_s"],
+           "f32": {k: f32[k] for k in ("worst", "route_diffs_prefill",
+                                       "route_diffs_prefill2",
+                                       "dropped_share2", "keep2_equal")}}
+    emit(res)
+    assert sh["prefill_launches"] == want_pre, sh["prefill_launches"]
+    assert all(n == want_dec for n in sh["decode_launches"]), \
+        sh["decode_launches"]
+    assert pre_pred["args"] == sh["held_prefill"], (pre_pred["args"],
+                                                     sh["held_prefill"])
+    assert dec_pred["args"] == sh["held_decode"], (dec_pred["args"],
+                                                    sh["held_decode"])
+    assert max(ulps) <= MESH_COMBINE_ULPS, max(ulps)
+    assert max(control) > MESH_COMBINE_ULPS, max(control)
+    assert sh["prefill_s"] >= pre_pred["bound_s"], (sh["prefill_s"],
+                                                    pre_pred["bound_s"])
+    assert p50 >= dec_pred["bound_s"], (p50, dec_pred["bound_s"])
+    drift = cmp["hidden_rel_per_layer2"]
+    assert all(d <= SHARDED_MOE_FLOOR_FACTOR * f + SHARDED_LOGIT_TOL
+               for d, f in zip(drift, floor["hidden_rel_per_layer"])), (
+        drift, floor["hidden_rel_per_layer"])
+    assert all(torch.isfinite(t).all() for t in
+               [sh["prefill"], sh["prefill2"]] + sh["decode"])
+    assert sh["prefill"].shape == (B, cfg.vocab_size)
+    del placed, sh, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def sharded_moe(dev, smi: str) -> dict:
+    """Stage 5 on the card: deepseek-moe-16b served (``sharded_moe_serve``)
+    and trained (``SHARDED_MOE_TRAIN``, cut to 3 layers, against the
+    one-device steps) with its experts over 'data'."""
+    serve = sharded_moe_serve(dev, smi)
+    train = sharded_train(dev, smi, SHARDED_MOE_TRAIN, drop_control=False)
+    return {"serve": serve, "train": train}
+
+
 def sharded_phase(dev, smi: str) -> dict:
     """The sharded train step (danube on (2, 2)), the sharded prefill and
     decode (zamba2 on (1, 2)), and a batch-1 decode over a cache split over
@@ -5376,20 +5879,25 @@ def sharded_phase(dev, smi: str) -> dict:
     train = sharded_train(dev, smi)
     serve = sharded_serve(dev, smi)
     seq = sharded_seq(dev, smi)
-    return {"train": train, "serve": serve, "seq": seq,
+    moe = sharded_moe(dev, smi)
+    return {"train": train, "serve": serve, "seq": seq, "moe": moe,
             "launches": {"K2": {"train_step": train["launches_per_step"]["K2"],
                                 "prefill": serve["launches_prefill"]["K2"]},
                          "K3": {"prefill": serve["launches_prefill"]["K3"]},
                          "K4": {"decode": serve["launches_decode"]["K4"],
                                 "decode_sequence_split":
-                                    seq["k4_launches"]}}}
+                                    seq["k4_launches"]}},
+            "launches_moe": {
+                "K2": {"prefill": moe["serve"]["launches_prefill"]["K2"],
+                       "train_step":
+                           moe["train"]["launches_per_step"]["K2"]},
+                "K4": {"decode": moe["serve"]["launches_decode"]["K4"]}}}
 
 
 def dryrun_phase(smi: str) -> dict:
     """``python -m repro_torch.launch.dryrun --all`` (single-pod, every
     cell, ``DRYRUN_JOBS`` at once) in a subprocess on the card's host: one
-    line per cell; every covered cell wrote its JSON, every other raised
-    naming its stage."""
+    line per cell; every cell wrote its JSON (none may be uncovered)."""
     import re
 
     from repro_torch.configs.registry import all_cells
@@ -5443,6 +5951,7 @@ def dryrun_phase(smi: str) -> dict:
            "uncovered": {r["cell"]: r["uncovered"] for r in rows
                          if "uncovered" in r}}
     emit(res)
+    assert not res["uncovered"], res["uncovered"]
     return res
 
 
@@ -5744,6 +6253,7 @@ def main() -> int:
         "launches_embeds": embeds_launches,
         "launches_train_step": train["launches_per_step"]["K2"],
         "launches_sharded": sharded["launches"]["K2"],
+        "launches_sharded_moe": sharded["launches_moe"]["K2"],
         "autograd": grads["K2"],
         "launches_examples": twin_launches("flash_attention"),
         "examples_cases": examples["checks"]["K2"]}, {
@@ -5782,6 +6292,7 @@ def main() -> int:
         "launches_embeds": {arch: launches["embeds_check"]["K4"]
                             for arch, launches in embeds_launches.items()},
         "launches_sharded": sharded["launches"]["K4"],
+        "launches_sharded_moe": sharded["launches_moe"]["K4"],
         "launches_examples": twin_launches("decode_attention")
         }]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -113,14 +113,18 @@ def model_flops(cfg: ModelConfig, shape) -> float:
 
 
 # ------------------------------------------------------------- the trace
-def _device_bytes(args, n_devices: int, counter) -> list[int]:
+def _device_bytes(args, n_devices: int, counter, returned=()) -> list[int]:
     """Each device's bytes of its shards of every ShardedTensor in
     ``args`` that the traced step read (on some shard: XLA drops an unused
-    argument whole)."""
+    argument whole) or returns (a train step's state, Adafactor's unread
+    momentum placeholders included: XLA keeps an argument its output
+    aliases)."""
     out = [0] * n_devices
+    kept = {id(leaf) for leaf in tree_leaves(returned)
+            if isinstance(leaf, ShardedTensor)}
     for leaf in tree_leaves(args):
-        if isinstance(leaf, ShardedTensor) and any(
-                map(counter.reads, leaf.shards)):
+        if isinstance(leaf, ShardedTensor) and (id(leaf) in kept or any(
+                map(counter.reads, leaf.shards))):
             for i, t in enumerate(leaf.shards):
                 out[i] += t.numel() * t.element_size()
     return out
@@ -174,7 +178,7 @@ def trace(cfg: ModelConfig, mesh: Mesh, shape: Shape, *,
         out = run()
     t_run = time.monotonic() - t0
     stats = counter.per_device()          # the outputs still live
-    per_device = _device_bytes(args, mesh.size, counter)
+    per_device = _device_bytes(args, mesh.size, counter, out)
     del out
     return {"prog": prog, "counter": counter, "args": per_device,
             "t_place": t_place, "t_run": t_run, **stats}

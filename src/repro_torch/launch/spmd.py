@@ -18,16 +18,31 @@ dim is a split by SSM heads); ``gather_*`` undo it.
 A decode step over caches split over the sequence (``long_500k``: batch 1,
 ``cache_seq`` over 'data') runs the rows in lockstep: one row's program,
 each shard's attention over the parts of its cache that the rows hold,
-merged by their log-sum-exps (``attention._seq_merge``).  What the port
-does not yet run raises ``NotImplementedError`` naming its stage
-(``coverage``): experts over 'data' (Stage 5, the MoE configs on a mesh
-with data > 1), and a prefill that would build a sequence-split cache.
+merged by their log-sum-exps (``attention._seq_merge``).
+
+A MoE config on a mesh of several rows (Stage 5: the rules put the experts
+over 'data' wherever it divides ``n_experts``) runs the rows in token
+order, each MoE layer of a row routing its own tokens in the batch's
+groups, placing each entry after the entries the rows before gave its
+expert (``moe.ExpertChain``'s carried counts), and sending each slice of
+its dispatch buffer to the row that owns those experts and back
+(``moe.RowExperts``); the aux loss is formed from every row's sums.  A
+train step runs a reference microbatch's pieces forward first and then
+one backward over its loss, and reduces an expert leaf's gradient over
+the rows that hold the same slice only (autograd already brought every
+row's part to its owner).
+
+What the port does not yet run raises ``NotImplementedError`` naming its
+stage (``coverage``): a prefill that would build a sequence-split cache
+(Stage 4 covers its decode steps).
 """
 from __future__ import annotations
 
 import dataclasses
 import re
+from collections import Counter
 
+import numpy as np
 import torch
 
 from repro_torch.core.sharded import (Placement, ShardedTensor, local_tree,
@@ -36,6 +51,7 @@ from repro_torch.models import (cache_axes, decode_step, forward, layer_specs,
                                 param_axes, prefill, stacked_leaves)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mamba2 import shard_columns
+from repro_torch.models.moe import ExpertChain, RowExperts
 from repro_torch.tree import named_leaves, tree_leaves, tree_map
 
 from .mesh import Mesh
@@ -60,12 +76,6 @@ def coverage(cfg: ModelConfig, mesh: Mesh, rules: dict, *,
     """Raise ``NotImplementedError`` naming the stage a sharded program of
     ``cfg`` over ``mesh`` needs and the port lacks; ``kind``: "train" /
     "score", "prefill" or "decode"."""
-    if cfg.n_experts and _axis_size(mesh, rules["expert"]) > 1:
-        raise NotImplementedError(
-            f"Stage 5 (experts over 'data'): config {cfg.name} puts its "
-            f"{cfg.n_experts} experts over {rules['expert']!r} of mesh "
-            f"{mesh.shape}; the port's MoE layer runs only with the experts "
-            f"whole on every shard")
     attn = any(s.kind != "mamba" for s in layer_specs(cfg))
     if kind == "prefill" and attn and \
             _axis_size(mesh, rules["cache_seq"]) > 1:
@@ -81,11 +91,13 @@ def coverage(cfg: ModelConfig, mesh: Mesh, rules: dict, *,
             f"{cfg.name}, mesh {mesh.shape}) is not ported")
     for name, axes in named_leaves(param_axes(cfg),
                                    is_leaf=lambda x: isinstance(x, tuple)):
-        for entry in leaf_spec(axes, rules):
-            if entry not in (None, "model") and _axis_size(mesh, entry) > 1:
+        for ax, entry in zip(axes, leaf_spec(axes, rules)):
+            if entry not in (None, "model") and ax != "expert" and \
+                    _axis_size(mesh, entry) > 1:
                 raise NotImplementedError(
                     f"params split over {entry!r} (param {name}): the "
-                    f"sharded steps split params over 'model' only")
+                    f"sharded steps split params over 'model' only, and "
+                    f"experts over the rows")
 
 
 class Program:
@@ -117,6 +129,60 @@ class Program:
                      else None)
         self.represent = represent
         self.seq_rows = self._seq_rows()
+        # a MoE config over several rows couples them (one batch's groups
+        # and aux); ``owners[r]``: for each slice of the experts, the row
+        # that holds it among row r's neighbours over the expert axes
+        self.coupled = bool(cfg.n_experts) and self.n_rows > 1
+        self.owners = self._owner_rows() if self.coupled else None
+
+    def _owner_rows(self) -> list[list[int]]:
+        """For each row, the rows holding each slice of the experts (in
+        expert order) that differ from it only over the expert axes."""
+        pl = Placement(self.mesh, leaf_spec(("expert", "embed", "ffn"),
+                                            self.rules))
+        shape = (self.cfg.n_experts, self.cfg.d_model, self.cfg.moe_d_ff)
+        regions = pl.slices(shape)
+        axes = set(pl._dim_axes(0))
+        names = self.mesh.axis_names
+        coords = list(np.ndindex(self.mesh.devices.shape))
+        key = lambda r: tuple(c for a, c in zip(names, coords[r * self.m])
+                              if a not in axes and a != "model")
+        slot = {(key(r), regions[r * self.m][0].start): r
+                for r in range(self.n_rows)}
+        starts = sorted({reg[0].start for reg in regions})
+        return [[slot[(key(r), st)] for st in starts]
+                for r in range(self.n_rows)]
+
+    def row_experts(self, r: int, trees, offset: int,
+                    chain: ExpertChain) -> RowExperts:
+        """Row r's view of the experts over the rows, its tokens starting
+        at ``offset`` of the chain's batch; ``trees(i)``: device i's local
+        param tree (the dry run's row stands in for every owner)."""
+        owners = [[(self.tps[r if self.represent else o].devices[s],
+                    trees((r if self.represent else o) * self.m + s))
+                   for s in range(self.m_run)] for o in self.owners[r]]
+        return RowExperts(chain, offset, owners, self.m)
+
+    def _row_tps(self, rows, positions: ShardedTensor, trees) -> dict:
+        """Each row's slice, with its view of the experts where the rows
+        are coupled: the rows that hold the same part of the batch form a
+        chain (one per replica of it), in token order."""
+        if not self.coupled:
+            return {r: self.tps[r] for r in rows}
+        S = positions.shape[1]
+        regions = positions.placement.slices(positions.shape)
+        seen: Counter = Counter()
+        chains: dict = {}
+        out = {}
+        for r in rows:
+            reg = regions[r * self.m][0]
+            q = seen[(reg.start, reg.stop)]
+            seen[(reg.start, reg.stop)] += 1
+            chain = chains.setdefault(q, ExpertChain(
+                self.cfg, positions.shape[0] * S))
+            out[r] = dataclasses.replace(self.tps[r], experts=self.row_experts(
+                r, trees, reg.start * S, chain))
+        return out
 
     def _seq_rows(self) -> list[int]:
         """The rows holding the parts of a decode cache split over the
@@ -249,12 +315,17 @@ class Program:
         """``models.forward`` over the mesh: (logits, aux) per row run
         (``rows`` None: all, as ShardedTensor logits)."""
         coverage(self.cfg, self.mesh, self.rules, kind="score")
+        tps = self._row_tps(self._rows(rows), positions,
+                            lambda i: local_tree(params, i))
         out = {r: forward(self._local(params, r),
                           self._row_input(inputs, r),
                           self._row_input(positions, r), self.cfg, mode=mode,
-                          tp=self.tps[r])
-               for r in self._rows(rows)}
+                          tp=tp)
+               for r, tp in tps.items()}
         if rows is not None:
+            if self.coupled:        # the batch's aux, from every row's sums
+                out = {r: (o[0], tps[r].experts.chain.aux(o[0].device))
+                       for r, o in out.items()}
             return out
         return self._rows_out({r: o[0] for r, o in out.items()}, inputs)
 
@@ -264,10 +335,12 @@ class Program:
         placed by the rules (``rows`` given: each row's raw (logits, the
         shards' cache lists))."""
         coverage(self.cfg, self.mesh, self.rules, kind="prefill")
+        tps = self._row_tps(self._rows(rows), positions,
+                            lambda i: local_tree(params, i))
         out = {r: prefill(self._local(params, r), self._row_input(inputs, r),
                           self._row_input(positions, r), self.cfg,
-                          max_len=max_len, tp=self.tps[r])
-               for r in self._rows(rows)}
+                          max_len=max_len, tp=tp)
+               for r, tp in tps.items()}
         if rows is not None:
             return out
         pls = tree_leaves(self.cache_placements())
@@ -290,10 +363,12 @@ class Program:
             logits = self._seq_decode(params, caches, inputs, positions)
             out = {r: logits for r in self._rows(rows)}
         else:
+            tps = self._row_tps(self._rows(rows), positions,
+                                lambda i: local_tree(params, i))
             out = {r: decode_step(
                 self._local(params, r), self._local(caches, r),
                 self._row_input(inputs, r), self._row_input(positions, r),
-                self.cfg, tp=self.tps[r])[0] for r in self._rows(rows)}
+                self.cfg, tp=tp)[0] for r, tp in tps.items()}
         return out if rows is not None else self._rows_out(out, inputs)
 
     def _seq_decode(self, params, caches, inputs, positions):
@@ -314,6 +389,10 @@ class Program:
                           else [t[li] for t in trees]
                           for li, spec in enumerate(specs)])
         r0 = self.seq_rows[0]
+        if self.coupled:
+            tp = dataclasses.replace(tp, experts=self.row_experts(
+                r0, lambda i: local_tree(params, i), 0,
+                ExpertChain(self.cfg, positions.shape[0])))
         return decode_step(self._local(params, r0), local,
                            self._row_input(inputs, r0),
                            self._row_input(positions, r0), self.cfg,
@@ -333,10 +412,61 @@ class Program:
             out[name] = (dims[0] + int(stacked)) if dims else None
         return out
 
+    def spread(self) -> set:
+        """The JAX leaf names whose leaves are split over the rows too (the
+        experts over 'data')."""
+        pls = stacked_leaves(self.param_placements, self.cfg)
+        return {name for name, pl in pls.items()
+                if _row_split(pl[0] if isinstance(pl, tuple) else pl)}
+
     def _grad_parts(self, acc: dict, j: int, shards, rows: list) -> list:
         """The parts summed into leaf ``j``'s grad on ``shards``: each
         distinct batch row's (``rows``) grads of that leaf, shard-major."""
         return [acc[r * self.m + q][j] for q in shards for r in rows]
+
+    def _pieces(self, batch: dict, run: list, grad_accum: int):
+        """(the distinct batch rows' first rows, their count, each
+        reference microbatch's pieces in token order): a piece is (row r,
+        its chunk i of c batch rows, microbatch mb, the chunk's first batch
+        row); rows that replicate an earlier row's batch add nothing."""
+        first = batch["inputs"]
+        regions = [first.placement.slices(first.shape)[r * self.m][0]
+                   for r in range(self.n_rows)]
+        owner: dict = {}
+        for r, g in enumerate(regions):
+            owner.setdefault((g.start, g.stop), r)
+        distinct = [r for r in run
+                    if owner[(regions[r].start, regions[r].stop)] == r]
+        B = first.shape[0]
+        if B % grad_accum:
+            raise ValueError(f"batch {B} not divisible by grad_accum "
+                             f"{grad_accum}")
+        bm = B // grad_accum
+        pieces = []
+        for r in distinct:
+            lo, hi = regions[r].start, regions[r].stop
+            c = (hi - lo) // grad_accum
+            if (hi - lo) % grad_accum:
+                raise ValueError(f"a row's {hi - lo} rows do not split "
+                                 f"into {grad_accum} chunks")
+            for i in range(grad_accum):
+                start = lo + i * c
+                mb = start // bm
+                if (start + c - 1) // bm != mb:
+                    raise ValueError("a chunk straddles two microbatches")
+                pieces.append((r, i, c, mb, start))
+        pieces.sort(key=lambda p: (p[3], p[4]))
+        return distinct, len(owner), bm, pieces
+
+    def _regions(self, params) -> list[list[tuple]]:
+        """For each param leaf, each device's region of it (a hashable
+        key), in mesh order."""
+        if getattr(self, "_leaf_regions", None) is None:
+            self._leaf_regions = [
+                [tuple((r.start, r.stop) for r in reg)
+                 for reg in st.placement.slices(st.shape)]
+                for st in tree_leaves(params)]
+        return self._leaf_regions
 
     def train_step(self, opt, *, grad_accum: int = 1,
                    max_grad_norm: float = 1.0):
@@ -347,84 +477,82 @@ class Program:
         over it, the loss the mean over microbatches.  Each row splits its
         local batch into ``grad_accum`` chunks, each inside one reference
         microbatch, so the per-microbatch denominators (an all-reduce) make
-        every chunk's share exact.  ``rows``: run only these rows (the dry
-        run's one batch shard); the reductions over the others are then
-        recorded, not run."""
+        every chunk's share exact.  A microbatch's pieces run in token
+        order; each runs its own backward, unless the rows are coupled
+        (MoE), where all of them run forward first and one backward takes
+        the microbatch's loss, its aux formed from every piece's sums.
+        ``rows``: run only these rows (the dry run's one batch shard); the
+        reductions over the others are then recorded, not run."""
         from repro_torch.training.train import TrainState, nll_sum
 
         cfg, m, m_run = self.cfg, self.m, self.m_run
-        splits = self.splits()
+        splits, spread = self.splits(), self.spread()
         coverage(cfg, self.mesh, self.rules, kind="train")
 
         def step(state, batch, rows=None):
             params, opt_state = state
             run = list(self._rows(rows))
-            first = batch["inputs"]
-            regions = [first.placement.slices(first.shape)[r * m][0]
-                       for r in range(self.n_rows)]
-            owner: dict = {}
-            for r, g in enumerate(regions):
-                owner.setdefault((g.start, g.stop), r)
-            keys = list(owner)
-            # rows that replicate an earlier row's batch add nothing
-            distinct = [r for r in run
-                        if owner[(regions[r].start, regions[r].stop)] == r]
-            B = first.shape[0]
-            if B % grad_accum:
-                raise ValueError(f"batch {B} not divisible by grad_accum "
-                                 f"{grad_accum}")
-            bm = B // grad_accum
+            distinct, n_keys, bm, pieces = self._pieces(batch, run,
+                                                        grad_accum)
+            S = batch["positions"].shape[1]
             dev0 = self.tps[run[0]].devices[0]
-            # each chunk's reference microbatch and its denominator
-            chunks = []
-            for r in distinct:
-                lo, hi = regions[r].start, regions[r].stop
-                c = (hi - lo) // grad_accum
-                if (hi - lo) % grad_accum:
-                    raise ValueError(f"a row's {hi - lo} rows do not split "
-                                     f"into {grad_accum} chunks")
-                for i in range(grad_accum):
-                    start = lo + i * c
-                    mb = start // bm
-                    if (start + c - 1) // bm != mb:
-                        raise ValueError("a chunk straddles two microbatches")
-                    chunks.append((r, i, c, mb))
             den = torch.zeros(grad_accum, dtype=torch.float32, device=dev0)
             mask = batch.get("mask")
-            for r, i, c, mb in chunks:
+            for r, i, c, mb, _ in pieces:
                 # a chunk's token count: no host round trip either way
                 den[mb] += (torch.sum(self._row_input(mask, r)[
                     i * c:(i + 1) * c]).to(dev0) if mask is not None else
                     float(c * batch["targets"].shape[1]))
-            record_collective("all-reduce", 4 * grad_accum, len(keys), m)
+            record_collective("all-reduce", 4 * grad_accum, n_keys, m)
             den = torch.clamp(den, min=1.0)
 
-            flat_params = [tree_leaves(local_tree(params, s))
-                           for s in range(m_run)]
+            def backward(group):
+                """The pieces of one microbatch forward, then one backward:
+                (each device's grads, the CE share, the aux, the loss
+                share)."""
+                mb = group[0][3]
+                views: dict = {}
 
-            def chunk(r, i, c, mb):
-                """Row r's chunk i: (each running shard's grads, its CE
-                share, its aux, its share of the loss)."""
-                sl = slice(i * c, (i + 1) * c)
-                local = {k: self._row_input(v, r)[sl]
-                         for k, v in batch.items()}
-                views = [tree_map(lambda t: t.detach().requires_grad_(),
-                                  local_tree(params, r * m + s))
-                         for s in range(m_run)]
-                flat = [t for v in views for t in tree_leaves(v)]
+                def view(i):
+                    if i not in views:
+                        views[i] = tree_map(
+                            lambda t: t.detach().requires_grad_(),
+                            local_tree(params, i))
+                    return views[i]
+
+                chain = ExpertChain(cfg, bm * S) if self.coupled else None
+                parts = []
                 with torch.enable_grad():
-                    logits, aux = forward(views, local["inputs"],
-                                          local["positions"], cfg,
-                                          mode="train", tp=self.tps[r])
-                    part = nll_sum(logits.float(), local["targets"],
-                                   local.get("mask"))
-                    part = part / den[mb].to(part.device)
-                    total = (part + cfg.router_aux_coef * aux) / grad_accum
+                    for r, i, c, _, start in group:
+                        sl = slice(i * c, (i + 1) * c)
+                        local = {k: self._row_input(v, r)[sl]
+                                 for k, v in batch.items()}
+                        tp = self.tps[r]
+                        if chain is not None:
+                            tp = dataclasses.replace(
+                                tp, experts=self.row_experts(
+                                    r, view, (start - mb * bm) * S, chain))
+                        logits, aux = forward(
+                            [view(r * m + s) for s in range(m_run)],
+                            local["inputs"], local["positions"], cfg,
+                            mode="train", tp=tp)
+                        part = nll_sum(logits.float(), local["targets"],
+                                       local.get("mask"))
+                        parts.append(part / den[mb].to(part.device))
+                    if chain is not None:
+                        aux = chain.aux(dev0)
+                    part = parts[0]
+                    for t in parts[1:]:
+                        part = part + t.to(part.device)
+                    total = (part + cfg.router_aux_coef *
+                             aux.to(part.device)) / grad_accum
+                    keys = sorted(views)
+                    flat = [t for k in keys for t in tree_leaves(views[k])]
                     grads = torch.autograd.grad(total, flat,
                                                 materialize_grads=True)
-                per = len(flat) // m_run
-                return ([list(grads[s * per:(s + 1) * per])
-                         for s in range(m_run)],
+                per = len(flat) // len(keys)
+                return ({k: list(grads[n * per:(n + 1) * per])
+                         for n, k in enumerate(keys)},
                         part.detach(), aux.detach(), total.detach())
 
             acc: dict[int, list] = {}
@@ -432,73 +560,114 @@ class Program:
             aux_mb = torch.zeros(grad_accum, dtype=torch.float32,
                                  device=dev0)
             loss = torch.zeros((), dtype=torch.float32, device=dev0)
-            for r, i, c, mb in chunks:
-                grads, part, aux, total = chunk(r, i, c, mb)
-                for s, g in enumerate(grads):
-                    # one chunk keeps the grads' own dtype; chunks add in f32
-                    key = r * m + s
-                    acc[key] = g if key not in acc else [
-                        a.float() + b.float() for a, b in zip(acc[key], g)]
-                ce[mb] += part.to(dev0)
-                aux_mb[mb] = aux.to(dev0)
-                loss = loss + total.to(dev0)
-            record_collective("all-reduce", 4, len(keys), m)
+            for mb in range(grad_accum):
+                mine = [p for p in pieces if p[3] == mb]
+                # uncoupled, a microbatch of several pieces holds no MoE
+                # layer (its aux is zero), and each piece runs alone
+                for group in ([mine] if self.coupled else
+                              [[p] for p in mine]):
+                    grads, part, aux, total = backward(group)
+                    for key, g in grads.items():
+                        # one chunk keeps the grads' own dtype; chunks add
+                        # in f32
+                        acc[key] = g if key not in acc else [
+                            a.float() + b.float()
+                            for a, b in zip(acc[key], g)]
+                    ce[mb] += part.to(dev0)
+                    aux_mb[mb] = aux.to(dev0)
+                    loss = loss + total.to(dev0)
+            record_collective("all-reduce", 4, n_keys, m)
 
-            # every leaf's grad: summed over the distinct batch rows, then
-            # over the model shards that replicate it, in shard order
+            # every leaf's grad on every running device: summed over the
+            # distinct batch rows, then over the model shards that
+            # replicate it, in shard order; an expert leaf's over the rows
+            # holding the same slice only (its owners' grads hold every
+            # row's part already)
             pls = tree_leaves(self.param_placements)
+            regions = self._regions(params)
             ref = tree_leaves(local_tree(params, 0))
-            grads_s: list[list] = [[] for _ in range(m_run)]
+            devs = [r * m + s for r in run for s in range(m_run)]
+            grads_d: dict[int, list] = {i: [] for i in devs}
             for j, pl in enumerate(pls):
+                rowsplit = _row_split(pl)
                 split = pl.splits(ref[j].dim()) and m > 1
-                record_collective("all-reduce", ref[j].numel() * 4,
-                                  len(keys) * (1 if split else m),
-                                  m if split else 1)
-                total = None
-                for s in range(m_run):
-                    if total is None or split:
-                        parts = self._grad_parts(
-                            acc, j, [s] if split else range(m_run), distinct)
-                        total = parts[0]
-                        if len(parts) > 1:
+                if rowsplit:
+                    group = self._replicas(regions[j])
+                    record_collective("all-reduce", ref[j].numel() * 4,
+                                      max(1, n_keys // len(self.owners[0])),
+                                      m * len(self.owners[0]))
+                else:
+                    record_collective("all-reduce", ref[j].numel() * 4,
+                                      n_keys * (1 if split else m),
+                                      m if split else 1)
+                done: dict = {}
+                for i in devs:
+                    r, s = divmod(i, m)
+                    if rowsplit:
+                        reps = [q for q in group[r] if q * m + s in acc]
+                        key = (regions[j][i], tuple(reps))
+                        parts = lambda: self._grad_parts(acc, j, [s], reps)
+                    else:
+                        key = s if split else None
+                        parts = lambda: self._grad_parts(
+                            acc, j, [s] if split else range(m_run),
+                            distinct)
+                    if key not in done:
+                        ps = parts()
+                        total = ps[0]
+                        if len(ps) > 1:
                             total = total.float()
-                            for t in parts[1:]:
+                            for t in ps[1:]:
                                 total = total + t.to(total.device).float()
                             if grad_accum == 1:
-                                total = total.to(flat_params[s][j].dtype)
-                    dev = flat_params[s][j].device
-                    grads_s[s].append(total.to(dev, non_blocking=True))
-                for r in distinct:          # each row's part, now summed
-                    for s in range(m_run):
-                        acc[r * m + s][j] = None
-            # global norm: each region once
+                                total = total.to(ref[j].dtype)
+                        done[key] = total
+                    dev = self.tps[r].devices[s]
+                    grads_d[i].append(done[key].to(dev, non_blocking=True))
+                for a in acc.values():          # each part, now summed
+                    a[j] = None
+            # global norm: each region once (its first device's)
             sums = []
-            for j, pl in enumerate(pls):
-                split = pl.splits(ref[j].dim()) and m > 1
-                shards = range(m_run) if split else [0]
-                t = None
-                for q in shards:
-                    v = torch.sum(torch.square(grads_s[q][j].float()))
+            for j in range(len(pls)):
+                seen, t = set(), None
+                for i in devs:
+                    if regions[j][i] in seen:
+                        continue
+                    seen.add(regions[j][i])
+                    v = torch.sum(torch.square(grads_d[i][j].float()))
                     t = v if t is None else t + v.to(t.device)
                 sums.append(t.to(dev0))
             record_collective("all-reduce", 4 * len(pls), m)
             gnorm = torch.sqrt(torch.sum(torch.stack(sums)))
             scale = torch.clamp(max_grad_norm / (gnorm + 1e-9), max=1.0)
-            grads_s = [[(g.float() * scale.to(g.device)).to(g.dtype)
-                        for g in gl] for gl in grads_s]
-            # the update: every row's shards, in lockstep per row, each
-            # with the grads on its own device
-            step_t = None
+            # each distinct grad scaled once (devices that share a torch
+            # device share a replicated leaf's grad)
+            scaled: dict = {}
+            clip = lambda g: scaled.setdefault(id(g), (
+                g.float() * scale.to(g.device)).to(g.dtype))
+            grads_d = {i: [clip(g) for g in gl]
+                       for i, gl in grads_d.items()}
+            # the update: in lockstep over each row's shards, or, where a
+            # leaf lies over the rows too (experts over 'data'), over each
+            # block of rows holding one copy of it
+            blocks: dict = {}
             for r in run:
-                idx = [r * m + s for s in range(m_run)]
+                base = (self.owners[r][0] if spread and not self.represent
+                        else r)
+                blocks.setdefault(base, []).append(r)
+            step_t = None
+            for block in blocks.values():
+                idx = [r * m + s for r in block for s in range(m_run)]
                 local = [local_tree(params, i) for i in idx]
                 leaves = [stacked_leaves(t, cfg) for t in local]
                 states = [local_tree(opt_state, i) for i in idx]
-                gl = [stacked_leaves(tree_map(
-                    lambda p, g: g.to(p.device, non_blocking=True), t,
-                    _rebuild(t, grads_s[s])), cfg)
-                      for s, t in enumerate(local)]
-                new = opt.update_shards(leaves, states, gl, splits, m)
+                gl = [stacked_leaves(_rebuild(t, grads_d[i]), cfg)
+                      for i, t in zip(idx, local)]
+                new = opt.update_shards(
+                    leaves, states, gl, splits, m, rows=len(block),
+                    spread=spread, row_group=(len(self.owners[0])
+                                              if spread and self.represent
+                                              else None))
                 for i, st in zip(idx, new):
                     opt_state.step.shards[i] = st.step
                 step_t = new[0].step
@@ -508,6 +677,21 @@ class Program:
             return TrainState(params, opt_state), metrics
 
         return step
+
+    def _replicas(self, regions: list) -> list[list[int]]:
+        """For each row, the rows whose first device holds the same region
+        of a leaf (in mesh order)."""
+        by: dict = {}
+        for r in range(self.n_rows):
+            by.setdefault(regions[r * self.m], []).append(r)
+        return [by[regions[r * self.m]] for r in range(self.n_rows)]
+
+
+def _row_split(pl: Placement) -> bool:
+    """Whether a leaf's placement splits it over a mesh axis other than
+    'model' (an expert leaf over 'data')."""
+    return any(a != "model" and pl.mesh.shape[a] > 1
+               for i in range(len(pl.spec)) for a in pl._dim_axes(i))
 
 
 def _rebuild(like, leaves: list):

@@ -412,12 +412,16 @@ def _attn_half(p, x, positions, *, cfg: ModelConfig, spec: LayerSpec,
 
 
 def _mlp_half(p, x, *, cfg: ModelConfig, spec: LayerSpec,
-              partial: bool = False):
+              partial: bool = False, experts=None):
     """The MLP (or MoE) half: (y, the MoE aux loss or None).  ``partial``:
-    a tensor-parallel shard's f32 shares (``mlp``, ``moe``)."""
+    a tensor-parallel shard's f32 shares (``mlp``, ``moe``); ``experts``:
+    the MoE layer's experts lie over the mesh's rows (``moe.ExpertShard``;
+    its aux is then the chain's, and None here)."""
     h = rmsnorm(p["norm_mlp"], x)
     kw = {"partial": True} if partial else {}
     if spec.kind == "attn_moe":
+        if experts is not None:
+            kw["experts"] = experts
         return moe(p["moe"], h, cfg=cfg, **kw)
     return mlp(p["mlp"], h, **kw), None
 
@@ -493,10 +497,12 @@ def _slice_head(params: list, rows: dict, cfg: ModelConfig,
 
 
 def _attn_layer(ps, xs, positions, caches, *, cfg, spec, tp, mode,
-                max_len, paged):
-    """An attn_mlp / attn_moe layer over the slice: the attention half on
-    every shard, its partials reduced, the residual; then the MLP half
-    likewise.  Returns (xs, the shards' new caches, the MoE aux)."""
+                max_len, paged, li):
+    """Layer ``li``, an attn_mlp / attn_moe layer, over the slice: the
+    attention half on every shard, its partials reduced, the residual;
+    then the MLP half likewise (a MoE half reaching the experts' owner
+    rows where ``tp.experts``).  Returns (xs, the shards' new caches, the
+    MoE aux)."""
     dt = dtype_of(cfg)
     outs = slices.per_shard(tp, lambda s, d: _attn_half(
         ps[s], xs[d], positions[d], cfg=cfg, spec=spec, mode=mode,
@@ -506,8 +512,10 @@ def _attn_layer(ps, xs, positions, caches, *, cfg, spec, tp, mode,
     y = slices.combine([o[0] for o in outs], tp, tp.heads, dt)
     xs = {d: _residual(ps[s], "post_norm_attn", xs[d], y[d], cfg)
           for d, s in tp.first.items()}
+    ep = tp.experts if spec.kind == "attn_moe" else None
     outs2 = slices.per_shard(tp, lambda s, d: _mlp_half(
-        ps[s], xs[d], cfg=cfg, spec=spec, partial=tp.ffn))
+        ps[s], xs[d], cfg=cfg, spec=spec, partial=tp.ffn,
+        experts=None if ep is None else ep.at(li, s)))
     y = slices.combine([o[0] for o in outs2], tp, tp.ffn, dt)
     xs = {d: _residual(ps[s], "post_norm_mlp", xs[d], y[d], cfg)
           for d, s in tp.first.items()}
@@ -560,7 +568,7 @@ def _layer(shards, li, spec, xs, positions, *, cfg, tp, mode,
                                 spec=spec, tp=tp, mode=mode, max_len=max_len)
         return xs, new, None
     return _attn_layer(ps, xs, positions, caches, cfg=cfg, spec=spec, tp=tp,
-                       mode=mode, max_len=max_len, paged=paged)
+                       mode=mode, max_len=max_len, paged=paged, li=li)
 
 
 # ============================================================ entry points
@@ -581,7 +589,9 @@ def forward(params, inputs, positions, cfg: ModelConfig, *,
 
     ``tp``: a tensor-parallel slice; ``params`` is then the shards' local
     trees (a list, in mesh order) and the logits land on the first shard's
-    device.  Without it, one param tree runs as a slice of one shard."""
+    device.  Without it, one param tree runs as a slice of one shard.
+    With ``tp.experts`` (one row of a mesh whose rows hold the experts),
+    aux is zero: the rows' chain forms the batch's (``moe.ExpertChain``)."""
     _check_ported(cfg)
     if mode not in ("score", "train"):
         raise ValueError(f"mode must be 'score' or 'train', got {mode!r}")

@@ -36,6 +36,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.sharded import record_collective
+
 from .config import ModelConfig
 from .layers import dense_init, dtype_of
 from .mlp import mlp, mlp_axes, mlp_init
@@ -75,14 +77,22 @@ def moe_axes(cfg: ModelConfig) -> dict:
 
 # =================================================================== routing
 def route(params, x_flat: torch.Tensor, cfg: ModelConfig):
-    """x_flat (N, d) → (f32 weights (N, k), expert ids (N, k), f32 aux)."""
+    """x_flat (N, d) → (f32 weights (N, k), expert ids (N, k), f32 router
+    probabilities (N, E), f32 one-hot first choices (N, E))."""
     probs = torch.softmax(x_flat.float() @ params["router"], dim=-1)
     weights, idx = torch.topk(probs, cfg.top_k, dim=-1)
     if cfg.top_k > 1:
         weights = weights / weights.sum(dim=-1, keepdim=True)
     first = torch.zeros_like(probs).scatter_(1, idx[:, :1], 1.0)
-    aux = cfg.n_experts * torch.sum(first.mean(dim=0) * probs.mean(dim=0))
-    return weights, idx, aux
+    return weights, idx, probs, first
+
+
+def switch_aux(first: torch.Tensor, probs: torch.Tensor, n: int,
+               cfg: ModelConfig) -> torch.Tensor:
+    """The Switch aux loss of n routed tokens from their first-choice
+    counts and probability sums (each (E,), summed over every row that
+    holds some of them)."""
+    return cfg.n_experts * torch.sum((first / n) * (probs / n))
 
 
 def capacity(n_tokens: int, cfg: ModelConfig) -> int:
@@ -98,39 +108,84 @@ def groups(n_tokens: int, cfg: ModelConfig) -> tuple[int, int]:
     return g, n_tokens // g
 
 
+class Span(NamedTuple):
+    """Where one row's tokens lie among the tokens the dispatch groups (a
+    batch split over a mesh's rows): the row's first token ``offset`` in
+    token order (batch-major), the batch's ``total`` tokens, and ``carry``
+    (G, E) int32, the entries each group gave each expert in the rows
+    before (None: none before)."""
+    offset: int
+    total: int
+    carry: torch.Tensor | None = None
+
+
 class Dispatch(NamedTuple):
-    """Where each (token, slot) entry of the first G·T tokens goes."""
-    weights: torch.Tensor   # (G·T, k) f32 combine weights
-    row: torch.Tensor       # (G·T, k) row of the (E, G, C) buffer, E·G·C if
-    #                         the entry is dropped
-    keep: torch.Tensor      # (G·T, k) bool: the entry fits in its expert
-    aux: torch.Tensor       # f32 scalar, the Switch aux loss
-    groups: int
+    """Where each (token, slot) entry of the routed tokens goes: the first
+    G·T tokens of the batch, or a row's share of them."""
+    weights: torch.Tensor   # (n, k) f32 combine weights
+    row: torch.Tensor       # (n, k) row of the (E, groups, C) buffer, E·
+    #                         groups·C if the entry is dropped
+    keep: torch.Tensor      # (n, k) bool: the entry fits in its expert
+    aux: torch.Tensor | None  # f32 scalar, the Switch aux loss (no span)
+    groups: int             # the groups these tokens touch
     capacity: int
+    # a row's share (a span): its first-choice counts (E,) and router
+    # probability sums (E,), f32, and its entries per group and expert
+    # (groups, E) int32 (dropped ones too); None without a span
+    first: torch.Tensor | None = None
+    probs: torch.Tensor | None = None
+    counts: torch.Tensor | None = None
+    group0: int = 0         # the batch's group of the first of them
 
 
-def dispatch_plan(params, x_flat: torch.Tensor, cfg: ModelConfig) -> Dispatch:
-    """Route x_flat (N, d) and place every entry in its expert's buffer."""
+def dispatch_plan(params, x_flat: torch.Tensor, cfg: ModelConfig,
+                  span: Span | None = None) -> Dispatch:
+    """Route x_flat (N, d) and place every entry in its expert's buffer.
+    ``span``: x_flat is one row's tokens of a larger batch; its groups and
+    capacity are the batch's, and an entry's place counts the entries of
+    its group that the rows before gave its expert (``span.carry``)."""
     E, k = cfg.n_experts, cfg.top_k
-    G, T = groups(x_flat.shape[0], cfg)
+    offset, total = (0, x_flat.shape[0]) if span is None else span[:2]
+    G, T = groups(total, cfg)
     C = capacity(T, cfg)
-    weights, idx, aux = route(params, x_flat[:G * T], cfg)
-    expert = idx.view(G, 1, T * k)
+    # the row's routed tokens: those before the ragged tail (F10)
+    n = max(0, min(x_flat.shape[0], G * T - offset))
+    weights, idx, probs, first = route(params, x_flat[:n], cfg)
+    g0, g1 = offset // T, -(-(offset + n) // T)
+    Gr, lead = g1 - g0, offset - g0 * T
+    padded = bool(lead) or n < Gr * T
+    expert = idx
+    if padded:
+        # pad to whole groups with entries of a spare expert E
+        expert = idx.new_full((Gr * T, k), E)
+        expert[lead:lead + n] = idx
+    expert = expert.view(Gr, 1, T * k)
     # an entry's place: the entries of its group before it, token-major then
     # slot, that chose the same expert (an exclusive running count).  The
     # 0/1 tensor is (G, E, T·k), so the count runs along its innermost,
     # contiguous dimension: along an outer one, CUDA's scan walks the T·k
     # entries one after another
-    hit = torch.zeros((G, E, T * k), dtype=torch.int32, device=x_flat.device)
+    hit = torch.zeros((Gr, E + int(padded), T * k), dtype=torch.int32,
+                      device=x_flat.device)
     hit.scatter_(1, expert, 1)
     before = torch.cumsum(hit, dim=2, dtype=torch.int32) - hit
-    place = before.gather(1, expert)[:, 0]                      # (G, T·k)
+    place = before.gather(1, expert)[:, 0]                      # (Gr, T·k)
+    ex = expert[:, 0].clamp(max=E - 1) if padded else expert[:, 0]
+    share: dict = {}
+    if span is None:
+        aux = cfg.n_experts * torch.sum(first.mean(dim=0) * probs.mean(dim=0))
+    else:
+        aux = None
+        share = dict(first=first.sum(dim=0), probs=probs.sum(dim=0),
+                     counts=before[:, :E, -1] + hit[:, :E, -1], group0=g0)
+        if span.carry is not None:
+            place = place + span.carry[g0:g1].to(place.device).gather(1, ex)
     keep = place < C
-    group = torch.arange(G, device=x_flat.device).view(G, 1)
-    row = torch.where(keep, (expert[:, 0] * G + group) * C + place,
-                      E * G * C)
-    return Dispatch(weights, row.view(G * T, k), keep.view(G * T, k), aux,
-                    G, C)
+    group = torch.arange(Gr, device=x_flat.device).view(Gr, 1)
+    row = torch.where(keep, (ex * Gr + group) * C + place, E * Gr * C)
+    sl = slice(lead * k, (lead + n) * k)
+    return Dispatch(weights, row.view(-1)[sl].view(n, k),
+                    keep.view(-1)[sl].view(n, k), aux, Gr, C, **share)
 
 
 # ============================================================ expert compute
@@ -143,16 +198,22 @@ def _expert_ffn(params, xe: torch.Tensor) -> torch.Tensor:
 
 
 def _routed(params, x_flat: torch.Tensor, cfg: ModelConfig, *,
-            partial: bool = False):
-    """The routed experts' output for x_flat (N, d), and the aux loss;
-    ``partial``: the combine's f32 sum, before its rounding."""
+            partial: bool = False, experts=None):
+    """The routed experts' output for x_flat (N, d), and the dispatch
+    plan; ``partial``: the combine's f32 sum, before its rounding.
+    ``experts``: x_flat is one row's tokens and the experts lie over the
+    mesh's rows (``ExpertShard``): its span places the entries, and its
+    owners compute each slice of the buffer."""
     N, d = x_flat.shape
     E, k = cfg.n_experts, cfg.top_k
-    plan = dispatch_plan(params, x_flat, cfg)
+    plan = dispatch_plan(params, x_flat, cfg,
+                         span=None if experts is None else experts.span())
     n, rows = plan.row.shape[0], E * plan.groups * plan.capacity
     buf = x_flat.new_zeros((rows + 1, d))          # + the dropped entries' row
     buf.index_put_((plan.row,), x_flat[:n, None, :].expand(n, k, d))
-    ye = _expert_ffn(params, buf[:rows].view(E, -1, d)).view(rows, d)
+    xe = buf[:rows].view(E, -1, d)
+    ye = (_expert_ffn(params, xe) if experts is None
+          else experts.ffn(xe)).view(rows, d)
     # the reference contracts the k entries with combine weights cast to the
     # activation dtype, accumulating in f32 and rounding once
     w = plan.weights.to(x_flat.dtype).float()
@@ -162,21 +223,142 @@ def _routed(params, x_flat: torch.Tensor, cfg: ModelConfig, *,
         y = y.to(x_flat.dtype)
     if n < N:                                      # the ragged tail (F10)
         y = torch.cat([y, y.new_zeros((N - n, d))])
-    return y, plan.aux
+    return y, plan
+
+
+# ========================================================= experts over rows
+class ExpertChain:
+    """What the rows of one batch share when their MoE layers' experts lie
+    over the mesh's rows ('data', Stage 5) and the rows run in turn, in
+    token order: for each MoE layer, the entries each (group, expert) has
+    taken so far (``carry``), and the routed tokens' first-choice counts
+    and probability sums, added up in row order, from which ``aux`` forms
+    the batch's Switch loss (it is not a sum of per-row losses)."""
+
+    def __init__(self, cfg: ModelConfig, total: int):
+        self.cfg, self.total = cfg, total
+        self.carry: dict = {}
+        self.first: dict = {}
+        self.probs: dict = {}
+
+    def aux(self, device) -> torch.Tensor:
+        """The f32 sum over the MoE layers, in layer order, of each
+        layer's aux loss over the batch's G·T routed tokens."""
+        G, T = groups(self.total, self.cfg)
+        out = torch.zeros((), dtype=torch.float32, device=device)
+        for li in sorted(self.first):
+            out = out + switch_aux(self.first[li].to(device),
+                                   self.probs[li].to(device), G * T, self.cfg)
+        return out
+
+
+class RowExperts:
+    """One row's view of experts that lie over the mesh's rows: where its
+    tokens start among the batch's (``offset``), the chain it shares with
+    the other rows, and ``owners``: for each slice of the experts, in
+    expert order, (device, local param tree) of each model shard of the
+    row that holds it (in the dry run the row's own shards stand in for
+    every owner: on meta they have the owners' shapes).  A layer's carry
+    is read once and its counts added to the chain once, so the recompute
+    of a rematerialised layer places its entries as the first run did."""
+
+    def __init__(self, chain: ExpertChain, offset: int, owners: list,
+                 stride: int):
+        self.chain, self.offset, self.owners = chain, offset, owners
+        self.stride = stride              # mesh positions between owners
+        self._carry: dict = {}
+        self._done: set = set()
+
+    def at(self, li: int, shard: int) -> "ExpertShard":
+        return ExpertShard(self, li, shard)
+
+    def carry_in(self, li: int):
+        if li not in self._carry:
+            carry = self.chain.carry.get(li)
+            if carry is not None:
+                record_collective("collective-permute",
+                                  carry.numel() * carry.element_size(), 2,
+                                  self.stride)
+            self._carry[li] = carry
+        return self._carry[li]
+
+    def commit(self, li: int, plan: Dispatch) -> None:
+        """Add the layer's counts and sums to the chain (once a layer)."""
+        if li in self._done:
+            return
+        self._done.add(li)
+        chain, E = self.chain, self.chain.cfg.n_experts
+        G, _ = groups(chain.total, chain.cfg)
+        carry = self._carry.get(li)
+        dev = plan.counts.device
+        add = torch.zeros((G, E), dtype=torch.int32, device=dev)
+        add[plan.group0:plan.group0 + plan.groups] = plan.counts
+        chain.carry[li] = add if carry is None else carry.to(dev) + add
+        if li in chain.first:
+            dev0 = chain.first[li].device
+            chain.first[li] = chain.first[li] + plan.first.to(dev0)
+            chain.probs[li] = chain.probs[li] + plan.probs.to(dev0)
+        else:
+            chain.first[li], chain.probs[li] = plan.first, plan.probs
+        # the sums' all-reduce over the owners
+        record_collective("all-reduce", 2 * E * 4, len(self.owners),
+                          self.stride)
+
+
+class ExpertShard(NamedTuple):
+    """Model shard ``shard``'s view of layer ``li``'s experts over the
+    rows (``RowExperts``)."""
+    row: RowExperts
+    li: int
+    shard: int
+
+    def span(self) -> Span:
+        return Span(self.row.offset, self.row.chain.total,
+                    self.row.carry_in(self.li))
+
+    def ffn(self, xe: torch.Tensor) -> torch.Tensor:
+        """xe (E, M, d), the row's buffer on this shard's device → the
+        experts' outputs: each owner's slice of the buffer goes to the
+        owner's device (an all-to-all over the owners), runs through its
+        shard of the owner's experts there, and comes back."""
+        owners = self.row.owners
+        e = xe.shape[0] // len(owners)
+        outs = []
+        for o, shards in enumerate(owners):
+            dev, tree = shards[self.shard]
+            piece = xe[o * e:(o + 1) * e].to(dev, non_blocking=True)
+            y = _expert_ffn(tree["layers"][self.li]["moe"], piece)
+            outs.append(y.to(xe.device, non_blocking=True))
+        ye = torch.cat(outs)
+        if self.shard == 0:
+            for t in (xe, ye):
+                nbytes = t.numel() * t.element_size()
+                record_collective("all-to-all", nbytes, len(owners),
+                                  self.row.stride)
+                if t.requires_grad:
+                    t.register_hook(lambda g, n=nbytes: record_collective(
+                        "all-to-all", n, len(owners), self.row.stride))
+        return ye
 
 
 # ===================================================================== apply
 def moe(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
-        partial: bool = False):
+        partial: bool = False, experts: ExpertShard | None = None):
     """x (B, T, d), or the paged step's packed row (T, d) with its pad lanes
     (the reference routes them too) → (y of x's shape, f32 aux loss).  The
     shared experts' MLP is added after the routed part.
 
     ``partial``: the params are one tensor-parallel shard's ffn columns;
     y is then the list of its unrounded f32 shares, routed and shared,
-    each summed over the shards and rounded before the two are added."""
-    y, aux = _routed(params, x.reshape(-1, x.shape[-1]), cfg,
-                     partial=partial)
+    each summed over the shards and rounded before the two are added.
+    ``experts``: x is one row's tokens and the routed experts lie over the
+    mesh's rows; the aux is then None (the chain forms the batch's)."""
+    y, plan = _routed(params, x.reshape(-1, x.shape[-1]), cfg,
+                      partial=partial, experts=experts)
+    aux = plan.aux
+    if experts is not None:
+        experts.row.commit(experts.li, plan)
+        aux = None
     y = y.view(x.shape)
     if partial:
         parts = [y]

@@ -46,7 +46,9 @@ class TensorParallel:
     parts it reads.  ``group``: the slice's shard count when only its
     first shards run (the dry run runs one on meta, whose shapes are every
     shard's): collectives are recorded over the whole group, and a gather
-    tiles the pieces that ran to the whole's shape."""
+    tiles the pieces that ran to the whole's shape.  ``experts``: the MoE
+    layers' experts lie over the mesh's rows (``moe.RowExperts``, this
+    row's view of them), or None."""
     devices: tuple
     heads: bool = False
     ffn: bool = False
@@ -56,6 +58,7 @@ class TensorParallel:
     ssm_state: bool = False
     seq: tuple | None = None
     group: int | None = None
+    experts: object = None
 
     @property
     def size(self) -> int:

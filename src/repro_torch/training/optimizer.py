@@ -46,16 +46,18 @@ class Optimizer:
     init: Callable[[dict], OptState]
     update: Callable[[dict, OptState, dict], tuple[dict, OptState]]
     name: str = "opt"
-    # the update over one slice of shards, in lockstep (``launch.spmd``):
-    # (each shard's leaves, OptState and grads; each leaf's split dim or
-    # None) -> each shard's new OptState
+    # the update over one or more rows of shards, in lockstep
+    # (``launch.spmd``): (each shard's leaves, OptState and grads; each
+    # leaf's split dim over 'model' or None; ...) -> each shard's new
+    # OptState (see ``adafactor``'s ``update_shards``)
     update_shards: Callable | None = None
 
 
 def _mean(ts: list, dim: int, split: bool, group: int) -> list:
     """Each shard's mean of its tensor over ``dim``; ``split``: the dim is
-    split over the ``group`` shards, so the local sums are added in shard
-    order (an all-reduce) and divided by the whole dim."""
+    split over the ``group`` shards (the given ones, or the first of them
+    in the dry run), so the local sums are added in shard order (an
+    all-reduce) and divided by the whole dim."""
     if not split:
         return [torch.mean(t, dim=dim) for t in ts]
     sums = [torch.sum(t, dim=dim) for t in ts]
@@ -69,7 +71,7 @@ def _mean(ts: list, dim: int, split: bool, group: int) -> list:
 
 def _each(update):
     """``update_shards`` of an elementwise optimizer: every shard alone."""
-    def update_shards(leaves, states, grads, splits, group=None):
+    def update_shards(leaves, states, grads, splits, group=None, **_):
         return [update(lv, st, g)[1] for lv, st, g in zip(leaves, states,
                                                          grads)]
     return update_shards
@@ -156,17 +158,25 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
                         nu=nu)
 
     @torch.no_grad()
-    def update_shards(leaves, states, grads, splits, group=None):
-        """Every shard's leaves of one slice in lockstep: a statistic over a
-        dim the shards split (``splits[name]``: the stacked leaf's split
-        dim, or None) is the mean over the whole dim; the update clip's RMS
-        is over the whole leaf.  ``group``: the slice's shard count, when
-        only the first shards' leaves are given (the dry run)."""
+    def update_shards(leaves, states, grads, splits, group=None, rows=1,
+                      spread=frozenset(), row_group=None):
+        """The leaves of ``rows`` rows of shards (row-major, one slice of
+        shards each) in lockstep: a statistic over a dim a row's shards
+        split (``splits[name]``: the stacked leaf's split dim over 'model',
+        or None) is the mean over the whole dim; the update clip's RMS is
+        over the whole leaf, which for a leaf in ``spread`` (split over
+        the rows too: the experts over 'data') spans every row given.
+        ``group``: a row's shard count, and ``row_group``: the rows a copy
+        of a spread leaf spans, when only the first of them are given (the
+        dry run)."""
         step = states[0].step + 1
         stepf = step.float()
         lr_t = lr * torch.clamp(stepf / max(1, warmup_steps), max=1.0)
         rho = 1.0 - stepf ** (-decay)
-        n = group or len(leaves)
+        per = len(leaves) // rows
+        n = group or per
+        by_row = lambda ts, fn: [y for q in range(rows)
+                                 for y in fn(ts[q * per:(q + 1) * per])]
         for name in leaves[0]:
             split = splits.get(name)
             ps = [_stacked(lv[name]) for lv in leaves]
@@ -175,13 +185,14 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
             nd = gs[0].dim()
             g2 = [g * g + eps for g in gs]
             if "row" in nus[0]:
-                rows = _mean(g2, -1, split == nd - 1, n)
-                cols = _mean(g2, -2, split == nd - 2, n)
-                for nu, r, c in zip(nus, rows, cols):
+                means = lambda ts, dim, on: by_row(
+                    ts, lambda t: _mean(t, dim, split == on, n))
+                r_stat = means(g2, -1, nd - 1)
+                c_stat = means(g2, -2, nd - 2)
+                for nu, r, c in zip(nus, r_stat, c_stat):
                     nu["row"].copy_(rho * nu["row"] + (1 - rho) * r)
                     nu["col"].copy_(rho * nu["col"] + (1 - rho) * c)
-                rmeans = _mean([nu["row"] for nu in nus], -1,
-                               split == nd - 2, n)
+                rmeans = means([nu["row"] for nu in nus], -1, nd - 2)
                 vhats = [((nu["row"] / torch.clamp(rm[..., None], min=eps))
                           [..., None] * nu["col"][..., None, :])
                          for nu, rm in zip(nus, rmeans)]
@@ -192,8 +203,12 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
             us = [g / torch.sqrt(torch.clamp(v, min=eps))
                   for g, v in zip(gs, vhats)]
             # update clipping (RMS <= 1) over the whole leaf
-            sq = _mean([(u * u).reshape(-1) for u in us], 0,
-                       split is not None and n > 1, n)
+            sqs = [(u * u).reshape(-1) for u in us]
+            if name in spread:
+                sq = _mean(sqs, 0, True, n * (row_group or rows))
+            else:
+                sq = by_row(sqs, lambda t: _mean(
+                    t, 0, split is not None and n > 1, n))
             for lv, p, u, q in zip(leaves, ps, us, sq):
                 u = u / torch.clamp(torch.sqrt(q + 1e-12), min=1.0)
                 pf = p.float()

@@ -14,6 +14,8 @@ divide model 16, which XLA refuses as the port does, so that cell runs
 both at d_model 128 (an override both dry runs take); zamba2's likewise;
 gemma2-9b SMOKE's ring of 8 slots does not divide data 16 at batch 1
 (``long_500k``: the sequence over 'data'), so that cell runs at window 16.
+The MoE configs' SMOKE widths hold 8 experts, which data 16 does not
+divide, so their cells run at 32 (both dry runs put them over 'data').
 """
 import json
 import os
@@ -44,7 +46,9 @@ CELLS = [("gemma2-9b", "decode_32k", {}), ("gemma2-9b", "train_4k", {}),
          ("mamba2-1.3b", "long_500k", {"d_model": 128}),
          ("musicgen-large", "decode_32k", {}),
          ("zamba2-2.7b", "prefill_32k", {"d_model": 128}),
-         ("gemma2-9b", "long_500k", {"window": 16})]
+         ("gemma2-9b", "long_500k", {"window": 16}),
+         ("deepseek-moe-16b", "decode_32k", {"n_experts": 32}),
+         ("llama4-maverick-400b-a17b", "train_4k", {"n_experts": 32})]
 
 _REF = r'''
 import json, sys
@@ -161,6 +165,35 @@ def test_per_device_flops_times_chips_equal_the_unsharded_program():
         whole["counter"].kernel_flops["flash_attention"]
 
 
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b",
+                                  "llama4-maverick-400b-a17b"])
+def test_moe_per_device_flops_times_chips_count_the_router_per_shard(arch):
+    """With the experts over 'data' (SMOKE widened to 16 heads and 32
+    experts, so that every split divides), a prefill's per-device FLOPs
+    over the 256 devices, times 256, are the one-device program's plus the
+    router product once more per further 'model' shard: each of a row's
+    16 shards routes the row's tokens, as XLA's program does; each device
+    runs its experts over its share of every row's capacity slots."""
+    from repro_torch.models import layer_specs
+
+    cfg = R.get_config(arch, smoke=True).replace(n_heads=16, n_kv_heads=16,
+                                                 n_experts=32)
+    shape = R.SHAPES["prefill_32k"]
+    with logical_devices(256, "meta"):
+        mesh = make_production_mesh()
+    with logical_devices(1, "meta"):
+        one = _make_mesh((1, 1), ("data", "model"))
+    sharded = D.trace(cfg, mesh, shape)
+    whole = D.trace(cfg, one, shape)
+    n_moe = sum(s.kind == "attn_moe" for s in layer_specs(cfg))
+    tokens = shape.global_batch * shape.seq_len
+    router = 2 * tokens * cfg.d_model * cfg.n_experts * n_moe
+    assert sharded["flops"] > 0
+    assert sharded["flops"] * 256 == whole["flops"] + 15 * router
+    ledger = sharded["counter"].ledger.bytes
+    assert ledger["all-to-all"] > 0
+
+
 def _recorded(fn):
     seen = []
     with kernels.work_sink(lambda *a: seen.append(a)):
@@ -236,17 +269,21 @@ def test_kernel_meta_routes_count_what_the_bounds_count():
 
 def test_uncovered_cells_raise_naming_their_stage(tmp_path):
     """A cell that needs a stage the port has not reached raises, naming
-    it; through the CLI it exits 3 and says so."""
-    with pytest.raises(NotImplementedError, match="Stage 5"):
-        D.run_cell("deepseek-moe-16b", "decode_32k", multi_pod=False,
-                   out_dir=str(tmp_path))
+    it; through the CLI it exits 3 and says so.  No registered cell does
+    now: a ``_rules`` override that splits a prefill's caches over the
+    sequence asks for Stage 4's prefill."""
+    seq = {"_rules": {"cache_seq": "data"}}
+    with pytest.raises(NotImplementedError, match="Stage 4"):
+        D.run_cell("h2o-danube-1.8b", "prefill_32k", multi_pod=False,
+                   out_dir=str(tmp_path), overrides=seq)
     r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
-                        "--arch", "llama4-maverick-400b-a17b", "--shape",
-                        "train_4k", "--out", str(tmp_path)],
+                        "--arch", "deepseek-moe-16b", "--shape",
+                        "prefill_32k", "--out", str(tmp_path), "--override",
+                        "_rules=" + json.dumps(seq["_rules"])],
                        capture_output=True, text=True, timeout=120,
                        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
-    assert r.returncode == D.UNCOVERED_EXIT
-    assert "UNCOVERED" in r.stdout and "Stage 5" in r.stdout
+    assert r.returncode == D.UNCOVERED_EXIT, r.stderr[-2000:]
+    assert "UNCOVERED" in r.stdout and "Stage 4" in r.stdout
     assert not list(tmp_path.glob("*.json"))
 
 
@@ -268,3 +305,20 @@ def test_the_cli_writes_a_full_width_cell(tmp_path):
                                            "collective_s")
     assert 0 < res["memory_analysis"]["argument_bytes"] < D.HBM_BYTES
     assert res["chips"] == 256
+
+
+def test_the_cli_writes_a_full_width_moe_cell(tmp_path):
+    """deepseek-moe-16b's decode_32k at full width puts its 64 experts
+    over data 16 (4 a row) and writes its cell, the all-to-alls of the
+    dispatch in its collective bytes."""
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                        "--arch", "deepseek-moe-16b", "--shape",
+                        "decode_32k", "--out", str(tmp_path)],
+                       capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert r.returncode == 0, r.stderr[-2000:]
+    res = json.loads((tmp_path / "deepseek-moe-16b__decode_32k.json")
+                     .read_text())
+    assert res["collective_bytes"]["all-to-all"] > 0
+    assert 0 < res["memory_analysis"]["argument_bytes"] < D.HBM_BYTES
+    assert res["fits"] and res["chips"] == 256

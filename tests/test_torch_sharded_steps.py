@@ -8,8 +8,9 @@ heads over a replicated kv-head cache there), and (pod, data, model) meshes
 of (2, 1, 2) and (2, 2, 2).  The same params (a JAX ``init_params`` tree
 carried across through numpy) and inputs go through JAX's ``forward`` /
 ``prefill`` / ``decode_step``, the port's one-device functions and the
-sharded ones: attention, MLP, MoE (model-split slices only: experts over
-'data' is Stage 5), Mamba-2 split by SSM heads and zamba2's shared block.
+sharded ones: attention, MLP, MoE (model-split slices here; the experts
+over 'data' in ``tests/test_torch_expert_parallel.py``), Mamba-2 split by
+SSM heads and zamba2's shared block.
 Tolerances: sharded against one-device at the suite's f32 2e-5
 (``tests/test_kernels.py``), against JAX at the model tests' 1e-4
 (``tests/test_torch_models.py``), each as rtol and as atol times the
@@ -269,11 +270,13 @@ def test_f32_out_products_differentiate_on_the_card_route():
 
 @pytest.mark.parametrize("arch,shape", [
     ("h2o-danube-1.8b", (2, 2)), ("gemma2-9b", (4, 1)),
-    ("gemma2-9b", (2, 2, 2)), ("zamba2-2.7b", (2, 2))])
+    ("gemma2-9b", (2, 2, 2)), ("zamba2-2.7b", (2, 2)),
+    ("deepseek-moe-16b", (2, 2)), ("llama4-maverick-400b-a17b", (2, 2, 2))])
 def test_batch_one_decode_over_a_sequence_split_cache(arch, shape):
     """Stage 4: at batch 1 the rules split the decode caches' sequence
     over 'data' (a ring of window slots too); each row attends over its
-    part through K4 and the parts merge by their log-sum-exps.  Four
+    part through K4 and the parts merge by their log-sum-exps (the MoE
+    configs' one token reaching its experts over 'data' too).  Four
     greedy steps from a one-device prefill equal the one-device steps and
     JAX's, and the gathered caches the one-device caches."""
     jcfg, cfg = jget_config(arch, smoke=True), get_config(arch, smoke=True)
@@ -353,8 +356,9 @@ def test_decode_attention_returns_the_parts_log_sum_exp():
 
 def test_uncovered_stages_raise_and_name_the_stage():
     """A prefill building a cache split over the sequence (batch 1:
-    Stage 4 covers the decode steps only) and experts over 'data' (Stage
-    5) raise, naming their stage."""
+    Stage 4 covers the decode steps only) raises, naming its stage.
+    Experts over 'data' (Stage 5) are covered now: deepseek-moe-16b's
+    forward on (2, 1) runs and equals the one-device forward."""
     cfg = get_config("h2o-danube-1.8b", smoke=True)
     prog = Program(cfg, _mesh((2, 2)), batch=1)
     params = prog.place_params(P.init_params(
@@ -366,13 +370,14 @@ def test_uncovered_stages_raise_and_name_the_stage():
         prog.prefill(params, b1["inputs"], b1["positions"], max_len=8)
     moe = get_config("deepseek-moe-16b", smoke=True)
     prog = Program(moe, _mesh((2, 1)), batch=4)
-    params = prog.place_params(P.init_params(
-        moe, torch.Generator().manual_seed(0), "cpu"))
-    b = prog.place_batch({"inputs": torch.zeros((4, 8), dtype=torch.int32),
-                          "positions": torch.zeros((4, 8),
-                                                   dtype=torch.int32)})
-    with pytest.raises(NotImplementedError, match="Stage 5"):
-        prog.forward(params, b["inputs"], b["positions"])
+    one = P.init_params(moe, torch.Generator().manual_seed(0), "cpu")
+    params = prog.place_params(one)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, moe.vocab_size, (4, 8)).astype(np.int32))
+    pos = torch.arange(8, dtype=torch.int32)[None].repeat(4, 1)
+    b = prog.place_batch({"inputs": toks, "positions": pos})
+    got = prog.forward(params, b["inputs"], b["positions"]).gather("cpu")
+    _close(got, P.forward(one, toks, pos, moe)[0], TOL)
 
 
 def test_a_serving_slice_with_data_rows_still_raises():
