@@ -4948,6 +4948,13 @@ def train_ft_phase(dev, n_layers=6, S=1024, steps=3) -> dict:
 # (arch, mesh, B, S, steps); (arch, mesh, B, S, decode steps); (arch,
 # mesh, prompt, decode steps at B 1)
 SHARDED_TRAIN = ("h2o-danube-1.8b", (2, 2), 4, 4096, 3, None)
+# the head and loss split over the vocabulary: gemma2-9b (V 256,000, tied,
+# final softcap 30) on (data 1, model 2), cut to 4 layers so that the
+# one-device and the sharded AdamW states both fit; B x S = 4,096 tokens,
+# at least d_model (3,584), so that the f32 update of a shard's
+# embedding rows (V/2 x d x 4 bytes) stays inside the allocation bound
+# of one shard's f32 logits, B x S x V/2 x 4 bytes
+SHARDED_VOCAB = ("gemma2-9b", (1, 2), 2, 2048, 2, 4)
 SHARDED_SERVE = ("zamba2-2.7b", (1, 2), 2, 4096, 32)
 SHARDED_SEQ = ("h2o-danube-1.8b", (2, 2), 4000, 16)
 # the experts over 'data' (Stage 5): deepseek-moe-16b at full width on
@@ -5083,6 +5090,26 @@ def _drop_row_grads():
     return DropRowGrads
 
 
+def _drop_vocab_shards():
+    """A planted fault for the split head's control: ``Program`` whose
+    vocab-parallel loss reads the first shard's slice of the vocabulary
+    only (the other shards' Σ exp and target logits dropped)."""
+    import dataclasses
+
+    from repro_torch.launch.spmd import Program
+    from repro_torch.training.train import vocab_nll_sum
+
+    class DropVocabShards(Program):
+        def _nll(self, logits, targets, mask, tp):
+            if tp.vocab is None:
+                return super()._nll(logits, targets, mask, tp)
+            first = dataclasses.replace(tp, devices=tp.devices[:1],
+                                        vocab=tp.vocab[:1], group=None)
+            return vocab_nll_sum(logits[:1], targets, mask, first)
+
+    return DropVocabShards
+
+
 def train_agreement(prog, state, one: dict, norms: list,
                     one_norms: list) -> dict:
     """The sharded state after the steps against one device's (``one``:
@@ -5131,14 +5158,19 @@ def check_train_agreement(agree: dict, floor: dict | None = None) -> None:
 
 
 def sharded_train(dev, smi: str, spec=SHARDED_TRAIN,
-                  drop_control: bool = True) -> dict:
+                  control=_drop_row_grads, alloc_bound: bool = False
+                  ) -> dict:
     """h2o-danube-1.8b at full width and depth, bf16, AdamW, over a (data
     2, model 2) mesh of four logical devices on the card: global batch 4 x
     4,096 (``synthetic_batch``), ``SHARDED_TRAIN``'s steps, against the
     same steps on one logical device (``check_train_agreement``), and
-    again with a planted fault (``_drop_row_grads``) that the same check
-    must refuse (``drop_control``).  ``spec``: another (arch, mesh, B, S,
-    steps, layers kept or None).  A MoE config's first aux loss is held
+    again with a planted fault (``control``: a ``Program`` subclass's
+    factory, or None) that the same check must refuse.  ``spec``: another
+    (arch, mesh, B, S, steps, layers kept or None).  ``alloc_bound``: one
+    more sharded step under ``launch.costs.CostCounter``, whose largest
+    allocated storage must not exceed one shard's f32 logits (B_local x S
+    x V/m x 4 bytes: the vocabulary stays split).  A MoE config's first
+    aux loss is held
     within ``MOE_AUX_RTOL`` of one device's, and its agreement within
     twice that of two one-device runs differing only in K2's rounding
     where that is larger than the bounds (a router's bf16 floor)."""
@@ -5164,7 +5196,8 @@ def sharded_train(dev, smi: str, spec=SHARDED_TRAIN,
     params = _seeded_params(cfg, dev, 0)
     # the untied head's rows N(0, 1/d) too, as the embedding's: N(0, 1)
     # rows make logits of scale sqrt(d) and a first loss near 200
-    params["head"]["table"].mul_(cfg.d_model ** -0.5)
+    if "head" in params:
+        params["head"]["table"].mul_(cfg.d_model ** -0.5)
     opt = get_optimizer("adamw", lr=SHARDED_LR, warmup_steps=1)
     # the same program on one logical device first: each step's loss and
     # gradient norm, the final params and first moment kept (the rest of
@@ -5216,8 +5249,8 @@ def sharded_train(dev, smi: str, spec=SHARDED_TRAIN,
         (state, m0), launches0 = _counted(lambda: step(state, placed[0]))
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    control: list = []
-    with torch.no_grad(), combine_checked(control, control=True):
+    rounded: list = []
+    with torch.no_grad(), combine_checked(rounded, control=True):
         prog.forward(state.params, placed[0]["inputs"],
                      placed[0]["positions"], mode="train")
     torch.cuda.synchronize()
@@ -5231,14 +5264,30 @@ def sharded_train(dev, smi: str, spec=SHARDED_TRAIN,
         step_s.append(dt)
         launches.append(n)
     agree = train_agreement(prog, state, one, norms, one_norms)
+    alloc = None
+    if alloc_bound:
+        from repro_torch.launch.costs import CostCounter
+
+        counter = CostCounter()
+        with counter:
+            state, _ = step(state, placed[-1])
+        torch.cuda.synchronize()
+        rows = mesh.size // prog.m
+        alloc = {"largest_bytes": counter.largest[0],
+                 "largest_shape": list(counter.largest[1]),
+                 "largest_shard": counter.largest[2],
+                 "bound_bytes": (B // rows) * S * (cfg.vocab_size // prog.m)
+                 * 4, "whole_logits_bytes": (B // rows) * S
+                 * cfg.vocab_size * 4, "ops": counter.ops}
+        del counter
     del state, step, prog
     gc.collect()
     torch.cuda.empty_cache()
     bad_agree = None
-    if drop_control:
-        # the planted control: the same steps with row 1's gradients
-        # dropped
-        bad = _drop_row_grads()(cfg, mesh, batch=B)
+    if control is not None:
+        # the planted control: the same steps with a fault (row 1's
+        # gradients or the other vocabulary shards' loss terms dropped)
+        bad = control()(cfg, mesh, batch=B)
         bad_state = bad.init_state(opt, bad.place_params(params))
         bad_step = bad.train_step(opt)
         bad_norms = []
@@ -5269,9 +5318,10 @@ def sharded_train(dev, smi: str, spec=SHARDED_TRAIN,
            "one_device_grad_norms": one_norms, "agreement": agree,
            "control_agreement": bad_agree, "one_device_floor": floor,
            "combine_max_ulps": max(ulps), "combines_checked": len(ulps),
-           "control_max_ulps": max(control), "launches_per_step": want,
+           "control_max_ulps": max(rounded), "launches_per_step": want,
            "step_s": step_s, "step_p50_s": p50,
-           "tokens_per_s": B * S / p50,
+           "tokens_per_s": B * S / p50, "allocation": alloc,
+           "control": control.__name__ if control else None,
            "bound_s": pred["bound_s"], "share_of_bound": pred["bound_s"] / p50,
            "held_bytes": held, "predicted_args_bytes": pred["args"],
            "predicted_args_per_device": pred["args_per_device"],
@@ -5287,12 +5337,14 @@ def sharded_train(dev, smi: str, spec=SHARDED_TRAIN,
     assert launches0 == want and all(l == want for l in launches), (
         launches0, launches, want)
     assert max(ulps) <= MESH_COMBINE_ULPS, max(ulps)
-    assert max(control) > MESH_COMBINE_ULPS, max(control)
+    assert max(rounded) > MESH_COMBINE_ULPS, max(rounded)
     assert all(map(math.isfinite, losses)), losses
     assert rel <= SHARDED_LOSS_RTOL, (losses, one_losses)
     assert aux_rel <= MOE_AUX_RTOL, (aux, one_aux)
     check_train_agreement(agree, floor)
-    if drop_control:
+    if alloc is not None:
+        assert alloc["largest_bytes"] <= alloc["bound_bytes"], alloc
+    if control is not None:
         try:
             check_train_agreement(bad_agree)
         except AssertionError:
@@ -5413,13 +5465,37 @@ def logit_check(got, ref) -> tuple[float, int, int]:
     return err, int(sure.sum()), int((same & sure).sum())
 
 
+def cache_distance(got, want) -> dict:
+    """Each leaf of two placed cache trees shard by shard: positions
+    (int) must be equal; the largest |diff| of a float leaf over its
+    largest magnitude, the worst leaf's reported."""
+    from repro_torch.tree import named_leaves, tree_leaves
+
+    worst, leaf = 0.0, None
+    for (name, a), b in zip(named_leaves(got), tree_leaves(want)):
+        assert a.placement.spec == b.placement.spec and a.shape == b.shape
+        for x, y in zip(a.shards, b.shards):
+            assert x.shape == y.shape, name
+            if not x.is_floating_point():
+                assert torch.equal(x, y), name
+                continue
+            d = ((x.float() - y.float()).abs().max()
+                 / torch.clamp(y.float().abs().max(), min=1e-30)).item()
+            if d > worst:
+                worst, leaf = d, name
+    return {"cache_err_over_scale": worst, "cache_worst_leaf": leaf}
+
+
 def sharded_seq(dev, smi: str) -> dict:
     """Stage 4 on the card: h2o-danube-1.8b at full width and depth, bf16,
-    batch 1: a one-device prefill of ``SHARDED_SEQ``'s prompt, its caches
-    (rings of 4,096 slots) placed over (data 2, model 2) with the
-    sequence over 'data', then greedy decode steps, each part of a cache
-    attended through K4 with its log-sum-exp and the parts merged;
-    teacher-forced with the one-device program's tokens."""
+    batch 1 over (data 2, model 2), the sequence of its caches (rings of
+    4,096 slots) split over 'data': ``Program.prefill`` builds them split
+    (the first row's program, each device keeping its part), held against
+    the one-device prefill (logits; each cache leaf against
+    ``place_caches`` of the one-device caches); then greedy decode steps
+    over them, each part of a cache attended through K4 with its
+    log-sum-exp and the parts merged, teacher-forced with the one-device
+    program's tokens."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.spmd import Program
     from repro_torch.models import decode_step, layer_specs, prefill
@@ -5427,6 +5503,7 @@ def sharded_seq(dev, smi: str) -> dict:
     arch, shape, S, new = SHARDED_SEQ
     cfg = get_config(arch)
     n_attn = sum(s.kind != "mamba" for s in layer_specs(cfg))
+    pre_pred = predicted(cfg, shape, 1, S, "prefill")
     pred = predicted(cfg, shape, 1, S + new, "decode")
     mesh = _mesh_on(shape, dev)
     prog = Program(cfg, mesh, batch=1)
@@ -5440,12 +5517,19 @@ def sharded_seq(dev, smi: str) -> dict:
     with torch.no_grad():
         one, caches = prefill(params, toks, pos, cfg, max_len=S + new)
         placed = prog.place_params(params)
-        split = prog.place_caches(caches)
+        pb = prog.place_batch({"inputs": toks, "positions": pos})
+        pre_held = held_bytes((placed, pb))
+        assert pre_pred["args"] == pre_held, (pre_pred["args"], pre_held)
+        ((logits, split), l_pre), pre_s = _timed(lambda: _counted(
+            lambda: prog.prefill(placed, pb["inputs"], pb["positions"],
+                                 max_len=S + new)))
+        pre_err = logit_check(logits.gather(dev), one)
+        dist = cache_distance(split, prog.place_caches(caches))
         nxt = one.argmax(-1).to(torch.int32)
         held = held_bytes((placed, split, prog.place_batch(
             {"inputs": nxt, "positions": pos[:, :1]})))
         assert pred["args"] == held, (pred["args"], held)
-        errs, step_s, k4 = [], [], 0
+        errs, step_s, k4 = [pre_err], [], 0
         for i in range(new):
             p1 = torch.full((1, 1), S + i, dtype=torch.int32, device=dev)
             b = prog.place_batch({"inputs": nxt, "positions": p1})
@@ -5456,23 +5540,33 @@ def sharded_seq(dev, smi: str) -> dict:
             k4 += n["K4"]
             errs.append(logit_check(got.gather(dev), one))
             nxt = one.argmax(-1).to(torch.int32)
-    assert k4 == n_attn * mesh.size * new, k4
+    want_pre = {"K2": n_attn * shape[-1], "K3": 0, "K4": 0}
     worst = max(e[0] for e in errs)
-    assert worst <= SHARDED_LOGIT_TOL, errs
-    assert all(e[1] == e[2] for e in errs), errs
     p50 = statistics.median(step_s)
-    assert p50 >= pred["bound_s"], (p50, pred["bound_s"])
-    res = {"phase": "sharded", "program": "decode_step, sequence split",
-           "arch": arch, "card": smi, "mesh": dict(mesh.shape), "B": 1,
-           "prompt": S, "decode_steps": new, "k4_launches": k4,
-           "k4_per_step": k4 // new, "decode_step_p50_s": p50,
-           "decode_bound_s": pred["bound_s"],
+    res = {"phase": "sharded", "program": "prefill + decode_step, "
+           "sequence split", "arch": arch, "card": smi,
+           "mesh": dict(mesh.shape), "B": 1, "prompt": S,
+           "decode_steps": new, "prefill_s": pre_s,
+           "prefill_bound_s": pre_pred["bound_s"], "launches_prefill": l_pre,
+           "prefill_logit_err_over_scale": pre_err[0], **dist,
+           "k4_launches": k4, "k4_per_step": k4 // new,
+           "decode_step_p50_s": p50, "decode_bound_s": pred["bound_s"],
            "logit_err_over_scale": worst,
            "greedy_sure": sum(e[1] for e in errs),
            "greedy_sure_agree": sum(e[2] for e in errs),
-           "held_bytes": held, "predicted_peak_bytes": pred["peak"],
+           "held_bytes_prefill": pre_held, "held_bytes": held,
+           "predicted_prefill_peak_bytes": pre_pred["peak"],
+           "predicted_peak_bytes": pred["peak"],
+           "collective_bytes_prefill": pre_pred["collective_bytes"],
            "collective_bytes_step": pred["collective_bytes"]}
     emit(res)
+    assert l_pre == want_pre, (l_pre, want_pre)
+    assert dist["cache_err_over_scale"] <= SHARDED_LOGIT_TOL, dist
+    assert k4 == n_attn * mesh.size * new, k4
+    assert worst <= SHARDED_LOGIT_TOL, errs
+    assert all(e[1] == e[2] for e in errs), errs
+    assert pre_s >= pre_pred["bound_s"], (pre_s, pre_pred["bound_s"])
+    assert p50 >= pred["bound_s"], (p50, pred["bound_s"])
     del placed, split, params, caches
     gc.collect()
     torch.cuda.empty_cache()
@@ -5867,22 +5961,30 @@ def sharded_moe(dev, smi: str) -> dict:
     and trained (``SHARDED_MOE_TRAIN``, cut to 3 layers, against the
     one-device steps) with its experts over 'data'."""
     serve = sharded_moe_serve(dev, smi)
-    train = sharded_train(dev, smi, SHARDED_MOE_TRAIN, drop_control=False)
+    train = sharded_train(dev, smi, SHARDED_MOE_TRAIN, control=None)
     return {"serve": serve, "train": train}
 
 
 def sharded_phase(dev, smi: str) -> dict:
-    """The sharded train step (danube on (2, 2)), the sharded prefill and
-    decode (zamba2 on (1, 2)), and a batch-1 decode over a cache split over
-    the sequence (danube on (2, 2)); the peaks reported, not asserted."""
+    """The sharded train step (danube on (2, 2); gemma2-9b's split head
+    and loss on (1, 2)), the sharded prefill and decode (zamba2 on (1,
+    2)), and a batch-1 prefill and decode over a cache split over the
+    sequence (danube on (2, 2)); the peaks reported, not asserted."""
     torch.cuda.reset_peak_memory_stats()
     train = sharded_train(dev, smi)
+    vocab = sharded_train(dev, smi, SHARDED_VOCAB,
+                          control=_drop_vocab_shards, alloc_bound=True)
     serve = sharded_serve(dev, smi)
     seq = sharded_seq(dev, smi)
     moe = sharded_moe(dev, smi)
-    return {"train": train, "serve": serve, "seq": seq, "moe": moe,
+    return {"train": train, "vocab": vocab, "serve": serve, "seq": seq,
+            "moe": moe,
             "launches": {"K2": {"train_step": train["launches_per_step"]["K2"],
-                                "prefill": serve["launches_prefill"]["K2"]},
+                                "train_step_split_vocab":
+                                    vocab["launches_per_step"]["K2"],
+                                "prefill": serve["launches_prefill"]["K2"],
+                                "prefill_sequence_split":
+                                    seq["launches_prefill"]["K2"]},
                          "K3": {"prefill": serve["launches_prefill"]["K3"]},
                          "K4": {"decode": serve["launches_decode"]["K4"],
                                 "decode_sequence_split":
@@ -5950,8 +6052,10 @@ def dryrun_phase(smi: str) -> dict:
            "covered": sum("uncovered" not in r for r in rows),
            "uncovered": {r["cell"]: r["uncovered"] for r in rows
                          if "uncovered" in r}}
+    res["over_80gb"] = [r["cell"] for r in rows if not r.get("fits", True)]
     emit(res)
     assert not res["uncovered"], res["uncovered"]
+    assert not res["over_80gb"], res["over_80gb"]
     return res
 
 

@@ -7,10 +7,18 @@ chunks and gives each chunk only the keys its causal band and window can
 reach (a dropped key would get probability exactly 0), so it also runs at
 full-width shapes: the largest buffer is one chunk's (B, K, G, chunk, keys)
 f32 scores, never the (S, S) matrix of every head pair at once.
+
+Under autograd each chunk runs inside ``torch.utils.checkpoint``
+(non-reentrant), as the JAX package wraps its query-chunk body in
+``jax.checkpoint`` (``models/attention.py``): the backward recomputes one
+chunk's scores and softmax at a time instead of keeping every chunk's.
+K2's backward (``ops._FlashAttention``) differentiates this function, so
+its peak is one chunk's too.  The forward's bits are the same either way.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
 
@@ -29,11 +37,12 @@ def attention_ref(q, k, v, *, window: int | None = None,
     qh = q.reshape(B, S, K, G, D).float()
     kf, vf = k.float(), v.float()
     out = torch.empty((B, S, K, G, D), dtype=torch.float32, device=q.device)
-    for c0 in range(0, S, q_chunk):
-        c1 = min(S, c0 + q_chunk)
-        lo = max(0, c0 - window + 1) if window is not None else 0
-        s = torch.einsum("btkgd,bskd->bkgts", qh[:, c0:c1],
-                         kf[:, lo:c1]) * scale
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+
+    def chunk(qc, kc, vc, c0, lo):
+        c1 = c0 + qc.shape[1]
+        s = torch.einsum("btkgd,bskd->bkgts", qc, kc) * scale
         if softcap is not None:
             s = softcap * torch.tanh(s / softcap)
         i = torch.arange(c0, c1, device=q.device)[:, None]
@@ -43,5 +52,12 @@ def attention_ref(q, k, v, *, window: int | None = None,
             mask &= (i - j) < window
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
         p = torch.softmax(s, dim=-1)
-        out[:, c0:c1] = torch.einsum("bkgts,bskd->btkgd", p, vf[:, lo:c1])
+        return torch.einsum("bkgts,bskd->btkgd", p, vc)
+
+    for c0 in range(0, S, q_chunk):
+        c1 = min(S, c0 + q_chunk)
+        lo = max(0, c0 - window + 1) if window is not None else 0
+        args = (qh[:, c0:c1], kf[:, lo:c1], vf[:, lo:c1], c0, lo)
+        out[:, c0:c1] = (checkpoint(chunk, *args, use_reentrant=False)
+                         if remat else chunk(*args))
     return out.reshape(B, S, H, D).to(q.dtype)

@@ -9,8 +9,9 @@ the program runs:
   move nothing).  Eager ops do not fuse, so this is an upper bound on the
   bytes a fused program would move;
 - the live bytes of every storage the program allocates, until it is
-  freed (a weak reference on the storage), and every storage an op reads
-  (``read``: an argument no op reads is one XLA's compiled program drops);
+  freed (a weak reference on the storage), the largest of them
+  (``largest``), and every storage an op reads (``read``: an argument no
+  op reads is one XLA's compiled program drops);
 - the shard that ran the op: the slice loop's mark (``core.sharded.
   on_shard``), else the shard of its inputs (an op whose inputs come from
   one shard is that shard's, as a backward op is its forward's); an op of
@@ -67,6 +68,8 @@ class CostCounter(TorchDispatchMode):
         self._refs: list = []
         self._total = 0
         self.total_peak = 0
+        # (bytes, shape of the tensor that allocated it, shard)
+        self.largest: tuple = (0, (), _COMMON)
         self.read: set[int] = set()
         self._ledger_cm = None
         self.ledger = None
@@ -119,6 +122,8 @@ class CostCounter(TorchDispatchMode):
         if key in self._owner:
             return
         n = st.nbytes()
+        if n > self.largest[0]:
+            self.largest = (n, tuple(t.shape), s)
         self._owner[key] = (s, n)
         self._live[s] += n
         self._total += n

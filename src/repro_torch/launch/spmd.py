@@ -32,9 +32,16 @@ one backward over its loss, and reduces an expert leaf's gradient over
 the rows that hold the same slice only (autograd already brought every
 row's part to its owner).
 
+A prefill building such caches (Stage 4) runs each distinct batch row's
+program once: at batch 1 the first row's, standing for every row (so the
+dry run's per-device FLOPs of such a prefill are that row's, as they are
+of any replicated batch).  Each row's shards build their caches over the
+whole sequence; each device then keeps the parts of them that
+``cache_placements`` give it (an all-to-all over the rows).
+
 What the port does not yet run raises ``NotImplementedError`` naming its
-stage (``coverage``): a prefill that would build a sequence-split cache
-(Stage 4 covers its decode steps).
+stage (``coverage``): a decode step over a cache split over both the batch
+and the sequence.
 """
 from __future__ import annotations
 
@@ -77,17 +84,11 @@ def coverage(cfg: ModelConfig, mesh: Mesh, rules: dict, *,
     ``cfg`` over ``mesh`` needs and the port lacks; ``kind``: "train" /
     "score", "prefill" or "decode"."""
     attn = any(s.kind != "mamba" for s in layer_specs(cfg))
-    if kind == "prefill" and attn and \
-            _axis_size(mesh, rules["cache_seq"]) > 1:
-        raise NotImplementedError(
-            f"Stage 4 covers decode steps over a cache split over the "
-            f"sequence; a prefill building one (config {cfg.name}, "
-            f"cache_seq over {rules['cache_seq']!r} of mesh {mesh.shape}) "
-            f"is not ported")
     if kind == "decode" and attn and rules["cache_seq"] is not None \
             and rules["cache_batch"] is not None:
         raise NotImplementedError(
-            f"a cache split over both the batch and the sequence (config "
+            f"Stage 4 covers decode steps over a cache split over the "
+            f"sequence or over the batch; one split over both (config "
             f"{cfg.name}, mesh {mesh.shape}) is not ported")
     for name, axes in named_leaves(param_axes(cfg),
                                    is_leaf=lambda x: isinstance(x, tuple)):
@@ -335,6 +336,9 @@ class Program:
         placed by the rules (``rows`` given: each row's raw (logits, the
         shards' cache lists))."""
         coverage(self.cfg, self.mesh, self.rules, kind="prefill")
+        if self.seq_rows:
+            return self._seq_prefill(params, inputs, positions, max_len,
+                                     rows)
         tps = self._row_tps(self._rows(rows), positions,
                             lambda i: local_tree(params, i))
         out = {r: prefill(self._local(params, r), self._row_input(inputs, r),
@@ -353,6 +357,77 @@ class Program:
         caches = tree_map(lambda _: next(leaves), out[0][1][0])
         return self._rows_out({r: o[0] for r, o in out.items()},
                               inputs), caches
+
+    def _seq_prefill(self, params, inputs, positions, max_len: int, rows):
+        """``prefill`` building caches split over the sequence: each
+        distinct batch row's program runs once (``represent``: the first
+        requested row's, standing for every row) and its shards build
+        their caches over the whole sequence; each device then copies out
+        of them the region ``cache_placements`` give it (a device whose
+        batch spans rows assembles its part from each of them)."""
+        want = list(self._rows(rows))
+        regions = inputs.placement.slices(inputs.shape)
+        batch = lambda r: (regions[r * self.m][0].start,
+                           regions[r * self.m][0].stop)
+        owner: dict = {}
+        for r in range(self.n_rows):
+            owner.setdefault(batch(r), r)
+        sources = sorted(set(owner.values()))
+        run = want[:1] if self.represent else sources
+        tps = self._row_tps(run, positions, lambda i: local_tree(params, i))
+        out = {r: prefill(self._local(params, r), self._row_input(inputs, r),
+                          self._row_input(positions, r), self.cfg,
+                          max_len=max_len, tp=tp)
+               for r, tp in tps.items()}
+        # the row that ran for row q (on meta, the one that ran stands in)
+        ran = lambda q: q if q in out else run[0]
+        whole = {**self.rules, "cache_seq": None}
+        src_pls = tree_leaves(tree_shardings(cache_axes(self.cfg), self.mesh,
+                                             whole))
+        dst_pls = tree_leaves(self.cache_placements())
+        src = {r: [tree_leaves(c) for c in o[1]] for r, o in out.items()}
+        parts = _axis_size(self.mesh, self.rules["cache_seq"])
+        devs = [r * self.m + s for r in (range(self.n_rows) if rows is None
+                                         else want)
+                for s in range(self.m_run)]
+        leaves = []
+        for j, (spl, dpl) in enumerate(zip(src_pls, dst_pls)):
+            t0 = src[run[0]][0][j]
+            shape = tuple(n * spl.parts(k) for k, n in enumerate(t0.shape))
+            have, need = spl.slices(shape), dpl.slices(shape)
+            if spl.spec != dpl.spec:
+                record_collective("all-to-all", t0.numel() * t0.element_size(),
+                                  parts, self.m)
+            shards = {}
+            for i in devs:
+                s = i % self.m
+                dev = self.mesh.devices.flat[i].device
+                piece = torch.empty(tuple(d.stop - d.start for d in need[i]),
+                                    dtype=t0.dtype, device=dev)
+                for q in sources:
+                    cut = [slice(max(a.start, b.start), min(a.stop, b.stop))
+                           for a, b in zip(need[i], have[q * self.m + s])]
+                    if any(c.start >= c.stop for c in cut):
+                        continue
+                    part = src[ran(q)][s][j][tuple(
+                        slice(c.start - b.start, c.stop - b.start)
+                        for c, b in zip(cut, have[q * self.m + s]))]
+                    piece[tuple(slice(c.start - a.start, c.stop - a.start)
+                                for c, a in zip(cut, need[i]))] = part.to(
+                        dev, non_blocking=True)
+                shards[i] = piece
+            leaves.append((dpl, shape, shards))
+        logits = {r: out[ran(owner[batch(r)])][0]
+                  for r in range(self.n_rows)}
+        like = out[run[0]][1][0]
+        if rows is not None:
+            return {r: (logits[r], [_rebuild(like, [
+                sh[r * self.m + s] for _, _, sh in leaves])
+                for s in range(self.m_run)]) for r in want}
+        caches = _rebuild(like, [ShardedTensor(pl, shape, [
+            sh[i] for i in range(self.mesh.size)])
+            for pl, shape, sh in leaves])
+        return self._rows_out(logits, inputs), caches
 
     def decode_step(self, params, caches, inputs, positions, *, rows=None):
         """``models.decode_step`` over the mesh; ``caches`` (placed) are
@@ -483,7 +558,7 @@ class Program:
         the microbatch's loss, its aux formed from every piece's sums.
         ``rows``: run only these rows (the dry run's one batch shard); the
         reductions over the others are then recorded, not run."""
-        from repro_torch.training.train import TrainState, nll_sum
+        from repro_torch.training.train import TrainState
 
         cfg, m, m_run = self.cfg, self.m, self.m_run
         splits, spread = self.splits(), self.spread()
@@ -535,9 +610,10 @@ class Program:
                         logits, aux = forward(
                             [view(r * m + s) for s in range(m_run)],
                             local["inputs"], local["positions"], cfg,
-                            mode="train", tp=tp)
-                        part = nll_sum(logits.float(), local["targets"],
-                                       local.get("mask"))
+                            mode="train", tp=tp, split_vocab=True)
+                        part = self._nll(logits, local["targets"],
+                                         local.get("mask"), tp)
+                        del logits      # the backward keeps none of them
                         parts.append(part / den[mb].to(part.device))
                     if chain is not None:
                         aux = chain.aux(dev0)
@@ -677,6 +753,16 @@ class Program:
             return TrainState(params, opt_state), metrics
 
         return step
+
+    def _nll(self, logits, targets, mask, tp) -> torch.Tensor:
+        """A piece's masked NLL sum: over the vocabulary's shards where the
+        row's table is split (``vocab_nll_sum``: the logits never
+        gathered), else of the whole logits (``nll_sum``)."""
+        from repro_torch.training.train import nll_sum, vocab_nll_sum
+
+        if tp.vocab is None:
+            return nll_sum(logits.float(), targets, mask)
+        return vocab_nll_sum(logits, targets, mask, tp)
 
     def _replicas(self, regions: list) -> list[list[int]]:
         """For each row, the rows whose first device holds the same region

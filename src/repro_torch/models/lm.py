@@ -477,10 +477,12 @@ def _embed(params: list, inputs: dict, cfg: ModelConfig,
 
 
 def _slice_head(params: list, rows: dict, cfg: ModelConfig,
-                tp: TensorParallel) -> torch.Tensor:
+                tp: TensorParallel, split: bool = False):
     """Final norm + unembed + softcap of ``rows`` (the rows to score, on
     every device) on the first shard's device; a split table's logits
-    concatenated in shard order (an all-gather)."""
+    concatenated in shard order (an all-gather).  ``split`` with a split
+    table: each shard's softcapped (..., V/m) logits on its own device, a
+    list in shard order, and no gather."""
     d0 = tp.devices[0]
     if tp.vocab is None:
         return _head(params[0], rows[d0], cfg)
@@ -489,7 +491,11 @@ def _slice_head(params: list, rows: dict, cfg: ModelConfig,
         with on_shard(s):
             h = rmsnorm(params[s]["final_norm"], rows[d])
             table = params[s]["embed" if cfg.tie_embeddings else "head"]
-            logits.append(unembed(table, h).to(d0, non_blocking=True))
+            y = unembed(table, h)
+            logits.append(softcap(y, cfg.final_logit_softcap) if split
+                          else y.to(d0, non_blocking=True))
+    if split:
+        return logits
     out = softcap(torch.cat(slices.tiled(logits, tp.size), dim=-1),
                   cfg.final_logit_softcap)
     slices.record("all-gather", out, tp.size)
@@ -573,7 +579,8 @@ def _layer(shards, li, spec, xs, positions, *, cfg, tp, mode,
 
 # ============================================================ entry points
 def forward(params, inputs, positions, cfg: ModelConfig, *,
-            mode: str = "score", tp: TensorParallel | None = None):
+            mode: str = "score", tp: TensorParallel | None = None,
+            split_vocab: bool = False):
     """Full-sequence forward (no caches): inputs (B, S) int32 tokens or
     (B, S, d) embeddings (``input_mode="embeds"``), positions (B, S) int32
     (contiguous 0..S-1: K2 assumes them).  Returns (f32 logits (B, S, V),
@@ -591,10 +598,18 @@ def forward(params, inputs, positions, cfg: ModelConfig, *,
     trees (a list, in mesh order) and the logits land on the first shard's
     device.  Without it, one param tree runs as a slice of one shard.
     With ``tp.experts`` (one row of a mesh whose rows hold the experts),
-    aux is zero: the rows' chain forms the batch's (``moe.ExpertChain``)."""
+    aux is zero: the rows' chain forms the batch's (``moe.ExpertChain``).
+
+    ``split_vocab`` (train mode): where ``tp`` splits the table over the
+    vocabulary, the logits come back as each shard's softcapped (B, S,
+    V/m) slice on its own device, a list in shard order, never gathered
+    (``training.train.vocab_nll_sum`` takes them); elsewhere it changes
+    nothing."""
     _check_ported(cfg)
     if mode not in ("score", "train"):
         raise ValueError(f"mode must be 'score' or 'train', got {mode!r}")
+    if split_vocab and mode != "train":
+        raise ValueError("split_vocab is a train-mode option")
     shards, tp = _as_slice(params, tp)
     xs = _embed(shards, slices.on_devices(inputs, tp), cfg, tp)            # (B, S, d)
     pos = slices.on_devices(positions, tp)
@@ -616,7 +631,7 @@ def forward(params, inputs, positions, cfg: ModelConfig, *,
                 run_copy, li, pattern, xs, aux, embeds0, use_reentrant=False)
         else:
             xs, aux = run_copy(li, pattern, xs, aux, embeds0)
-    return _slice_head(shards, xs, cfg, tp), aux
+    return _slice_head(shards, xs, cfg, tp, split=split_vocab), aux
 
 
 def prefill(params, inputs, positions, cfg: ModelConfig, *, max_len: int,

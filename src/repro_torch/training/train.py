@@ -12,7 +12,8 @@ nothing back to the host: metrics are device scalars.  ``make_loss_fn``
 and ``value_and_grad`` give one batch's loss and gradients alone.
 
 The loss materialises the (B, S, V) f32 logits once, as the reference's
-does.
+does.  Over a slice whose table is split over the vocabulary the logits
+stay split too (``vocab_nll_sum``), as GSPMD keeps the reference's.
 """
 from __future__ import annotations
 
@@ -21,9 +22,9 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.sharded import local_tree
+from repro_torch.core.sharded import local_tree, on_shard
 from repro_torch.models import (forward, init_params, params_from_numpy,
-                                stacked_leaves)
+                                slices, stacked_leaves)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import _to_torch
 from repro_torch.tree import named_leaves, tree_leaves, tree_map
@@ -46,6 +47,45 @@ def nll_sum(logits: torch.Tensor, targets: torch.Tensor,
     nll = logz - gold
     if mask is not None:
         return torch.sum(nll * mask.to(nll.device))
+    return torch.sum(nll)
+
+
+def vocab_nll_sum(logits: list, targets: torch.Tensor,
+                  mask: torch.Tensor | None, tp) -> torch.Tensor:
+    """``nll_sum`` of logits split over the vocabulary, on the slice's
+    first device: ``logits`` each shard's f32 (B, S, V/m) slice (rows
+    ``tp.vocab[s]`` of the table) on its device, in shard order.  What
+    GSPMD makes of the reference's ``cross_entropy`` with ``vocab`` over
+    'model': each shard's row max, reduced as a max over the shards
+    (detached); Σ exp(x - max) and the target's logit (from the shard that
+    owns it, zero elsewhere), each summed over the shards in shard order;
+    nll = log Σ + max - gold.  Three (B, S) all-reduces move, never the
+    logits; autograd gives the backward."""
+    d0 = tp.devices[0]
+    with torch.no_grad():
+        top = None
+        for x in logits:
+            t = torch.amax(x, dim=-1).to(d0, non_blocking=True)
+            top = t if top is None else torch.maximum(top, t)
+    slices.record("all-reduce", top, tp.size)
+    sums, golds = [], []
+    for s, (x, d) in enumerate(zip(logits, tp.devices)):
+        with on_shard(s):
+            lo, hi = tp.vocab[s]
+            local = targets.to(d, non_blocking=True).long() - lo
+            hit = (local >= 0) & (local < hi - lo)
+            gold = torch.take_along_dim(
+                x, torch.where(hit, local, 0)[..., None], dim=-1)[..., 0]
+            golds.append(torch.where(hit, gold, 0.0))
+            shift = top.to(d, non_blocking=True)[..., None]
+            sums.append(torch.sum(torch.exp(x - shift), dim=-1))
+    total = slices.sum_ordered(sums, d0)
+    gold = slices.sum_ordered(golds, d0)
+    slices.record("all-reduce", total, tp.size)
+    slices.record("all-reduce", gold, tp.size)
+    nll = torch.log(total) + top - gold
+    if mask is not None:
+        return torch.sum(nll * mask.to(d0))
     return torch.sum(nll)
 
 

@@ -13,7 +13,9 @@ to the byte.  mamba2-1.3b SMOKE's ``in_proj`` (296 columns) does not
 divide model 16, which XLA refuses as the port does, so that cell runs
 both at d_model 128 (an override both dry runs take); zamba2's likewise;
 gemma2-9b SMOKE's ring of 8 slots does not divide data 16 at batch 1
-(``long_500k``: the sequence over 'data'), so that cell runs at window 16.
+(``long_500k``: the sequence over 'data'), so that cell runs at window 16,
+as does danube's prefill whose ``_rules`` override splits its caches'
+sequence over 'data' (Stage 4's prefill).
 The MoE configs' SMOKE widths hold 8 experts, which data 16 does not
 divide, so their cells run at 32 (both dry runs put them over 'data').
 """
@@ -48,7 +50,9 @@ CELLS = [("gemma2-9b", "decode_32k", {}), ("gemma2-9b", "train_4k", {}),
          ("zamba2-2.7b", "prefill_32k", {"d_model": 128}),
          ("gemma2-9b", "long_500k", {"window": 16}),
          ("deepseek-moe-16b", "decode_32k", {"n_experts": 32}),
-         ("llama4-maverick-400b-a17b", "train_4k", {"n_experts": 32})]
+         ("llama4-maverick-400b-a17b", "train_4k", {"n_experts": 32}),
+         ("h2o-danube-1.8b", "prefill_32k",
+          {"window": 16, "_rules": {"cache_seq": "data"}})]
 
 _REF = r'''
 import json, sys
@@ -65,10 +69,10 @@ for arch in reg.ARCH_IDS:
         flops[f"{arch}@{name}"] = dr.model_flops(cfg, shape)
 dr.get_config = lambda a, smoke=False: reg.get_config(a, smoke=True)
 mem = {}
-for arch, shape, ov in cells:
+for i, (arch, shape, ov) in enumerate(cells):
     r = dr.run_cell(arch, shape, multi_pod=False, out_dir=out,
                     overrides=ov or None, calibrate=False)
-    mem[f"{arch}@{shape}"] = r["memory_analysis"]["argument_bytes"]
+    mem[f"{arch}@{shape}@{i}"] = r["memory_analysis"]["argument_bytes"]
 json.dump({"specs": specs, "flops": flops, "active": active, "mem": mem},
           open(out + "/ref.json", "w"))
 '''
@@ -130,11 +134,11 @@ def test_argument_bytes_keys_and_files_equal_xla(reference, tmp_path,
     ref_dir, ref = reference
     monkeypatch.setattr(D, "get_config",
                         lambda a, smoke=False: R.get_config(a, smoke=True))
-    for arch, shape, ov in CELLS:
+    for i, (arch, shape, ov) in enumerate(CELLS):
         res = D.run_cell(arch, shape, multi_pod=False, out_dir=str(tmp_path),
                          overrides=ov or None, calibrate=False)
         assert res["memory_analysis"]["argument_bytes"] == \
-            ref["mem"][f"{arch}@{shape}"], (arch, shape)
+            ref["mem"][f"{arch}@{shape}@{i}"], (arch, shape, ov)
     names = sorted(p.name for p in tmp_path.glob("*.json"))
     assert names == sorted(p.name for p in ref_dir.glob("*__*.json"))
     for name in names:
@@ -267,18 +271,27 @@ def test_kernel_meta_routes_count_what_the_bounds_count():
     assert C.work(bt, rows, tpos, None, 2, 2, False, H, K, Dh) == want
 
 
-def test_uncovered_cells_raise_naming_their_stage(tmp_path):
+def test_uncovered_cells_raise_naming_their_stage(tmp_path, monkeypatch):
     """A cell that needs a stage the port has not reached raises, naming
     it; through the CLI it exits 3 and says so.  No registered cell does
-    now: a ``_rules`` override that splits a prefill's caches over the
-    sequence asks for Stage 4's prefill."""
+    now, and a ``_rules`` override that splits a prefill's caches over the
+    sequence runs (Stage 4's prefill, the caches cut out of the rows'
+    and sent to their owners: an all-to-all); a decode over caches split
+    over both the batch and the sequence (the same override at
+    decode_32k's batch 128) still asks for Stage 4.  The prefill runs at
+    SMOKE width (window 16, see the module note)."""
     seq = {"_rules": {"cache_seq": "data"}}
-    with pytest.raises(NotImplementedError, match="Stage 4"):
-        D.run_cell("h2o-danube-1.8b", "prefill_32k", multi_pod=False,
-                   out_dir=str(tmp_path), overrides=seq)
+    with monkeypatch.context() as mp:
+        mp.setattr(D, "get_config",
+                   lambda a, smoke=False: R.get_config(a, smoke=True))
+        res = D.run_cell("h2o-danube-1.8b", "prefill_32k", multi_pod=False,
+                         out_dir=str(tmp_path / "prefill"),
+                         overrides={"window": 16, **seq})
+    assert res["collective_bytes"]["all-to-all"] > 0
+    assert res["fits"]
     r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
                         "--arch", "deepseek-moe-16b", "--shape",
-                        "prefill_32k", "--out", str(tmp_path), "--override",
+                        "decode_32k", "--out", str(tmp_path), "--override",
                         "_rules=" + json.dumps(seq["_rules"])],
                        capture_output=True, text=True, timeout=120,
                        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))

@@ -315,6 +315,42 @@ def test_batch_one_decode_over_a_sequence_split_cache(arch, shape):
         _close(a.float(), b.float(), TOL, err_msg=n)
 
 
+@pytest.mark.parametrize("arch,shape,batch,rules", [
+    ("gemma2-9b", (2, 2), 1, None), ("gemma2-9b", (2, 2, 2), 1, None),
+    ("zamba2-2.7b", (2, 2), 1, None), ("deepseek-moe-16b", (2, 2), 1, None),
+    ("h2o-danube-1.8b", (2, 2), 4, {"cache_seq": "data"})])
+def test_sequence_split_prefill_equals_the_placed_caches(arch, shape, batch,
+                                                         rules):
+    """Stage 4's prefill: caches split over the sequence (batch 1's rules,
+    or a ``cache_seq`` override at batch 4, where each device's part
+    spans both rows' batches) equal the one-device prefill's caches placed
+    by the same rules, leaf by leaf and shard by shard (gemma2's rings of
+    window slots split by slot, zamba2's Mamba-2 caches by the rules, the
+    MoE config's one token reaching its experts over 'data'); the logits
+    equal the one-device logits."""
+    cfg = get_config(arch, smoke=True)
+    one = P.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (batch, S)).astype(np.int32))
+    pos = torch.arange(S, dtype=torch.int32)[None].repeat(batch, 1)
+    want, caches = P.prefill(one, toks, pos, cfg, max_len=S + NEW)
+    mesh = _mesh(shape)
+    prog = Program(cfg, mesh, batch=batch)
+    if rules:
+        prog = Program(cfg, mesh, rules={**prog.rules, **rules})
+    assert prog.seq_rows
+    b = prog.place_batch({"inputs": toks, "positions": pos})
+    logits, split = prog.prefill(prog.place_params(one), b["inputs"],
+                                 b["positions"], max_len=S + NEW)
+    _close(logits.gather("cpu"), want, TOL)
+    placed = prog._place(caches, prog.cache_placements())
+    for (n, a), c in zip(named_leaves(split), tree_leaves(placed)):
+        assert (a.placement.spec, a.shape) == (c.placement.spec, c.shape), n
+        for x, y in zip(a.shards, c.shards):
+            assert x.shape == y.shape, n
+            _close(x.float(), y.float(), TOL, err_msg=n)
+
+
 def test_decode_attention_returns_the_parts_log_sum_exp():
     """K4's plain version (the CPU route) with ``lse``: the log-sum-exp of
     each row's visible scores (-inf with none), and two halves of a cache
@@ -355,19 +391,52 @@ def test_decode_attention_returns_the_parts_log_sum_exp():
 
 
 def test_uncovered_stages_raise_and_name_the_stage():
-    """A prefill building a cache split over the sequence (batch 1:
-    Stage 4 covers the decode steps only) raises, naming its stage.
-    Experts over 'data' (Stage 5) are covered now: deepseek-moe-16b's
+    """Stages 4 and 5, once uncovered, run now.  Stage 4's prefill: at
+    batch 1 the rules split the caches' sequence over 'data', and
+    ``Program.prefill`` builds them split (the first row's program, each
+    device keeping its part): they equal ``place_caches`` of the
+    one-device prefill, and 8 greedy decode steps over them give the JAX
+    package's stream.  Experts over 'data' (Stage 5): deepseek-moe-16b's
     forward on (2, 1) runs and equals the one-device forward."""
-    cfg = get_config("h2o-danube-1.8b", smoke=True)
+    new = 8
+    arch = "h2o-danube-1.8b"
+    jcfg, cfg = jget_config(arch, smoke=True), get_config(arch, smoke=True)
+    jp = jax.tree.map(np.asarray, J.init_params(jax.random.PRNGKey(0), jcfg))
+    one = P.params_from_numpy(jp, cfg, "cpu")
+    toks = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (1, S)).astype(np.int32)
+    pos = np.arange(S, dtype=np.int32)[None]
+    jl, jc = _jprefill(jp, jnp.asarray(toks), jnp.asarray(pos), cfg=jcfg,
+                       max_len=S + new)
+    want, caches = P.prefill(one, torch.from_numpy(toks),
+                             torch.from_numpy(pos), cfg, max_len=S + new)
     prog = Program(cfg, _mesh((2, 2)), batch=1)
-    params = prog.place_params(P.init_params(
-        cfg, torch.Generator().manual_seed(0), "cpu"))
-    b1 = prog.place_batch({"inputs": torch.zeros((1, 8), dtype=torch.int32),
-                           "positions": torch.zeros((1, 8),
-                                                    dtype=torch.int32)})
-    with pytest.raises(NotImplementedError, match="Stage 4"):
-        prog.prefill(params, b1["inputs"], b1["positions"], max_len=8)
+    assert len(prog.seq_rows) == 2
+    params = prog.place_params(one)
+    b1 = prog.place_batch({"inputs": torch.from_numpy(toks),
+                           "positions": torch.from_numpy(pos)})
+    logits, split = prog.prefill(params, b1["inputs"], b1["positions"],
+                                 max_len=S + new)
+    _close(logits.gather("cpu"), want, TOL)
+    placed = prog.place_caches(caches)
+    for (n, a), b in zip(named_leaves(split), tree_leaves(placed)):
+        assert a.placement.spec == b.placement.spec and a.shape == b.shape
+        for x, y in zip(a.shards, b.shards):
+            assert x.shape == y.shape, n
+            _close(x.float(), y.float(), TOL, err_msg=n)
+    nxt = logits.gather("cpu").argmax(-1).to(torch.int32)
+    np.testing.assert_array_equal(nxt.numpy(), np.asarray(jl).argmax(-1))
+    for i in range(new):
+        p1 = torch.full((1, 1), S + i, dtype=torch.int32)
+        jl, jc = _jdecode(jp, jc, jnp.asarray(nxt.numpy()),
+                          jnp.asarray(p1.numpy()), cfg=jcfg)
+        b = prog.place_batch({"inputs": nxt, "positions": p1})
+        got = prog.decode_step(params, split, b["inputs"],
+                               b["positions"]).gather("cpu")
+        _close(got, np.asarray(jl), JAX_TOL, err_msg=str(i))
+        np.testing.assert_array_equal(got.argmax(-1).numpy(),
+                                      np.asarray(jl).argmax(-1))
+        nxt = got.argmax(-1).to(torch.int32)
     moe = get_config("deepseek-moe-16b", smoke=True)
     prog = Program(moe, _mesh((2, 1)), batch=4)
     one = P.init_params(moe, torch.Generator().manual_seed(0), "cpu")
