@@ -4957,6 +4957,14 @@ SHARDED_TRAIN = ("h2o-danube-1.8b", (2, 2), 4, 4096, 3, None)
 SHARDED_VOCAB = ("gemma2-9b", (1, 2), 2, 2048, 2, 4)
 SHARDED_SERVE = ("zamba2-2.7b", (1, 2), 2, 4096, 32)
 SHARDED_SEQ = ("h2o-danube-1.8b", (2, 2), 4000, 16)
+# the same prompt length and decode steps over caches split over both the
+# batch and the sequence (``seq_shard_cache``): (mesh, B), the caches'
+# batch unsplit on (data 2, model 2) and over 'pod' on (pod 2, data 2,
+# model 1); distinct prompts per batch row
+SHARDED_SEQ_BATCHES = (((2, 2), 2), ((2, 2, 1), 4))
+# params over 'data' (``make_rules(..., fsdp=True)``): SHARDED_TRAIN's
+# steps, then a prefill of (B, S) and teacher-forced decode steps
+SHARDED_FSDP = (2, 4000, 16)
 # the experts over 'data' (Stage 5): deepseek-moe-16b at full width on
 # (data 2, model 2), (arch, mesh, B, S, decode steps, a second prompt's
 # length: B x 120 is one group of 480 over both rows, capacity 57); its
@@ -5030,30 +5038,42 @@ def held_bytes(tree) -> int:
 
 
 def _mesh_on(shape, device):
-    """A (data, model) mesh of ``shape`` over logical devices on
-    ``device``."""
-    from repro_torch.launch.mesh import logical_devices, make_host_mesh
+    """A (data, model) or (pod, data, model) mesh of ``shape`` over
+    logical devices on ``device``."""
+    from repro_torch.launch.mesh import (_make_mesh, logical_devices,
+                                         make_host_mesh)
 
     n = int(np.prod(shape))
     with logical_devices(n, device):
+        if len(shape) == 3:
+            return _make_mesh(shape, ("pod", "data", "model"))
         return make_host_mesh(n, model=shape[-1])
 
 
-def predicted(cfg, shape, B, S, kind) -> dict:
+def predicted(cfg, shape, B, S, kind, whole: bool = True, **rules) -> dict:
     """The dry run's trace of this program on the same mesh on meta, every
     shard run: the bytes each device's arguments hold, the step's FLOPs on
     the card (every shard, the common share once), its peak, and the
-    roofline bound max(FLOPs / 989e12, argument bytes / 3.35e12)."""
+    roofline bound max(FLOPs / 989e12, argument bytes / 3.35e12).
+    ``whole`` False: one shard runs, standing for every device (the dry
+    run's own per-device figures, times the devices; a quarter of the
+    host's time on a (2, 2) mesh).  ``rules``: ``make_rules``' options
+    (``fsdp``, ``seq_shard_cache``)."""
     from repro_torch.configs.registry import Shape
     from repro_torch.launch.dryrun import trace
+    from repro_torch.launch.sharding import make_rules
 
     t0 = time.monotonic()
-    tr = trace(cfg, _mesh_on(shape, "meta"),
-               Shape(f"sharded_{kind}", S, B, kind), whole=True)
-    flops = tr["counter"].total_flops()
+    mesh = _mesh_on(shape, "meta")
+    tr = trace(cfg, mesh, Shape(f"sharded_{kind}", S, B, kind),
+               rules=make_rules(cfg, mesh, batch=B, **rules), whole=whole)
+    n = 1 if whole else mesh.size
+    flops = (tr["counter"].total_flops() if whole
+             else float(tr["flops"]) * n)
     args = sum(tr["args"])
     return {"args_per_device": tr["args"], "args": args, "flops": flops,
-            "peak": args + tr["counter"].total_peak,
+            "peak": args + (tr["counter"].total_peak if whole
+                            else tr["peak_bytes"] * n),
             "collective_bytes": dict(tr["counter"].ledger.bytes),
             "bound_s": max(flops / PEAK[torch.bfloat16], args / MEM_BW),
             "trace_s": time.monotonic() - t0}
@@ -5157,9 +5177,24 @@ def check_train_agreement(agree: dict, floor: dict | None = None) -> None:
         assert agree[key] <= bound, (key, agree, floor)
 
 
+def _keeping(cls, box: dict):
+    """``cls`` (a ``Program``) keeping its first step's summed gradients,
+    before the clip, in ``box["grads"]``: {(leaf, region): tensor}."""
+    class Keeping(cls):
+        def _reduce(self, *args):
+            out = super()._reduce(*args)
+            if "grads" not in box:
+                regions = self._leaf_regions
+                box["grads"] = {(j, regions[j][i]): g for i, gl in
+                                out.items() for j, g in enumerate(gl)}
+            return out
+
+    return Keeping
+
+
 def sharded_train(dev, smi: str, spec=SHARDED_TRAIN,
-                  control=_drop_row_grads, alloc_bound: bool = False
-                  ) -> dict:
+                  control=_drop_row_grads, alloc_bound: bool = False,
+                  keep: dict | None = None) -> dict:
     """h2o-danube-1.8b at full width and depth, bf16, AdamW, over a (data
     2, model 2) mesh of four logical devices on the card: global batch 4 x
     4,096 (``synthetic_batch``), ``SHARDED_TRAIN``'s steps, against the
@@ -5173,7 +5208,10 @@ def sharded_train(dev, smi: str, spec=SHARDED_TRAIN,
     aux loss is held
     within ``MOE_AUX_RTOL`` of one device's, and its agreement within
     twice that of two one-device runs differing only in K2's rounding
-    where that is larger than the bounds (a router's bf16 floor)."""
+    where that is larger than the bounds (a router's bf16 floor).
+    ``keep``: filled with what ``sharded_fsdp`` holds its steps against
+    (the one-device run, the batches, the first step's summed gradients,
+    the step p50), which this run then does not free."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.spmd import Program
     from repro_torch.models import layer_specs, stacked_leaves
@@ -5187,9 +5225,10 @@ def sharded_train(dev, smi: str, spec=SHARDED_TRAIN,
         cfg = cfg.replace(n_layers=n_layers)
     assert cfg.remat
     n_attn = sum(s.kind != "mamba" for s in layer_specs(cfg))
-    pred = predicted(cfg, shape, B, S, "train")
+    pred = predicted(cfg, shape, B, S, "train", whole=False)
     mesh = _mesh_on(shape, dev)
-    prog = Program(cfg, mesh, batch=B)
+    prog = (Program if keep is None else _keeping(Program, keep))(
+        cfg, mesh, batch=B)
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
         cfg, DataConfig(batch=B, seq_len=S, seed=0), i).items()}
         for i in range(steps)]
@@ -5264,6 +5303,8 @@ def sharded_train(dev, smi: str, spec=SHARDED_TRAIN,
         step_s.append(dt)
         launches.append(n)
     agree = train_agreement(prog, state, one, norms, one_norms)
+    if keep is not None:
+        keep["regions"] = prog._leaf_regions
     alloc = None
     if alloc_bound:
         from repro_torch.launch.costs import CostCounter
@@ -5297,6 +5338,10 @@ def sharded_train(dev, smi: str, spec=SHARDED_TRAIN,
         bad_agree = train_agreement(bad, bad_state, one, bad_norms,
                                     one_norms)
         del bad_state, bad_step, bad
+    if keep is not None:
+        keep.update(spec=spec, one=one, one_norms=one_norms,
+                    one_losses=one_losses, batches=batches,
+                    step_p50_s=statistics.median(step_s))
     del params, one
     want = {"K2": 2 * n_attn * mesh.size, "K3": 0, "K4": 0}
     rel = max(abs(a - b) / b for a, b in zip(losses, one_losses))
@@ -5357,6 +5402,170 @@ def sharded_train(dev, smi: str, spec=SHARDED_TRAIN,
     gc.collect()
     torch.cuda.empty_cache()
     return res
+
+
+def sharded_fsdp(dev, smi: str, ref: dict) -> dict:
+    """Params over 'data' on the card: h2o-danube-1.8b at full width and
+    depth, bf16, AdamW, on (data 2, model 2) by ``make_rules(...,
+    fsdp=True)`` (``embed`` over 'data': every leaf with an embed dim split
+    over the rows too, gathered whole at each use), the steps of
+    ``sharded_train``'s run ``ref`` (its spec and batches) from the same
+    seeded state, held: each device's slice of the first step's summed
+    gradients against the same region of that run's (expected bit-equal),
+    the state after the steps against one device's
+    (``check_train_agreement``), the placed bytes against the trace's.
+    Then a prefill of ``SHARDED_FSDP``'s B x S and teacher-forced decode
+    steps, against one device."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.sharding import make_rules
+    from repro_torch.launch.spmd import Program
+    from repro_torch.models import decode_step, layer_specs, prefill
+    from repro_torch.training import get_optimizer
+
+    arch, shape, B, S, _, _ = ref["spec"]
+    cfg = get_config(arch)
+    n_attn = sum(s.kind != "mamba" for s in layer_specs(cfg))
+    pred = predicted(cfg, shape, B, S, "train", whole=False, fsdp=True)
+    mesh = _mesh_on(shape, dev)
+    box: dict = {}
+    prog = _keeping(Program, box)(cfg, mesh, rules=make_rules(
+        cfg, mesh, batch=B, fsdp=True))
+    params = _seeded_params(cfg, dev, 0)
+    params["head"]["table"].mul_(cfg.d_model ** -0.5)
+    opt = get_optimizer("adamw", lr=SHARDED_LR, warmup_steps=1)
+    state = prog.init_state(opt, place_freeing(prog, params))
+    del params
+    step = prog.train_step(opt)
+    placed = [prog.place_batch(b) for b in ref["batches"]]
+    held = held_bytes((state, placed[0]))
+    assert pred["args"] == held, (pred["args"], held)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (state, m0), launches0 = _counted(lambda: step(state, placed[0]))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    # each device's slice of every summed gradient against the same region
+    # of the step without fsdp
+    worst, differ, n_slices = 0.0, 0, 0
+    mine = prog._leaf_regions
+    for (j, region), g in box.pop("grads").items():
+        i = mine[j].index(region)
+        base = ref["regions"][j][i]
+        want = ref["grads"][(j, base)][tuple(
+            slice(a - c, b - c) for (a, b), (c, _) in zip(region, base))]
+        n_slices += 1
+        if not bit_equal(g, want):
+            differ += 1
+            worst = max(worst, (g.float() - want.float()).abs().max().item())
+    del ref["grads"]
+    losses, norms = [float(m0["loss"])], [float(m0["grad_norm"])]
+    step_s, launches = [], []
+    for b in placed[1:]:
+        ((state, m), n), dt = _timed(lambda: _counted(lambda: step(state, b)))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        step_s.append(dt)
+        launches.append(n)
+    agree = train_agreement(prog, state, ref["one"], norms, ref["one_norms"])
+    del state, step, placed
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = {"K2": 2 * n_attn * mesh.size, "K3": 0, "K4": 0}
+    rel = max(abs(a - b) / b for a, b in zip(losses, ref["one_losses"]))
+    p50 = statistics.median(step_s)
+    train = {"program": "train_step, params over data", "losses": losses,
+             "one_device_losses": ref["one_losses"], "loss_rel_diff": rel,
+             "grad_norms": norms, "agreement": agree,
+             "grad_slices_compared": n_slices,
+             "grad_slices_differing": differ,
+             "grad_slice_max_abs_diff": worst,
+             "launches_per_step": launches0, "step_s": step_s,
+             "step_p50_s": p50, "step_p50_s_without_fsdp": ref["step_p50_s"],
+             "bound_s": pred["bound_s"], "share_of_bound": pred["bound_s"]
+             / p50, "held_bytes": held, "predicted_args_bytes": pred["args"],
+             "predicted_args_per_device": pred["args_per_device"],
+             "predicted_peak_bytes": pred["peak"],
+             "measured_peak_bytes": peak,
+             "collective_bytes": pred["collective_bytes"],
+             "flops_per_step": pred["flops"],
+             "dryrun_trace_s": pred["trace_s"]}
+    emit({"phase": "sharded_fsdp_train", "arch": arch, "card": smi,
+          "mesh": dict(mesh.shape), "B": B, "S": S, **train})
+    assert launches0 == want and all(l == want for l in launches), (
+        launches0, launches, want)
+    assert all(map(math.isfinite, losses)), losses
+    assert rel <= SHARDED_LOSS_RTOL, (losses, ref["one_losses"])
+    check_train_agreement(agree)
+    assert p50 >= pred["bound_s"], (p50, pred["bound_s"])
+    del ref["one"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # prefill and decode over the fsdp placement
+    Bp, Sp, new = SHARDED_FSDP
+    pre_pred = predicted(cfg, shape, Bp, Sp, "prefill", whole=False,
+                         fsdp=True)
+    dec_pred = predicted(cfg, shape, Bp, Sp + new, "decode", whole=False,
+                         fsdp=True)
+    prog = Program(cfg, mesh, rules=make_rules(cfg, mesh, batch=Bp,
+                                               fsdp=True))
+    params = _seeded_params(cfg, dev, 0)
+    params["head"]["table"].mul_(cfg.d_model ** -0.5)
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (Bp, Sp))
+                            .astype(np.int32)).to(dev)
+    pos = torch.arange(Sp, dtype=torch.int32, device=dev)[None].repeat(Bp, 1)
+    with torch.no_grad():
+        one, caches = prefill(params, toks, pos, cfg, max_len=Sp + new)
+        placed = prog.place_params(params)
+        pb = prog.place_batch({"inputs": toks, "positions": pos})
+        pre_held = held_bytes((placed, pb))
+        assert pre_pred["args"] == pre_held, (pre_pred["args"], pre_held)
+        ((logits, split), l_pre), pre_s = _timed(lambda: _counted(
+            lambda: prog.prefill(placed, pb["inputs"], pb["positions"],
+                                 max_len=Sp + new)))
+        errs = [logit_check(logits.gather(dev), one)]
+        nxt = one.argmax(-1).to(torch.int32)
+        dec_held = held_bytes((placed, split, prog.place_batch(
+            {"inputs": nxt, "positions": pos[:, :1]})))
+        assert dec_pred["args"] == dec_held, (dec_pred["args"], dec_held)
+        dec_s, k4 = [], 0
+        for i in range(new):
+            p1 = torch.full((Bp, 1), Sp + i, dtype=torch.int32, device=dev)
+            b = prog.place_batch({"inputs": nxt, "positions": p1})
+            (got, n), dt = _timed(lambda: _counted(lambda: prog.decode_step(
+                placed, split, b["inputs"], b["positions"])))
+            one, caches = decode_step(params, caches, nxt, p1, cfg)
+            dec_s.append(dt)
+            k4 += n["K4"]
+            errs.append(logit_check(got.gather(dev), one))
+            nxt = one.argmax(-1).to(torch.int32)
+    want_pre = {"K2": n_attn * mesh.size, "K3": 0, "K4": 0}
+    serve = {"program": "prefill+decode_step, params over data", "B": Bp,
+             "S": Sp, "decode_steps": new, "prefill_s": pre_s,
+             "prefill_bound_s": pre_pred["bound_s"],
+             "launches_prefill": l_pre, "k4_launches": k4,
+             "decode_step_p50_s": statistics.median(dec_s),
+             "decode_bound_s": dec_pred["bound_s"],
+             "logit_err_over_scale": max(e[0] for e in errs),
+             "greedy_sure": sum(e[1] for e in errs),
+             "greedy_sure_agree": sum(e[2] for e in errs),
+             "held_bytes_prefill": pre_held, "held_bytes_decode": dec_held,
+             "collective_bytes_prefill": pre_pred["collective_bytes"],
+             "collective_bytes_decode_step": dec_pred["collective_bytes"]}
+    emit({"phase": "sharded_fsdp_serve", "arch": arch, "card": smi,
+          "mesh": dict(mesh.shape), **serve})
+    assert l_pre == want_pre, (l_pre, want_pre)
+    assert k4 == n_attn * mesh.size * new, k4
+    assert serve["logit_err_over_scale"] <= SHARDED_LOGIT_TOL, errs
+    assert all(e[1] == e[2] for e in errs), errs
+    assert pre_s >= pre_pred["bound_s"], (pre_s, pre_pred["bound_s"])
+    assert serve["decode_step_p50_s"] >= dec_pred["bound_s"]
+    del placed, split, params, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"train": train, "serve": serve}
 
 
 def sharded_serve(dev, smi: str) -> dict:
@@ -5486,34 +5695,38 @@ def cache_distance(got, want) -> dict:
     return {"cache_err_over_scale": worst, "cache_worst_leaf": leaf}
 
 
-def sharded_seq(dev, smi: str) -> dict:
+def sharded_seq_run(dev, smi: str, shape, B: int, **rules) -> dict:
     """Stage 4 on the card: h2o-danube-1.8b at full width and depth, bf16,
-    batch 1 over (data 2, model 2), the sequence of its caches (rings of
-    4,096 slots) split over 'data': ``Program.prefill`` builds them split
-    (the first row's program, each device keeping its part), held against
-    the one-device prefill (logits; each cache leaf against
+    B distinct prompts of ``SHARDED_SEQ``'s length over ``shape``, the
+    sequence of its caches (rings of 4,096 slots) split over 'data' (at B
+    1 by the rules; else ``seq_shard_cache``, the caches' batch split over
+    what is left of the batch axes): ``Program.prefill`` builds them split
+    (each distinct batch row's program, each device keeping its part),
+    held against the one-device prefill (logits; each cache leaf against
     ``place_caches`` of the one-device caches); then greedy decode steps
-    over them, each part of a cache attended through K4 with its
-    log-sum-exp and the parts merged, teacher-forced with the one-device
-    program's tokens."""
+    over them, each batch region's rows in lockstep over its batch, each
+    part of a cache attended through K4 with its log-sum-exp and the parts
+    merged, teacher-forced with the one-device program's tokens."""
     from repro_torch.configs.registry import get_config
+    from repro_torch.launch.sharding import make_rules
     from repro_torch.launch.spmd import Program
     from repro_torch.models import decode_step, layer_specs, prefill
 
-    arch, shape, S, new = SHARDED_SEQ
+    arch, _, S, new = SHARDED_SEQ
     cfg = get_config(arch)
     n_attn = sum(s.kind != "mamba" for s in layer_specs(cfg))
-    pre_pred = predicted(cfg, shape, 1, S, "prefill")
-    pred = predicted(cfg, shape, 1, S + new, "decode")
+    pre_pred = predicted(cfg, shape, B, S, "prefill", whole=False, **rules)
+    pred = predicted(cfg, shape, B, S + new, "decode", whole=False, **rules)
     mesh = _mesh_on(shape, dev)
-    prog = Program(cfg, mesh, batch=1)
-    assert len(prog.seq_rows) == shape[0], prog.seq_rows
+    prog = Program(cfg, mesh, rules=make_rules(cfg, mesh, batch=B, **rules))
+    assert all(len(g[2]) == shape[-2] for g in prog.seq_groups), \
+        prog.seq_groups
     params = _seeded_params(cfg, dev, 0)
     params["head"]["table"].mul_(cfg.d_model ** -0.5)
     rng = np.random.default_rng(1)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, S)).astype(
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(
         np.int32)).to(dev)
-    pos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None].repeat(B, 1)
     with torch.no_grad():
         one, caches = prefill(params, toks, pos, cfg, max_len=S + new)
         placed = prog.place_params(params)
@@ -5531,7 +5744,7 @@ def sharded_seq(dev, smi: str) -> dict:
         assert pred["args"] == held, (pred["args"], held)
         errs, step_s, k4 = [pre_err], [], 0
         for i in range(new):
-            p1 = torch.full((1, 1), S + i, dtype=torch.int32, device=dev)
+            p1 = torch.full((B, 1), S + i, dtype=torch.int32, device=dev)
             b = prog.place_batch({"inputs": nxt, "positions": p1})
             (got, n), dt = _timed(lambda: _counted(lambda: prog.decode_step(
                 placed, split, b["inputs"], b["positions"])))
@@ -5540,12 +5753,20 @@ def sharded_seq(dev, smi: str) -> dict:
             k4 += n["K4"]
             errs.append(logit_check(got.gather(dev), one))
             nxt = one.argmax(-1).to(torch.int32)
-    want_pre = {"K2": n_attn * shape[-1], "K3": 0, "K4": 0}
+    # K2: each distinct batch row's program over its shards; K4: each
+    # region's program over its shards, one launch a part
+    rows = mesh.size // shape[-1]
+    distinct = min(B, rows)
+    want_pre = {"K2": n_attn * shape[-1] * distinct, "K3": 0, "K4": 0}
+    want_k4 = n_attn * mesh.size * new
     worst = max(e[0] for e in errs)
     p50 = statistics.median(step_s)
     res = {"phase": "sharded", "program": "prefill + decode_step, "
            "sequence split", "arch": arch, "card": smi,
-           "mesh": dict(mesh.shape), "B": 1, "prompt": S,
+           "mesh": dict(mesh.shape), "B": B, "prompt": S,
+           "rules": rules or None, "cache_pos_spec": list(
+               prog.cache_placements()[0]["pos"].spec),
+           "seq_groups": [g[2] for g in prog.seq_groups],
            "decode_steps": new, "prefill_s": pre_s,
            "prefill_bound_s": pre_pred["bound_s"], "launches_prefill": l_pre,
            "prefill_logit_err_over_scale": pre_err[0], **dist,
@@ -5562,7 +5783,7 @@ def sharded_seq(dev, smi: str) -> dict:
     emit(res)
     assert l_pre == want_pre, (l_pre, want_pre)
     assert dist["cache_err_over_scale"] <= SHARDED_LOGIT_TOL, dist
-    assert k4 == n_attn * mesh.size * new, k4
+    assert k4 == want_k4, (k4, want_k4)
     assert worst <= SHARDED_LOGIT_TOL, errs
     assert all(e[1] == e[2] for e in errs), errs
     assert pre_s >= pre_pred["bound_s"], (pre_s, pre_pred["bound_s"])
@@ -5571,6 +5792,17 @@ def sharded_seq(dev, smi: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return res
+
+
+def sharded_seq(dev, smi: str) -> dict:
+    """``sharded_seq_run`` at batch 1 on (data 2, model 2), then over
+    caches split over both the batch and the sequence
+    (``SHARDED_SEQ_BATCHES``)."""
+    out = {"B1": sharded_seq_run(dev, smi, SHARDED_SEQ[1], 1)}
+    for shape, B in SHARDED_SEQ_BATCHES:
+        out[f"B{B}"] = sharded_seq_run(dev, smi, shape, B,
+                                       seq_shard_cache=True)
+    return out
 
 
 @contextlib.contextmanager
@@ -5615,12 +5847,13 @@ def moe_routes(out: dict, inputs: bool = False):
 
 
 def routes_by_layer(rec: dict, rows: int) -> dict:
-    """A run's routing records per MoE layer, the rows' records (each row
-    runs its layers in turn) concatenated in token order, on the host."""
+    """A run's routing records per MoE layer, the rows' records (the rows
+    run each layer in lockstep, in token order) concatenated, on the
+    host."""
     out = {}
     for key, ts in rec.items():
         n = len(ts) // rows
-        out[key] = [torch.cat([ts[r * n + li] for r in range(rows)]).cpu()
+        out[key] = [torch.cat([ts[li * rows + r] for r in range(rows)]).cpu()
                     for li in range(n)]
     return out
 
@@ -5670,6 +5903,27 @@ def place_freeing(prog, params):
     return params
 
 
+@contextlib.contextmanager
+def expert_slots(out: list):
+    """Inside the block, the buffer slots of each expert product
+    (``models/moe.py``'s ``_expert_ffn``: experts x rows), in call
+    order."""
+    import importlib
+
+    moe_mod = importlib.import_module("repro_torch.models.moe")
+    ffn = moe_mod._expert_ffn
+
+    def spy(params, xe):
+        out.append(xe.shape[0] * xe.shape[1])
+        return ffn(params, xe)
+
+    moe_mod._expert_ffn = spy
+    try:
+        yield out
+    finally:
+        moe_mod._expert_ffn = ffn
+
+
 def moe_serve_run(prog, params, toks, pos, toks2, pos2, new: int,
                   feed: list, cfg=None) -> dict:
     """prefill(toks), ``new`` greedy decode steps fed ``feed`` (or the
@@ -5712,9 +5966,13 @@ def moe_serve_run(prog, params, toks, pos, toks2, pos2, new: int,
                 b = prog.place_batch({"inputs": nxt, "positions": p1})
                 if i == 0:
                     res["held_decode"] = held_bytes((params, caches, b))
-                (got, n), dt = _timed(lambda: _counted(
-                    lambda: prog.decode_step(params, caches, b["inputs"],
-                                             b["positions"])))
+                    res["slots"] = []
+                with (expert_slots(res["slots"]) if i == 0
+                      else contextlib.nullcontext()):
+                    (got, n), dt = _timed(lambda: _counted(
+                        lambda: prog.decode_step(params, caches,
+                                                 b["inputs"],
+                                                 b["positions"])))
                 logits = got.gather(toks.device)
                 res["decode_s"].append(dt)
                 res["decode_launches"].append(n)
@@ -5852,14 +6110,18 @@ def sharded_moe_serve(dev, smi: str) -> dict:
     leaf by leaf (``place_freeing``).  Before that, the first 4 layers in
     f32 (``moe_f32_check``: the logits held), and the bf16 drift between
     two one-device runs (``bf16_floor``), within whose envelope the
-    sharded run's MoE inputs are held (``SHARDED_MOE_FLOOR_FACTOR``)."""
+    sharded run's MoE inputs are held (``SHARDED_MOE_FLOOR_FACTOR``).
+    Each owner device's expert products in a decode step are counted
+    (``expert_slots``): one a MoE layer, over its experts and the step's
+    one group's capacity."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.spmd import Program
+    from repro_torch.models import layer_specs
 
     arch, shape, B, S, new, S2 = SHARDED_MOE
     cfg = get_config(arch)
-    pre_pred = predicted(cfg, shape, B, S, "prefill")
-    dec_pred = predicted(cfg, shape, B, S + new, "decode")
+    pre_pred = predicted(cfg, shape, B, S, "prefill", whole=False)
+    dec_pred = predicted(cfg, shape, B, S + new, "decode", whole=False)
     mesh = _mesh_on(shape, dev)
     params = _seeded_params(cfg, dev, 0)
     rng = np.random.default_rng(3)
@@ -5894,6 +6156,17 @@ def sharded_moe_serve(dev, smi: str) -> dict:
     sh = moe_serve_run(prog, placed, toks, pos, toks2, pos2, new, feed)
     peak = torch.cuda.max_memory_allocated()
     cmp = moe_compare(sh, one, SHARDED_LOGIT_TOL)
+    # F17: each owner device runs a decode step's one group (B tokens over
+    # both rows) once a MoE layer, over its experts and the group's slots
+    from repro_torch.models.moe import capacity
+
+    n_moe = sum(s.kind == "attn_moe" for s in layer_specs(cfg))
+    e = cfg.n_experts // len(prog.owners[0])
+    slots = {"per_owner_per_layer": sorted(set(sh["slots"])),
+             "products_per_step": len(sh["slots"]),
+             "predicted_per_owner_per_layer": e * capacity(B, cfg),
+             "one_row_at_a_time_per_owner_per_layer":
+                 prog.n_rows * e * capacity(B, cfg)}
     want_pre = {"K2": cfg.n_layers * mesh.size, "K3": 0, "K4": 0}
     want_dec = {"K2": 0, "K3": 0, "K4": cfg.n_layers * mesh.size}
     p50 = statistics.median(sh["decode_s"])
@@ -5918,7 +6191,7 @@ def sharded_moe_serve(dev, smi: str) -> dict:
            "route_entries_per_layer": cmp["entries_per_layer"],
            "dropped_share_480": cmp["dropped_share2"],
            "one_device_dropped_share_480": cmp["one_device_dropped_share2"],
-           "keep_480_equal": cmp["keep2_equal"],
+           "keep_480_equal": cmp["keep2_equal"], "expert_slots": slots,
            "held_bytes_prefill": sh["held_prefill"],
            "held_bytes_decode": sh["held_decode"],
            "predicted_prefill_peak_bytes": pre_pred["peak"],
@@ -5931,6 +6204,8 @@ def sharded_moe_serve(dev, smi: str) -> dict:
                                        "route_diffs_prefill2",
                                        "dropped_share2", "keep2_equal")}}
     emit(res)
+    assert sh["slots"] == [slots["predicted_per_owner_per_layer"]] * (
+        n_moe * mesh.size), slots
     assert sh["prefill_launches"] == want_pre, sh["prefill_launches"]
     assert all(n == want_dec for n in sh["decode_launches"]), \
         sh["decode_launches"]
@@ -5966,29 +6241,42 @@ def sharded_moe(dev, smi: str) -> dict:
 
 
 def sharded_phase(dev, smi: str) -> dict:
-    """The sharded train step (danube on (2, 2); gemma2-9b's split head
-    and loss on (1, 2)), the sharded prefill and decode (zamba2 on (1,
-    2)), and a batch-1 prefill and decode over a cache split over the
-    sequence (danube on (2, 2)); the peaks reported, not asserted."""
+    """The sharded train step (danube on (2, 2), then with its params over
+    'data'; gemma2-9b's split head and loss on (1, 2)), the sharded
+    prefill and decode (zamba2 on (1, 2)), prefills and decodes over
+    caches split over the sequence (danube at batch 1 on (2, 2), and over
+    both the batch and the sequence at batches 2 and 4), and the experts
+    over 'data' (deepseek-moe-16b on (2, 2)); the peaks reported, not
+    asserted."""
     torch.cuda.reset_peak_memory_stats()
-    train = sharded_train(dev, smi)
+    keep: dict = {}
+    train = sharded_train(dev, smi, keep=keep)
+    fsdp = sharded_fsdp(dev, smi, keep)
+    del keep
     vocab = sharded_train(dev, smi, SHARDED_VOCAB,
                           control=_drop_vocab_shards, alloc_bound=True)
     serve = sharded_serve(dev, smi)
     seq = sharded_seq(dev, smi)
     moe = sharded_moe(dev, smi)
-    return {"train": train, "vocab": vocab, "serve": serve, "seq": seq,
-            "moe": moe,
+    return {"train": train, "fsdp": fsdp, "vocab": vocab, "serve": serve,
+            "seq": seq, "moe": moe,
             "launches": {"K2": {"train_step": train["launches_per_step"]["K2"],
+                                "train_step_fsdp":
+                                    fsdp["train"]["launches_per_step"]["K2"],
                                 "train_step_split_vocab":
                                     vocab["launches_per_step"]["K2"],
                                 "prefill": serve["launches_prefill"]["K2"],
-                                "prefill_sequence_split":
-                                    seq["launches_prefill"]["K2"]},
+                                "prefill_fsdp":
+                                    fsdp["serve"]["launches_prefill"]["K2"],
+                                **{f"prefill_sequence_split_{k}":
+                                   v["launches_prefill"]["K2"]
+                                   for k, v in seq.items()}},
                          "K3": {"prefill": serve["launches_prefill"]["K3"]},
                          "K4": {"decode": serve["launches_decode"]["K4"],
-                                "decode_sequence_split":
-                                    seq["k4_launches"]}},
+                                "decode_fsdp": fsdp["serve"]["k4_launches"],
+                                **{f"decode_sequence_split_{k}":
+                                   v["k4_launches"]
+                                   for k, v in seq.items()}}},
             "launches_moe": {
                 "K2": {"prefill": moe["serve"]["launches_prefill"]["K2"],
                        "train_step":

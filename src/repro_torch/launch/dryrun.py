@@ -61,7 +61,7 @@ from repro_torch.tree import tree_leaves
 from .costs import CostCounter
 from .mesh import Mesh, logical_devices, make_production_mesh
 from .sharding import make_rules
-from .spmd import Program, coverage
+from .spmd import Program
 
 # ---------------------------------------------------------- hardware model
 # NVIDIA H100 80GB HBM3 (SXM5), 700 W; NVIDIA H100 Tensor Core GPU data sheet
@@ -145,7 +145,6 @@ def trace(cfg: ModelConfig, mesh: Mesh, shape: Shape, *,
     first shard, standing for every shard (``whole``: every shard of every
     row, for the whole process's peak)."""
     rules = rules or make_rules(cfg, mesh, batch=shape.global_batch)
-    coverage(cfg, mesh, rules, kind=shape.kind)
     t0 = time.monotonic()
     prog = Program(cfg, mesh, rules=rules, represent=not whole)
     rows = None if whole else [0]

@@ -3,10 +3,11 @@
 The counterpart of the reference's ``jax.jit`` with ``in_shardings`` over
 the production mesh, for the dense entry points: ``Program`` places the
 params, caches and batch by the logical-axis rules (``launch.sharding``)
-and runs ``models.forward`` / ``prefill`` / ``decode_step`` row by row:
-each row of the mesh (one group of 'model' shards, a ``TensorParallel``)
-runs its local batch, and each shard its local heads, ffn columns, vocab
-rows and SSM heads.  ``train_step`` adds the gradient reduction over the
+and runs ``models.forward`` / ``prefill`` / ``decode_step`` over the rows
+in lockstep, layer by layer (``models.forward_rows`` / ``prefill_rows``
+/ ``decode_rows``): each row of the mesh (one group of 'model' shards, a
+``TensorParallel``) runs its local batch, and each shard its local
+heads, ffn columns, vocab rows and SSM heads.  ``train_step`` adds the gradient reduction over the
 rows and over the shards that replicate a leaf, in shard order, the
 clipped global norm over every shard's leaves, and the optimizer's
 lockstep update (``Optimizer.update_shards``).
@@ -15,55 +16,65 @@ Mamba-2 params and conv caches are placed in the shard-major layout of
 ``models.mamba2.shard_columns`` (so the rules' even split of the ``ffn``
 dim is a split by SSM heads); ``gather_*`` undo it.
 
-A decode step over caches split over the sequence (``long_500k``: batch 1,
-``cache_seq`` over 'data') runs the rows in lockstep: one row's program,
-each shard's attention over the parts of its cache that the rows hold,
-merged by their log-sum-exps (``attention._seq_merge``).
+Params split over the rows too (the reference's ``fsdp=True`` rules put
+``embed`` over 'data') are gathered whole just before each use, inside
+the layer loop (``TensorParallel.gather``, an all-gather; remat's
+recompute gathers again); a train step hands each row's whole gradient of
+such a leaf to the program, which sums the rows' gradients in shard order
+and keeps each device's slice (a reduce-scatter).
+
+A decode step over caches split over the sequence (``long_500k``: batch
+1, ``cache_seq`` over 'data'; or a larger batch whose caches the rules
+split over both: the batch over 'pod', or not at all) runs, for each
+batch region of the caches, the rows holding its parts in lockstep: one
+program over that region's batch, each shard's attention over the parts
+of its cache that the rows hold, merged by their log-sum-exps
+(``attention._seq_merge``); the regions run in turn.
 
 A MoE config on a mesh of several rows (Stage 5: the rules put the experts
-over 'data' wherever it divides ``n_experts``) runs the rows in token
-order, each MoE layer of a row routing its own tokens in the batch's
-groups, placing each entry after the entries the rows before gave its
-expert (``moe.ExpertChain``'s carried counts), and sending each slice of
-its dispatch buffer to the row that owns those experts and back
-(``moe.RowExperts``); the aux loss is formed from every row's sums.  A
-train step runs a reference microbatch's pieces forward first and then
-one backward over its loss, and reduces an expert leaf's gradient over
-the rows that hold the same slice only (autograd already brought every
-row's part to its owner).
+over 'data' wherever it divides ``n_experts``) couples the rows: each MoE
+layer of a row routing
+its own tokens in the batch's groups and placing each entry after the
+entries the rows before gave its expert (``moe.ExpertChain``'s carried
+counts); each owner of a slice of the experts runs the slots every row
+sends it once, over the union of their groups, and sends each row its
+outputs back (``moe.moe_rows``); the aux loss is formed from every row's
+sums.  A train step runs a reference microbatch's pieces forward together
+and then one backward over its loss, and reduces an expert leaf's
+gradient over the rows that hold the same slice only (autograd already
+brought every row's part to its owner).
 
-A prefill building such caches (Stage 4) runs each distinct batch row's
-program once: at batch 1 the first row's, standing for every row (so the
-dry run's per-device FLOPs of such a prefill are that row's, as they are
-of any replicated batch).  Each row's shards build their caches over the
-whole sequence; each device then keeps the parts of them that
-``cache_placements`` give it (an all-to-all over the rows).
-
-What the port does not yet run raises ``NotImplementedError`` naming its
-stage (``coverage``): a decode step over a cache split over both the batch
-and the sequence.
+A prefill building caches split over the sequence (Stage 4) runs each
+distinct batch row's program once: at batch 1 the first row's, standing
+for every row (so the dry run's per-device FLOPs of such a prefill are
+that row's, as they are of any replicated batch).  Each row's shards build
+their caches over the whole sequence; each device then keeps the parts of
+them that ``cache_placements`` give it (an all-to-all over the rows).
 """
 from __future__ import annotations
 
 import dataclasses
 import re
 from collections import Counter
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.sharded import (Placement, ShardedTensor, local_tree,
                                       place, record_collective)
-from repro_torch.models import (cache_axes, decode_step, forward, layer_specs,
-                                param_axes, prefill, stacked_leaves)
+from repro_torch.models import (cache_axes, decode_rows, forward_rows,
+                                layer_specs, param_axes, prefill_rows,
+                                stacked_leaves)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mamba2 import shard_columns
-from repro_torch.models.moe import ExpertChain, RowExperts
+from repro_torch.models.moe import ExpertChain, Owner, RowExperts, group_span
 from repro_torch.tree import named_leaves, tree_leaves, tree_map
 
 from .mesh import Mesh
-from .sharding import (batch_shardings, leaf_spec, make_rules, map_axes,
-                       opt_state_axes, tensor_parallel, tree_shardings)
+from .sharding import (batch_shardings, is_axes_leaf, leaf_spec, make_rules,
+                       map_axes, opt_state_axes, tensor_parallel,
+                       tree_shardings)
 
 _MAMBA_COLS = re.compile(r"mamba/(in_proj|conv_w|conv_b)(/|$)")
 _CONV_CACHE = re.compile(r"^\d+/conv$")
@@ -78,27 +89,69 @@ def _axis_size(mesh: Mesh, target) -> int:
     return n
 
 
-def coverage(cfg: ModelConfig, mesh: Mesh, rules: dict, *,
-             kind: str) -> None:
-    """Raise ``NotImplementedError`` naming the stage a sharded program of
-    ``cfg`` over ``mesh`` needs and the port lacks; ``kind``: "train" /
-    "score", "prefill" or "decode"."""
-    attn = any(s.kind != "mamba" for s in layer_specs(cfg))
-    if kind == "decode" and attn and rules["cache_seq"] is not None \
-            and rules["cache_batch"] is not None:
-        raise NotImplementedError(
-            f"Stage 4 covers decode steps over a cache split over the "
-            f"sequence or over the batch; one split over both (config "
-            f"{cfg.name}, mesh {mesh.shape}) is not ported")
-    for name, axes in named_leaves(param_axes(cfg),
-                                   is_leaf=lambda x: isinstance(x, tuple)):
-        for ax, entry in zip(axes, leaf_spec(axes, rules)):
-            if entry not in (None, "model") and ax != "expert" and \
-                    _axis_size(mesh, entry) > 1:
-                raise NotImplementedError(
-                    f"params split over {entry!r} (param {name}): the "
-                    f"sharded steps split params over 'model' only, and "
-                    f"experts over the rows")
+class Gathered(NamedTuple):
+    """A param leaf split over the rows on a dim that is not the experts'
+    (params over 'data'): that dim, and for each device (mesh order) the
+    position of its piece and the devices holding every piece, in piece
+    order."""
+    dim: int
+    peers: list
+
+
+class _Gather(torch.autograd.Function):
+    """A leaf's pieces concatenated along ``dim``, ``own`` at ``at`` (an
+    all-gather).  The backward hands the whole gradient of this use to
+    ``sink`` and returns none to the piece: the program sums every row's
+    gradient itself, in shard order, and keeps each slice (a
+    reduce-scatter), so no sum is left to autograd's order."""
+
+    @staticmethod
+    def forward(ctx, own, pieces, at, dim, sink):
+        ctx.sink = sink
+        parts = list(pieces)
+        parts[at] = own
+        return torch.cat([t.to(own.device, non_blocking=True)
+                          for t in parts], dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.sink(grad)
+        return None, None, None, None, None
+
+
+class RowGather:
+    """``TensorParallel.gather`` of row ``r``: in a shard's subtree, each
+    leaf that ``Program.gathered`` names is concatenated from the pieces of
+    its peers (``params``' shards; the row's own piece as given, a view the
+    train step differentiates).  ``sink(device, name, grad)``: under grad,
+    where each use's whole gradient goes (``_Gather``)."""
+
+    def __init__(self, prog: "Program", params, r: int, sink=None):
+        self.prog, self.r, self.sink = prog, r, sink
+        self.leaves = dict(named_leaves(params))
+
+    def __call__(self, s: int, path: tuple, node):
+        i = self.r * self.prog.m + s
+        prefix = "/".join(map(str, path))
+        out = []
+        for sub, t in named_leaves(node):
+            name = f"{prefix}/{sub}" if sub else prefix
+            g = self.prog.gathered.get(name)
+            out.append(t if g is None else self._whole(name, g, i, t))
+        it = iter(out)
+        return tree_map(lambda _: next(it), node)
+
+    def _whole(self, name: str, g: Gathered, i: int, own: torch.Tensor):
+        at, peers = g.peers[i]
+        pieces = [self.leaves[name].shards[p] for p in peers]
+        record_collective("all-gather", own.numel() * own.element_size()
+                          * len(peers), len(peers), peers[1] - peers[0])
+        if self.sink is not None and own.requires_grad:
+            return _Gather.apply(own, pieces, at, g.dim,
+                                 lambda grad: self.sink(i, name, grad))
+        pieces[at] = own
+        return torch.cat([t.to(own.device, non_blocking=True)
+                          for t in pieces], dim=g.dim)
 
 
 class Program:
@@ -129,12 +182,70 @@ class Program:
         self.cols = (shard_columns(cfg, self.m) if self.tps[0].ssm
                      else None)
         self.represent = represent
-        self.seq_rows = self._seq_rows()
+        self.gathered = self._gathered()
+        self.blocks, self.row_group = self._blocks()
+        self.seq_groups = self._seq_groups()
+        # the rows holding the parts of the first batch region's caches
+        self.seq_rows = self.seq_groups[0][2] if self.seq_groups else []
         # a MoE config over several rows couples them (one batch's groups
-        # and aux); ``owners[r]``: for each slice of the experts, the row
+        # and aux, each MoE layer's expert slots); ``owners[r]``: for each slice of the experts, the row
         # that holds it among row r's neighbours over the expert axes
         self.coupled = bool(cfg.n_experts) and self.n_rows > 1
         self.owners = self._owner_rows() if self.coupled else None
+
+    def _row_coords(self, r: int) -> dict:
+        coords = list(np.ndindex(self.mesh.devices.shape))[r * self.m]
+        return dict(zip(self.mesh.axis_names, coords))
+
+    def _gathered(self) -> dict:
+        """Each param leaf that the rules split over the rows on a dim that
+        is not the experts' (params over 'data', the reference's fsdp
+        rules): its name → ``Gathered``."""
+        out = {}
+        names = self.mesh.axis_names
+        coords = list(np.ndindex(self.mesh.devices.shape))
+        axes = named_leaves(param_axes(self.cfg), is_leaf=is_axes_leaf)
+        for (name, ax), pl in zip(axes, tree_leaves(self.param_placements)):
+            dims = [k for k, a in enumerate(ax) if a != "expert" and any(
+                x != "model" and self.mesh.shape[x] > 1
+                for x in pl._dim_axes(k))]
+            if not dims:
+                continue
+            (dim,) = dims
+            split = pl._dim_axes(dim)
+            groups: dict = {}
+            for i, c in enumerate(coords):
+                at = dict(zip(names, c))
+                piece = 0
+                for x in split:
+                    piece = piece * self.mesh.shape[x] + at[x]
+                key = tuple(v for a, v in at.items() if a not in split)
+                groups.setdefault(key, {})[piece] = i
+            peers = []
+            for i, c in enumerate(coords):
+                at = dict(zip(names, c))
+                group = groups[tuple(v for a, v in at.items()
+                                     if a not in split)]
+                order = [group[k] for k in sorted(group)]
+                peers.append((order.index(i), order))
+            out[name] = Gathered(dim, peers)
+        return out
+
+    def _blocks(self) -> tuple[list[list[int]], int]:
+        """(the rows holding one copy of the params together: rows that
+        differ only over the mesh axes that split some param leaf over the
+        rows ('data': the experts, params under fsdp), in mesh order; how
+        many rows a block holds)."""
+        axes = {x for pl in tree_leaves(self.param_placements)
+                for k in range(len(pl.spec)) for x in pl._dim_axes(k)
+                if x != "model" and self.mesh.shape[x] > 1}
+        by: dict = {}
+        for r in range(self.n_rows):
+            key = tuple(v for a, v in self._row_coords(r).items()
+                        if a not in axes)
+            by.setdefault(key, []).append(r)
+        return (list(by.values()),
+                int(np.prod([self.mesh.shape[x] for x in axes])))
 
     def _owner_rows(self) -> list[list[int]]:
         """For each row, the rows holding each slice of the experts (in
@@ -154,50 +265,85 @@ class Program:
         return [[slot[(key(r), st)] for st in starts]
                 for r in range(self.n_rows)]
 
-    def row_experts(self, r: int, trees, offset: int,
-                    chain: ExpertChain) -> RowExperts:
+    def row_experts(self, r: int, trees, offset: int, chain: ExpertChain,
+                    members=()) -> RowExperts:
         """Row r's view of the experts over the rows, its tokens starting
         at ``offset`` of the chain's batch; ``trees(i)``: device i's local
-        param tree (the dry run's row stands in for every owner)."""
-        owners = [[(self.tps[r if self.represent else o].devices[s],
-                    trees((r if self.represent else o) * self.m + s))
+        param tree (the dry run's row stands in for every owner).
+        ``members``: (row, first token, tokens) of every row of the chain,
+        for the dry run: its own slice's owner runs the groups that the
+        rows sending to it touch."""
+        owners = [[Owner(o * self.m + s,
+                         self.tps[r if self.represent else o].devices[s],
+                         trees((r if self.represent else o) * self.m + s))
                    for s in range(self.m_run)] for o in self.owners[r]]
-        return RowExperts(chain, offset, owners, self.m)
+        stand_in = None
+        if self.represent:
+            spans = [group_span(at, n, chain.total, self.cfg)
+                     for q, at, n in members if r in self.owners[q]]
+            spans = spans or [group_span(offset, 0, chain.total, self.cfg)]
+            stand_in = (r * self.m, (min(a for a, _ in spans),
+                                     max(b for _, b in spans)))
+        return RowExperts(chain, offset, owners, self.m, stand_in)
 
-    def _row_tps(self, rows, positions: ShardedTensor, trees) -> dict:
-        """Each row's slice, with its view of the experts where the rows
-        are coupled: the rows that hold the same part of the batch form a
-        chain (one per replica of it), in token order."""
+    def _row_tps(self, rows, positions: ShardedTensor, params, trees=None,
+                 sink=None) -> dict:
+        """Each row's slice: its gathers where params lie over the rows
+        (``RowGather`` of ``params``, ``trees(i)`` device i's tree, the
+        local params by default), and its view of the experts where the
+        rows are coupled: the rows that hold the same part of the batch
+        form a chain (one per replica of it), in token order."""
+        trees = trees or (lambda i: local_tree(params, i))
+        gather = (lambda r: RowGather(self, params, r, sink)) \
+            if self.gathered else (lambda r: None)
         if not self.coupled:
-            return {r: self.tps[r] for r in rows}
+            return {r: dataclasses.replace(self.tps[r], gather=gather(r))
+                    for r in rows}
         S = positions.shape[1]
         regions = positions.placement.slices(positions.shape)
         seen: Counter = Counter()
+        chain_of, members = {}, {}
+        for r in range(self.n_rows):
+            reg = regions[r * self.m][0]
+            chain_of[r] = seen[(reg.start, reg.stop)]
+            seen[(reg.start, reg.stop)] += 1
+            members.setdefault(chain_of[r], []).append(
+                (r, reg.start * S, (reg.stop - reg.start) * S))
         chains: dict = {}
         out = {}
         for r in rows:
-            reg = regions[r * self.m][0]
-            q = seen[(reg.start, reg.stop)]
-            seen[(reg.start, reg.stop)] += 1
+            q = chain_of[r]
             chain = chains.setdefault(q, ExpertChain(
                 self.cfg, positions.shape[0] * S))
-            out[r] = dataclasses.replace(self.tps[r], experts=self.row_experts(
-                r, trees, reg.start * S, chain))
+            out[r] = dataclasses.replace(
+                self.tps[r], gather=gather(r), experts=self.row_experts(
+                    r, trees, regions[r * self.m][0].start * S, chain,
+                    members[q]))
         return out
 
-    def _seq_rows(self) -> list[int]:
-        """The rows holding the parts of a decode cache split over the
-        sequence, in part order (one per part; empty when not split)."""
-        if _axis_size(self.mesh, self.rules["cache_seq"]) <= 1 or all(
-                s.kind == "mamba" for s in layer_specs(self.cfg)):
+    def _seq_groups(self) -> list[tuple[int, int, list[int]]]:
+        """The batch regions of decode caches split over the sequence, as
+        ``cache_placements`` place them (an attention layer's ``pos``
+        leaf: its batch split over 'pod', or not at all, its sequence over
+        'data'): for each, (region b, of n, the rows holding its parts in
+        part order); empty when the caches are not split over the
+        sequence."""
+        specs = layer_specs(self.cfg)
+        li = next((i for i, s in enumerate(specs) if s.kind != "mamba"),
+                  None)
+        if li is None:
             return []
-        pl = Placement(self.mesh, leaf_spec(("cache_batch", "cache_seq"),
-                                            self.rules))
-        parts = _axis_size(self.mesh, self.rules["cache_seq"])
-        first: dict = {}
-        for i, region in enumerate(pl.slices((1, parts))):
-            first.setdefault(region[1].start, i // self.m)
-        return [first[k] for k in sorted(first)]
+        pl = self.cache_placements()[li]["pos"]
+        nb, ns = pl.parts(0), pl.parts(1)
+        if ns <= 1:
+            return []
+        regions = pl.slices((nb, ns))
+        parts: dict = {}
+        for r in range(self.n_rows):
+            b, q = regions[r * self.m][0].start, regions[r * self.m][1].start
+            parts.setdefault(b, {}).setdefault(q, r)
+        return [(b, nb, [parts[b][q] for q in sorted(parts[b])])
+                for b in sorted(parts)]
 
     # ---------------------------------------------------------- placement
     def _columns(self, name: str, t: torch.Tensor, *,
@@ -240,7 +386,6 @@ class Program:
         return tree_shardings(cache_axes(self.cfg), self.mesh, self.rules)
 
     def place_caches(self, caches):
-        coverage(self.cfg, self.mesh, self.rules, kind="decode")
         return self._place(caches, self.cache_placements())
 
     def gather_caches(self, placed, device="cpu"):
@@ -315,14 +460,12 @@ class Program:
     def forward(self, params, inputs, positions, *, mode="score", rows=None):
         """``models.forward`` over the mesh: (logits, aux) per row run
         (``rows`` None: all, as ShardedTensor logits)."""
-        coverage(self.cfg, self.mesh, self.rules, kind="score")
-        tps = self._row_tps(self._rows(rows), positions,
-                            lambda i: local_tree(params, i))
-        out = {r: forward(self._local(params, r),
-                          self._row_input(inputs, r),
-                          self._row_input(positions, r), self.cfg, mode=mode,
-                          tp=tp)
-               for r, tp in tps.items()}
+        tps = self._row_tps(self._rows(rows), positions, params)
+        res = forward_rows([
+            (self._local(params, r), self._row_input(inputs, r),
+             self._row_input(positions, r), tp) for r, tp in tps.items()],
+            self.cfg, mode=mode)
+        out = dict(zip(tps, res))
         if rows is not None:
             if self.coupled:        # the batch's aux, from every row's sums
                 out = {r: (o[0], tps[r].experts.chain.aux(o[0].device))
@@ -330,21 +473,24 @@ class Program:
             return out
         return self._rows_out({r: o[0] for r, o in out.items()}, inputs)
 
+    def _prefill_rows(self, params, inputs, positions, max_len: int,
+                      rows) -> dict:
+        tps = self._row_tps(rows, positions, params)
+        return dict(zip(tps, prefill_rows([
+            (self._local(params, r), self._row_input(inputs, r),
+             self._row_input(positions, r), tp) for r, tp in tps.items()],
+            self.cfg, max_len=max_len)))
+
     def prefill(self, params, inputs, positions, *, max_len: int,
                 rows=None):
         """``models.prefill`` over the mesh: (logits, caches), the caches
         placed by the rules (``rows`` given: each row's raw (logits, the
         shards' cache lists))."""
-        coverage(self.cfg, self.mesh, self.rules, kind="prefill")
-        if self.seq_rows:
+        if self.seq_groups:
             return self._seq_prefill(params, inputs, positions, max_len,
                                      rows)
-        tps = self._row_tps(self._rows(rows), positions,
-                            lambda i: local_tree(params, i))
-        out = {r: prefill(self._local(params, r), self._row_input(inputs, r),
-                          self._row_input(positions, r), self.cfg,
-                          max_len=max_len, tp=tp)
-               for r, tp in tps.items()}
+        out = self._prefill_rows(params, inputs, positions, max_len,
+                                 self._rows(rows))
         if rows is not None:
             return out
         pls = tree_leaves(self.cache_placements())
@@ -374,11 +520,7 @@ class Program:
             owner.setdefault(batch(r), r)
         sources = sorted(set(owner.values()))
         run = want[:1] if self.represent else sources
-        tps = self._row_tps(run, positions, lambda i: local_tree(params, i))
-        out = {r: prefill(self._local(params, r), self._row_input(inputs, r),
-                          self._row_input(positions, r), self.cfg,
-                          max_len=max_len, tp=tp)
-               for r, tp in tps.items()}
+        out = self._prefill_rows(params, inputs, positions, max_len, run)
         # the row that ran for row q (on meta, the one that ran stands in)
         ran = lambda q: q if q in out else run[0]
         whole = {**self.rules, "cache_seq": None}
@@ -433,45 +575,102 @@ class Program:
         """``models.decode_step`` over the mesh; ``caches`` (placed) are
         updated in place.  Returns the logits (each row's, ``rows``
         given)."""
-        coverage(self.cfg, self.mesh, self.rules, kind="decode")
-        if self.seq_rows:
-            logits = self._seq_decode(params, caches, inputs, positions)
-            out = {r: logits for r in self._rows(rows)}
+        if self.seq_groups:
+            out = self._seq_decode(params, caches, inputs, positions)
+            out = {r: out[r] for r in self._rows(rows)}
         else:
-            tps = self._row_tps(self._rows(rows), positions,
-                                lambda i: local_tree(params, i))
-            out = {r: decode_step(
-                self._local(params, r), self._local(caches, r),
-                self._row_input(inputs, r), self._row_input(positions, r),
-                self.cfg, tp=tp)[0] for r, tp in tps.items()}
+            tps = self._row_tps(self._rows(rows), positions, params)
+            out = dict(zip(tps, decode_rows([
+                (self._local(params, r), self._local(caches, r),
+                 self._row_input(inputs, r), self._row_input(positions, r),
+                 tp) for r, tp in tps.items()], self.cfg)))
         return out if rows is not None else self._rows_out(out, inputs)
 
-    def _seq_decode(self, params, caches, inputs, positions):
-        """One decode step over caches split over the sequence: the batch
-        is the same on every row, so the first row's program runs, each
-        shard's attention layers reading the parts of its cache that the
-        ``seq_rows`` hold (only the first when ``represent``); the other
-        layers' caches are the first row's."""
-        rows = self.seq_rows[:1] if self.represent else self.seq_rows
-        stride = (self.seq_rows[1] - self.seq_rows[0]) * self.m
-        tp = dataclasses.replace(self.tps[self.seq_rows[0]],
-                                 seq=(len(self.seq_rows), stride))
+    def _batch_range(self, t: ShardedTensor, lo: int, hi: int, s: int,
+                     device) -> tuple[torch.Tensor, list]:
+        """Rows [lo, hi) of ``t``'s leading dim for shard s, on ``device``,
+        from the rows whose shard s holds them (an all-gather where they
+        are several), and (each holder's tensor, its rows, the rows of the
+        result) to write an update back."""
+        regions = t.placement.slices(t.shape)
+        pieces, back, at = [], [], lo
+        while at < hi:
+            i = next(r * self.m + s for r in range(self.n_rows)
+                     if regions[r * self.m + s][0].start <= at
+                     < regions[r * self.m + s][0].stop)
+            reg = regions[i][0]
+            stop = min(reg.stop, hi)
+            part = slice(at - reg.start, stop - reg.start)
+            pieces.append(t.shards[i][part].to(device, non_blocking=True))
+            back.append((t.shards[i], part, slice(at - lo, stop - lo)))
+            at = stop
+        if len(pieces) == 1:
+            return pieces[0], back
+        whole = torch.cat(pieces)
+        record_collective("all-gather", whole.numel() * whole.element_size(),
+                          len(pieces), self.m)
+        return whole, back
+
+    def _seq_decode(self, params, caches, inputs, positions) -> dict:
+        """One decode step over caches split over the sequence: for each
+        batch region of the caches (``seq_groups``; the first only when
+        ``represent``), one program over that region's batch (its inputs
+        gathered from the rows that hold them), each shard's attention
+        layers reading the parts of its cache that the group's rows hold
+        (only the first when ``represent``); a Mamba-2 layer's cache is
+        the region's, assembled from the rows holding it and written back
+        after.  The regions run in turn, one chain of the batch's MoE
+        groups through them.  Returns each row's logits."""
+        B = inputs.shape[0]
         specs = layer_specs(self.cfg)
-        local = []
-        for s in range(self.m_run):
-            trees = [local_tree(caches, r * self.m + s) for r in rows]
-            local.append([trees[0][li] if spec.kind == "mamba"
-                          else [t[li] for t in trees]
-                          for li, spec in enumerate(specs)])
-        r0 = self.seq_rows[0]
-        if self.coupled:
-            tp = dataclasses.replace(tp, experts=self.row_experts(
-                r0, lambda i: local_tree(params, i), 0,
-                ExpertChain(self.cfg, positions.shape[0])))
-        return decode_step(self._local(params, r0), local,
-                           self._row_input(inputs, r0),
-                           self._row_input(positions, r0), self.cfg,
-                           tp=tp)[0]
+        groups = self.seq_groups[:1] if self.represent else self.seq_groups
+        chain = ExpertChain(self.cfg, B) if self.coupled else None
+        regions = inputs.placement.slices(inputs.shape)
+        members = [(group[0], b * B // nb, B // nb)
+                   for b, nb, group in self.seq_groups]
+        out: dict = {}
+        for b, nb, group in groups:
+            lo, hi = b * B // nb, (b + 1) * B // nb
+            rows = group[:1] if self.represent else group
+            r0 = group[0]
+            stride = (group[1] - group[0]) * self.m
+            tp = dataclasses.replace(self.tps[r0], seq=(len(group), stride))
+            if self.gathered:
+                tp = dataclasses.replace(tp, gather=RowGather(self, params,
+                                                              r0))
+            if chain is not None:
+                tp = dataclasses.replace(tp, experts=self.row_experts(
+                    r0, lambda i: local_tree(params, i), lo, chain, members))
+            dev = tp.devices[0]
+            local, writes = [], []
+            for s in range(self.m_run):
+                trees = [local_tree(caches, r * self.m + s) for r in rows]
+                mine = []
+                for li, spec in enumerate(specs):
+                    if spec.kind != "mamba":
+                        mine.append([t[li] for t in trees])
+                        continue
+                    layer = {}
+                    for k, leaf in caches[li].items():
+                        layer[k], back = self._batch_range(
+                            leaf, lo, hi, s, tp.devices[s])
+                        if len(back) > 1 or not _same(layer[k],
+                                                      back[0][0]):
+                            writes.append((layer[k], back))
+                    mine.append(layer)
+                local.append(mine)
+            x, _ = self._batch_range(inputs, lo, hi, 0, dev)
+            p, _ = self._batch_range(positions, lo, hi, 0, dev)
+            logits = decode_rows([(self._local(params, r0), local, x, p,
+                                   tp)], self.cfg)[0]
+            for whole, back in writes:
+                for holder, part, mine in back:
+                    holder[part].copy_(whole[mine], non_blocking=True)
+            for r in range(self.n_rows):
+                reg = regions[r * self.m][0]
+                if lo <= reg.start and reg.stop <= hi:
+                    out[r] = logits[reg.start - lo:reg.stop - lo]
+        return out
 
     # --------------------------------------------------------- train step
     def splits(self) -> dict:
@@ -487,17 +686,34 @@ class Program:
             out[name] = (dims[0] + int(stacked)) if dims else None
         return out
 
-    def spread(self) -> set:
-        """The JAX leaf names whose leaves are split over the rows too (the
-        experts over 'data')."""
-        pls = stacked_leaves(self.param_placements, self.cfg)
-        return {name for name, pl in pls.items()
-                if _row_split(pl[0] if isinstance(pl, tuple) else pl)}
+    def spread(self) -> dict:
+        """Each JAX leaf name whose leaves are split over the rows too (the
+        experts over 'data', params under fsdp) → its stacked leaf's dim
+        split over the rows."""
+        out = {}
+        for name, pl in stacked_leaves(self.param_placements,
+                                       self.cfg).items():
+            stacked = isinstance(pl, tuple)
+            pl = pl[0] if stacked else pl
+            dims = [k for k in range(len(pl.spec)) if any(
+                a != "model" and self.mesh.shape[a] > 1
+                for a in pl._dim_axes(k))]
+            if dims:
+                out[name] = dims[0] + int(stacked)
+        return out
 
     def _grad_parts(self, acc: dict, j: int, shards, rows: list) -> list:
         """The parts summed into leaf ``j``'s grad on ``shards``: each
         distinct batch row's (``rows``) grads of that leaf, shard-major."""
         return [acc[r * self.m + q][j] for q in shards for r in rows]
+
+    def _scatter_parts(self, acc: dict, j: int, shards, rows: list,
+                       cut: tuple) -> list:
+        """The parts summed into a gathered leaf ``j``'s slice ``cut`` (a
+        reduce-scatter): each part (``_grad_parts``: every running row's
+        whole gradient of its uses) cut to the slice, summed in the same
+        order as a replicated leaf's, so the slice is the same bits."""
+        return [p[cut] for p in self._grad_parts(acc, j, shards, rows)]
 
     def _pieces(self, batch: dict, run: list, grad_accum: int):
         """(the distinct batch rows' first rows, their count, each
@@ -554,15 +770,19 @@ class Program:
         microbatch, so the per-microbatch denominators (an all-reduce) make
         every chunk's share exact.  A microbatch's pieces run in token
         order; each runs its own backward, unless the rows are coupled
-        (MoE), where all of them run forward first and one backward takes
-        the microbatch's loss, its aux formed from every piece's sums.
-        ``rows``: run only these rows (the dry run's one batch shard); the
-        reductions over the others are then recorded, not run."""
+        (MoE), where all of them run forward in lockstep and one backward
+        takes the microbatch's loss, its aux formed from every piece's
+        sums.  A leaf gathered from the rows (fsdp) gives each device the
+        whole gradient of its uses; the program sums them as a replicated
+        leaf's and keeps each device's slice.  ``rows``: run only these
+        rows (the dry run's one batch shard); the reductions over the
+        others are then recorded, not run."""
         from repro_torch.training.train import TrainState
 
         cfg, m, m_run = self.cfg, self.m, self.m_run
         splits, spread = self.splits(), self.spread()
-        coverage(cfg, self.mesh, self.rules, kind="train")
+        names = [n for n, _ in named_leaves(self.param_placements)]
+        gathered = [(j, n) for j, n in enumerate(names) if n in self.gathered]
 
         def step(state, batch, rows=None):
             params, opt_state = state
@@ -580,6 +800,10 @@ class Program:
                     float(c * batch["targets"].shape[1]))
             record_collective("all-reduce", 4 * grad_accum, n_keys, m)
             den = torch.clamp(den, min=1.0)
+            # every row's pieces, for the dry run's stand-in owners
+            every = (self._pieces(batch, list(range(self.n_rows)),
+                                  grad_accum)[3]
+                     if self.coupled and self.represent else [])
 
             def backward(group):
                 """The pieces of one microbatch forward, then one backward:
@@ -587,6 +811,7 @@ class Program:
                 share)."""
                 mb = group[0][3]
                 views: dict = {}
+                whole: dict = {}
 
                 def view(i):
                     if i not in views:
@@ -595,26 +820,41 @@ class Program:
                             local_tree(params, i))
                     return views[i]
 
+                def sink(i, name, g):
+                    key = (i, name)
+                    whole[key] = g if key not in whole else whole[key] + g
+
                 chain = ExpertChain(cfg, bm * S) if self.coupled else None
-                parts = []
+                members = [(r, (start - mb * bm) * S, c * S)
+                           for r, _, c, p_mb, start in every if p_mb == mb]
+                rows_args, locals_ = [], []
                 with torch.enable_grad():
                     for r, i, c, _, start in group:
                         sl = slice(i * c, (i + 1) * c)
                         local = {k: self._row_input(v, r)[sl]
                                  for k, v in batch.items()}
                         tp = self.tps[r]
+                        if self.gathered:
+                            tp = dataclasses.replace(tp, gather=RowGather(
+                                self, params, r, sink))
                         if chain is not None:
                             tp = dataclasses.replace(
                                 tp, experts=self.row_experts(
-                                    r, view, (start - mb * bm) * S, chain))
-                        logits, aux = forward(
+                                    r, view, (start - mb * bm) * S, chain,
+                                    members))
+                        rows_args.append((
                             [view(r * m + s) for s in range(m_run)],
-                            local["inputs"], local["positions"], cfg,
-                            mode="train", tp=tp, split_vocab=True)
+                            local["inputs"], local["positions"], tp))
+                        locals_.append(local)
+                    outs = forward_rows(rows_args, cfg, mode="train",
+                                        split_vocab=True)
+                    parts = []
+                    for (logits, aux), local, args in zip(outs, locals_,
+                                                          rows_args):
                         part = self._nll(logits, local["targets"],
-                                         local.get("mask"), tp)
-                        del logits      # the backward keeps none of them
+                                         local.get("mask"), args[-1])
                         parts.append(part / den[mb].to(part.device))
+                    del outs, logits    # the backward keeps none of them
                     if chain is not None:
                         aux = chain.aux(dev0)
                     part = parts[0]
@@ -627,9 +867,19 @@ class Program:
                     grads = torch.autograd.grad(total, flat,
                                                 materialize_grads=True)
                 per = len(flat) // len(keys)
-                return ({k: list(grads[n * per:(n + 1) * per])
-                         for n, k in enumerate(keys)},
-                        part.detach(), aux.detach(), total.detach())
+                out = {k: list(grads[n * per:(n + 1) * per])
+                       for n, k in enumerate(keys)}
+                for k in keys:
+                    for j, name in gathered:
+                        g = whole.get((k, name))
+                        if g is None:           # a leaf this row never read
+                            own = out[k][j]
+                            shape = list(own.shape)
+                            shape[self.gathered[name].dim] *= len(
+                                self.gathered[name].peers[k][1])
+                            g = own.new_zeros(shape)
+                        out[k][j] = g
+                return out, part.detach(), aux.detach(), total.detach()
 
             acc: dict[int, list] = {}
             ce = torch.zeros(grad_accum, dtype=torch.float32, device=dev0)
@@ -653,56 +903,12 @@ class Program:
                     aux_mb[mb] = aux.to(dev0)
                     loss = loss + total.to(dev0)
             record_collective("all-reduce", 4, n_keys, m)
-
-            # every leaf's grad on every running device: summed over the
-            # distinct batch rows, then over the model shards that
-            # replicate it, in shard order; an expert leaf's over the rows
-            # holding the same slice only (its owners' grads hold every
-            # row's part already)
+            grads_d = self._reduce(acc, params, run, distinct, n_keys,
+                                   grad_accum)
+            # global norm: each region once (its first device's)
             pls = tree_leaves(self.param_placements)
             regions = self._regions(params)
-            ref = tree_leaves(local_tree(params, 0))
             devs = [r * m + s for r in run for s in range(m_run)]
-            grads_d: dict[int, list] = {i: [] for i in devs}
-            for j, pl in enumerate(pls):
-                rowsplit = _row_split(pl)
-                split = pl.splits(ref[j].dim()) and m > 1
-                if rowsplit:
-                    group = self._replicas(regions[j])
-                    record_collective("all-reduce", ref[j].numel() * 4,
-                                      max(1, n_keys // len(self.owners[0])),
-                                      m * len(self.owners[0]))
-                else:
-                    record_collective("all-reduce", ref[j].numel() * 4,
-                                      n_keys * (1 if split else m),
-                                      m if split else 1)
-                done: dict = {}
-                for i in devs:
-                    r, s = divmod(i, m)
-                    if rowsplit:
-                        reps = [q for q in group[r] if q * m + s in acc]
-                        key = (regions[j][i], tuple(reps))
-                        parts = lambda: self._grad_parts(acc, j, [s], reps)
-                    else:
-                        key = s if split else None
-                        parts = lambda: self._grad_parts(
-                            acc, j, [s] if split else range(m_run),
-                            distinct)
-                    if key not in done:
-                        ps = parts()
-                        total = ps[0]
-                        if len(ps) > 1:
-                            total = total.float()
-                            for t in ps[1:]:
-                                total = total + t.to(total.device).float()
-                            if grad_accum == 1:
-                                total = total.to(ref[j].dtype)
-                        done[key] = total
-                    dev = self.tps[r].devices[s]
-                    grads_d[i].append(done[key].to(dev, non_blocking=True))
-                for a in acc.values():          # each part, now summed
-                    a[j] = None
-            # global norm: each region once (its first device's)
             sums = []
             for j in range(len(pls)):
                 seen, t = set(), None
@@ -724,12 +930,12 @@ class Program:
             grads_d = {i: [clip(g) for g in gl]
                        for i, gl in grads_d.items()}
             # the update: in lockstep over each row's shards, or, where a
-            # leaf lies over the rows too (experts over 'data'), over each
-            # block of rows holding one copy of it
+            # leaf lies over the rows too (the experts, params under fsdp),
+            # over each block of rows holding one copy of the params
             blocks: dict = {}
             for r in run:
-                base = (self.owners[r][0] if spread and not self.represent
-                        else r)
+                base = r if self.represent else next(
+                    b[0] for b in self.blocks if r in b)
                 blocks.setdefault(base, []).append(r)
             step_t = None
             for block in blocks.values():
@@ -741,7 +947,7 @@ class Program:
                       for i, t in zip(idx, local)]
                 new = opt.update_shards(
                     leaves, states, gl, splits, m, rows=len(block),
-                    spread=spread, row_group=(len(self.owners[0])
+                    spread=spread, row_group=(self.row_group
                                               if spread and self.represent
                                               else None))
                 for i, st in zip(idx, new):
@@ -753,6 +959,82 @@ class Program:
             return TrainState(params, opt_state), metrics
 
         return step
+
+    def _reduce(self, acc: dict, params, run: list, distinct: list,
+                n_keys: int, grad_accum: int) -> dict:
+        """Every leaf's summed gradient on every running device, before
+        the clip: summed over the distinct batch rows, then over the model
+        shards that replicate it, in shard order; an expert leaf's over
+        the rows holding the same slice only (its owners' grads hold every
+        row's part already); a gathered leaf's as a replicated leaf's, each
+        device keeping its slice (a reduce-scatter)."""
+        m, m_run = self.m, self.m_run
+        names = [n for n, _ in named_leaves(self.param_placements)]
+        pls = tree_leaves(self.param_placements)
+        regions = self._regions(params)
+        ref = tree_leaves(local_tree(params, 0))
+        devs = [r * m + s for r in run for s in range(m_run)]
+        grads_d: dict[int, list] = {i: [] for i in devs}
+        for j, pl in enumerate(pls):
+            g = self.gathered.get(names[j])
+            expert = g is None and _row_split(pl)
+            split = m > 1 and any("model" in pl._dim_axes(k)
+                                  for k in range(len(pl.spec)))
+            nbytes = ref[j].numel() * 4
+            if expert:
+                group = self._replicas(regions[j])
+                record_collective("all-reduce", nbytes,
+                                  max(1, n_keys // len(self.owners[0])),
+                                  m * len(self.owners[0]))
+            elif g is not None:
+                peers = g.peers[0][1]
+                record_collective("reduce-scatter", nbytes, len(peers),
+                                  peers[1] - peers[0])
+                record_collective("all-reduce", nbytes,
+                                  max(1, n_keys // len(peers))
+                                  * (1 if split else m), m if split else 1)
+            else:
+                record_collective("all-reduce", nbytes,
+                                  n_keys * (1 if split else m),
+                                  m if split else 1)
+            done: dict = {}
+            for i in devs:
+                r, s = divmod(i, m)
+                shards = [s] if split else range(m_run)
+                if expert:
+                    reps = [q for q in group[r] if q * m + s in acc]
+                    key = (regions[j][i], tuple(reps))
+                    parts = lambda: self._grad_parts(acc, j, [s], reps)
+                elif g is not None:
+                    key = regions[j][i]
+                    n = ref[j].shape[g.dim]
+                    at = g.peers[i][0]
+                    cut = (slice(None),) * g.dim + (slice(at * n,
+                                                          (at + 1) * n),)
+                    parts = lambda: self._scatter_parts(acc, j, shards,
+                                                        distinct, cut)
+                else:
+                    key = s if split else None
+                    parts = lambda: self._grad_parts(acc, j, shards,
+                                                     distinct)
+                if key not in done:
+                    ps = parts()
+                    # one part: a gathered leaf's slice in a buffer of its
+                    # own (the whole gradient is freed)
+                    total = ps[0].clone() if g is not None and len(ps) == 1 \
+                        else ps[0]
+                    if len(ps) > 1:
+                        total = total.float()
+                        for t in ps[1:]:
+                            total = total + t.to(total.device).float()
+                        if grad_accum == 1:
+                            total = total.to(ref[j].dtype)
+                    done[key] = total
+                dev = self.tps[r].devices[s]
+                grads_d[i].append(done[key].to(dev, non_blocking=True))
+            for a in acc.values():          # each part, now summed
+                a[j] = None
+        return grads_d
 
     def _nll(self, logits, targets, mask, tp) -> torch.Tensor:
         """A piece's masked NLL sum: over the vocabulary's shards where the
@@ -778,6 +1060,13 @@ def _row_split(pl: Placement) -> bool:
     'model' (an expert leaf over 'data')."""
     return any(a != "model" and pl.mesh.shape[a] > 1
                for i in range(len(pl.spec)) for a in pl._dim_axes(i))
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether ``a`` lies in ``b``'s storage (an update of it is one of
+    ``b``'s)."""
+    return a.device == b.device and (
+        a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr())
 
 
 def _rebuild(like, leaves: list):

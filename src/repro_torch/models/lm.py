@@ -40,6 +40,8 @@ step that uses them.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 import torch.utils.checkpoint
@@ -54,7 +56,7 @@ from .config import LayerSpec, ModelConfig
 from .layers import (dtype_of, embed_axes, embed_init, embed_lookup, rmsnorm,
                      rmsnorm_axes, rmsnorm_init, softcap, unembed)
 from .mlp import mlp, mlp_axes, mlp_init
-from .moe import moe, moe_axes, moe_init
+from .moe import moe, moe_axes, moe_init, moe_rows
 from .slices import TensorParallel
 
 _PORTED_KINDS = {"attn_mlp", "attn_moe", "mamba", "shared_attn"}
@@ -366,14 +368,14 @@ def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 # ==================================================================== blocks
-def _embed_inputs(params, inputs, cfg: ModelConfig):
-    """(B, S, d) activations: token ids looked up (and scaled, where the
-    config says so), or a frontend's embeddings cast to the model's dtype,
-    with no lookup and no scale, as in the JAX package."""
+def _embed_inputs(embed, inputs, cfg: ModelConfig):
+    """(B, S, d) activations: token ids looked up in ``embed`` (the table's
+    dict; scaled, where the config says so), or a frontend's embeddings
+    cast to the model's dtype, with no lookup and no scale, as in the JAX
+    package."""
     if cfg.input_mode == "embeds":
         return inputs.to(dtype_of(cfg))
-    return embed_lookup(params["embed"], inputs, scale=cfg.embed_scale,
-                        d=cfg.d_model)
+    return embed_lookup(embed, inputs, scale=cfg.embed_scale, d=cfg.d_model)
 
 
 def _head(params, x, cfg: ModelConfig):
@@ -412,16 +414,12 @@ def _attn_half(p, x, positions, *, cfg: ModelConfig, spec: LayerSpec,
 
 
 def _mlp_half(p, x, *, cfg: ModelConfig, spec: LayerSpec,
-              partial: bool = False, experts=None):
+              partial: bool = False):
     """The MLP (or MoE) half: (y, the MoE aux loss or None).  ``partial``:
-    a tensor-parallel shard's f32 shares (``mlp``, ``moe``); ``experts``:
-    the MoE layer's experts lie over the mesh's rows (``moe.ExpertShard``;
-    its aux is then the chain's, and None here)."""
+    a tensor-parallel shard's f32 shares (``mlp``, ``moe``)."""
     h = rmsnorm(p["norm_mlp"], x)
     kw = {"partial": True} if partial else {}
     if spec.kind == "attn_moe":
-        if experts is not None:
-            kw["experts"] = experts
         return moe(p["moe"], h, cfg=cfg, **kw)
     return mlp(p["mlp"], h, **kw), None
 
@@ -454,21 +452,41 @@ def _as_slice(params, tp: TensorParallel | None):
     return [params], TensorParallel(devices=(dev,))
 
 
+def _use_at(shards: list, tp: TensorParallel, s: int, *path):
+    """Shard s's params at ``path`` (a layer's dict, zamba2's shared block,
+    a table), with the leaves that the rows split gathered whole at this
+    use (``tp.gather``: params over 'data'), or as they are."""
+    node = shards[s]
+    for k in path:
+        node = node[k]
+    if tp.gather is None:
+        return node
+    with on_shard(s):
+        return tp.gather(s, path, node)
+
+
+def _use(shards: list, tp: TensorParallel, *path) -> list:
+    return [_use_at(shards, tp, s, *path) for s in range(len(shards))]
+
+
 def _embed(params: list, inputs: dict, cfg: ModelConfig,
            tp: TensorParallel) -> dict:
     """The activations on every device.  A split table: each shard looks
     up the tokens in its rows and zeros elsewhere, and the lookups are
     summed in shard order (exact: one term is nonzero)."""
-    if tp.vocab is None or cfg.input_mode == "embeds":
-        return {d: _embed_inputs(params[s], inputs[d], cfg)
-                for d, s in tp.first.items()}
+    if cfg.input_mode == "embeds":
+        return {d: _embed_inputs(None, inputs[d], cfg) for d in tp.first}
+    if tp.vocab is None:
+        return {d: _embed_inputs(_use_at(params, tp, s, "embed"), inputs[d],
+                                 cfg) for d, s in tp.first.items()}
     looked = []
     for s, d in enumerate(tp.devices):
+        table = _use_at(params, tp, s, "embed")
         with on_shard(s):
             lo, hi = tp.vocab[s]
             local = inputs[d] - lo
             hit = (local >= 0) & (local < hi - lo)
-            x = embed_lookup(params[s]["embed"], torch.where(hit, local, 0),
+            x = embed_lookup(table, torch.where(hit, local, 0),
                              scale=cfg.embed_scale, d=cfg.d_model)
             looked.append(torch.where(hit[..., None], x, 0))
     out = {d: slices.sum_ordered(looked, d) for d in tp.first}
@@ -484,13 +502,15 @@ def _slice_head(params: list, rows: dict, cfg: ModelConfig,
     table: each shard's softcapped (..., V/m) logits on its own device, a
     list in shard order, and no gather."""
     d0 = tp.devices[0]
+    key = "embed" if cfg.tie_embeddings else "head"
     if tp.vocab is None:
-        return _head(params[0], rows[d0], cfg)
+        return _head({"final_norm": params[0]["final_norm"],
+                      key: _use_at(params, tp, 0, key)}, rows[d0], cfg)
     logits = []
     for s, d in enumerate(tp.devices):
+        table = _use_at(params, tp, s, key)
         with on_shard(s):
             h = rmsnorm(params[s]["final_norm"], rows[d])
-            table = params[s]["embed" if cfg.tie_embeddings else "head"]
             y = unembed(table, h)
             logits.append(softcap(y, cfg.final_logit_softcap) if split
                           else y.to(d0, non_blocking=True))
@@ -502,30 +522,40 @@ def _slice_head(params: list, rows: dict, cfg: ModelConfig,
     return out
 
 
-def _attn_layer(ps, xs, positions, caches, *, cfg, spec, tp, mode,
-                max_len, paged, li):
-    """Layer ``li``, an attn_mlp / attn_moe layer, over the slice: the
-    attention half on every shard, its partials reduced, the residual;
-    then the MLP half likewise (a MoE half reaching the experts' owner
-    rows where ``tp.experts``).  Returns (xs, the shards' new caches, the
-    MoE aux)."""
-    dt = dtype_of(cfg)
+def _attn_part(ps, xs, positions, caches, *, cfg, spec, tp, mode, max_len,
+               paged):
+    """The attention half of an attn_mlp / attn_moe layer over the slice:
+    on every shard, its partials reduced, then the residual.  Returns (xs,
+    the shards' new caches)."""
     outs = slices.per_shard(tp, lambda s, d: _attn_half(
         ps[s], xs[d], positions[d], cfg=cfg, spec=spec, mode=mode,
         cache=None if caches is None else caches[s], max_len=max_len,
         kv_heads=tp.kv_heads[s], partial=tp.heads, seq=tp.seq,
         **(paged[s] if paged else {})))
-    y = slices.combine([o[0] for o in outs], tp, tp.heads, dt)
-    xs = {d: _residual(ps[s], "post_norm_attn", xs[d], y[d], cfg)
-          for d, s in tp.first.items()}
-    ep = tp.experts if spec.kind == "attn_moe" else None
-    outs2 = slices.per_shard(tp, lambda s, d: _mlp_half(
-        ps[s], xs[d], cfg=cfg, spec=spec, partial=tp.ffn,
-        experts=None if ep is None else ep.at(li, s)))
-    y = slices.combine([o[0] for o in outs2], tp, tp.ffn, dt)
-    xs = {d: _residual(ps[s], "post_norm_mlp", xs[d], y[d], cfg)
-          for d, s in tp.first.items()}
-    return xs, [o[1] for o in outs], outs2[0][1]
+    y = slices.combine([o[0] for o in outs], tp, tp.heads, dtype_of(cfg))
+    return ({d: _residual(ps[s], "post_norm_attn", xs[d], y[d], cfg)
+             for d, s in tp.first.items()}, [o[1] for o in outs])
+
+
+def _mlp_residual(ps, xs, ys: list, tp, cfg) -> dict:
+    """The MLP halves' outputs (each shard's) reduced, then the
+    residual."""
+    y = slices.combine(ys, tp, tp.ffn, dtype_of(cfg))
+    return {d: _residual(ps[s], "post_norm_mlp", xs[d], y[d], cfg)
+            for d, s in tp.first.items()}
+
+
+def _attn_layer(ps, xs, positions, caches, *, cfg, spec, tp, mode,
+                max_len, paged):
+    """An attn_mlp / attn_moe layer over the slice: the attention half on
+    every shard, its partials reduced, the residual; then the MLP half
+    likewise.  Returns (xs, the shards' new caches, the MoE aux)."""
+    xs, new = _attn_part(ps, xs, positions, caches, cfg=cfg, spec=spec,
+                         tp=tp, mode=mode, max_len=max_len, paged=paged)
+    outs = slices.per_shard(tp, lambda s, d: _mlp_half(
+        ps[s], xs[d], cfg=cfg, spec=spec, partial=tp.ffn))
+    return (_mlp_residual(ps, xs, [o[0] for o in outs], tp, cfg), new,
+            outs[0][1])
 
 
 def _shared_layer(shared, xs, embeds0, positions, caches, *, cfg, spec, tp,
@@ -564,20 +594,107 @@ def _layer(shards, li, spec, xs, positions, *, cfg, tp, mode,
     """Layer ``li`` over the slice: (xs, the shards' new caches (each None
     where the mode builds none), the MoE aux or None).  ``caches``: each
     shard's cache of this layer (decode; a mamba layer's prefill state)."""
-    ps = [sh["layers"][li] for sh in shards]
-    if spec.kind == "mamba":
-        xs, new = _mamba_layer(ps, xs, caches, cfg=cfg, tp=tp)
-        return xs, new, None
     if spec.kind == "shared_attn":
-        xs, new = _shared_layer([sh["shared_attn"] for sh in shards], xs,
+        xs, new = _shared_layer(_use(shards, tp, "shared_attn"), xs,
                                 embeds0, positions, caches, cfg=cfg,
                                 spec=spec, tp=tp, mode=mode, max_len=max_len)
         return xs, new, None
+    ps = _use(shards, tp, "layers", li)
+    if spec.kind == "mamba":
+        xs, new = _mamba_layer(ps, xs, caches, cfg=cfg, tp=tp)
+        return xs, new, None
     return _attn_layer(ps, xs, positions, caches, cfg=cfg, spec=spec, tp=tp,
-                       mode=mode, max_len=max_len, paged=paged, li=li)
+                       mode=mode, max_len=max_len, paged=paged)
+
+
+# =================================================== slices in lockstep
+class _Run(NamedTuple):
+    """One slice of a run over several: its shards' param trees and its
+    ``TensorParallel``."""
+    shards: list
+    tp: TensorParallel
+
+
+def _layer_rows(runs: list, li, spec, xs: list, positions: list, *, cfg,
+                mode, caches=None, embeds0=None, max_len=None):
+    """Layer ``li`` over every slice of ``runs``, each as ``_layer``:
+    (each slice's xs, new caches and aux).  Where the MoE layer's experts
+    lie over the mesh's rows (``tp.experts``), every slice's attention
+    half runs first, then the MoE halves in lockstep
+    (``moe.moe_rows``: each owner runs the slots every slice sends it
+    once), then each slice's reduction and residual."""
+    n = len(runs)
+    caches = [None] * n if caches is None else caches
+    embeds0 = [None] * n if embeds0 is None else embeds0
+    if spec.kind != "attn_moe" or runs[0].tp.experts is None:
+        out = [_layer(r.shards, li, spec, x, p, cfg=cfg, tp=r.tp, mode=mode,
+                      caches=c, embeds0=e, max_len=max_len)
+               for r, x, p, c, e in zip(runs, xs, positions, caches,
+                                        embeds0)]
+        return [o[0] for o in out], [o[1] for o in out], [o[2] for o in out]
+    pss = [_use(r.shards, r.tp, "layers", li) for r in runs]
+    halves = [_attn_part(ps, x, p, c, cfg=cfg, spec=spec, tp=r.tp,
+                         mode=mode, max_len=max_len, paged=None)
+              for r, ps, x, p, c in zip(runs, pss, xs, positions, caches)]
+    calls = []
+    for r, ps, (x, _) in zip(runs, pss, halves):
+        for s, d in enumerate(r.tp.devices):
+            with on_shard(s):
+                calls.append((ps[s]["moe"], rmsnorm(ps[s]["norm_mlp"], x[d]),
+                              r.tp.experts.at(li, s)))
+    ys = iter(moe_rows(calls, cfg, partial=runs[0].tp.ffn))
+    out = [_mlp_residual(ps, x, [next(ys) for _ in r.tp.devices], r.tp, cfg)
+           for r, ps, (x, _) in zip(runs, pss, halves)]
+    return out, [h[1] for h in halves], [None] * n
+
+
+def _runs(rows: list, cfg: ModelConfig) -> tuple[list, list, list]:
+    """(the runs, each slice's activations and positions on its devices)
+    of ``rows`` (params, inputs, positions, tp)."""
+    runs = [_Run(*_as_slice(r[0], r[-1])) for r in rows]
+    xs = [_embed(run.shards, slices.on_devices(r[-3], run.tp), cfg, run.tp)
+          for run, r in zip(runs, rows)]
+    pos = [slices.on_devices(r[-2], run.tp) for run, r in zip(runs, rows)]
+    return runs, xs, pos
 
 
 # ============================================================ entry points
+def forward_rows(rows: list, cfg: ModelConfig, *, mode: str = "score",
+                 split_vocab: bool = False) -> list:
+    """``forward`` of several slices in lockstep, layer by layer (the rows
+    of a mesh whose rows hold the experts: a MoE group may span them):
+    ``rows`` a list of (params, inputs, positions, tp); returns each one's
+    (logits, aux)."""
+    _check_ported(cfg)
+    if mode not in ("score", "train"):
+        raise ValueError(f"mode must be 'score' or 'train', got {mode!r}")
+    if split_vocab and mode != "train":
+        raise ValueError("split_vocab is a train-mode option")
+    runs, xs, pos = _runs(rows, cfg)
+    aux = [torch.zeros((), dtype=torch.float32, device=r.tp.devices[0])
+           for r in runs]
+    remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
+
+    def run_copy(li, pattern, xs, aux, embeds0):
+        for i, spec in enumerate(pattern):
+            xs, _, layer_aux = _layer_rows(runs, li + i, spec, xs, pos,
+                                           cfg=cfg, mode="score",
+                                           embeds0=embeds0)
+            aux = [a if la is None else a + la
+                   for a, la in zip(aux, layer_aux)]
+        return xs, aux
+
+    embeds0 = xs
+    for li, pattern in _copies(cfg):
+        if remat:
+            xs, aux = torch.utils.checkpoint.checkpoint(
+                run_copy, li, pattern, xs, aux, embeds0, use_reentrant=False)
+        else:
+            xs, aux = run_copy(li, pattern, xs, aux, embeds0)
+    return [(_slice_head(r.shards, x, cfg, r.tp, split=split_vocab), a)
+            for r, x, a in zip(runs, xs, aux)]
+
+
 def forward(params, inputs, positions, cfg: ModelConfig, *,
             mode: str = "score", tp: TensorParallel | None = None,
             split_vocab: bool = False):
@@ -605,33 +722,33 @@ def forward(params, inputs, positions, cfg: ModelConfig, *,
     V/m) slice on its own device, a list in shard order, never gathered
     (``training.train.vocab_nll_sum`` takes them); elsewhere it changes
     nothing."""
+    return forward_rows([(params, inputs, positions, tp)], cfg, mode=mode,
+                        split_vocab=split_vocab)[0]
+
+
+def prefill_rows(rows: list, cfg: ModelConfig, *, max_len: int) -> list:
+    """``prefill`` of several slices in lockstep (see ``forward_rows``):
+    each one's (logits, caches: one list per shard)."""
     _check_ported(cfg)
-    if mode not in ("score", "train"):
-        raise ValueError(f"mode must be 'score' or 'train', got {mode!r}")
-    if split_vocab and mode != "train":
-        raise ValueError("split_vocab is a train-mode option")
-    shards, tp = _as_slice(params, tp)
-    xs = _embed(shards, slices.on_devices(inputs, tp), cfg, tp)            # (B, S, d)
-    pos = slices.on_devices(positions, tp)
-    aux = torch.zeros((), dtype=torch.float32, device=tp.devices[0])
-    remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
-
-    def run_copy(li, pattern, xs, aux, embeds0):
-        for i, spec in enumerate(pattern):
-            xs, _, layer_aux = _layer(shards, li + i, spec, xs, pos, cfg=cfg,
-                                      tp=tp, mode="score", embeds0=embeds0)
-            if layer_aux is not None:
-                aux = aux + layer_aux
-        return xs, aux
-
+    runs, xs, pos = _runs(rows, cfg)
     embeds0 = xs
-    for li, pattern in _copies(cfg):
-        if remat:
-            xs, aux = torch.utils.checkpoint.checkpoint(
-                run_copy, li, pattern, xs, aux, embeds0, use_reentrant=False)
-        else:
-            xs, aux = run_copy(li, pattern, xs, aux, embeds0)
-    return _slice_head(shards, xs, cfg, tp, split=split_vocab), aux
+    caches = [[[] for _ in r.tp.devices] for r in runs]
+    for li, spec in enumerate(layer_specs(cfg)):
+        start = None
+        if spec.kind == "mamba":
+            start = [slices.per_shard(r.tp, lambda s, d, r=r, b=row[-3].shape[
+                0]: mamba_mod.mamba_cache_init(cfg, b, device=d, tp=r.tp,
+                                               shard=s))
+                     for r, row in zip(runs, rows)]
+        xs, new, _ = _layer_rows(runs, li, spec, xs, pos, cfg=cfg,
+                                 mode="prefill", caches=start,
+                                 embeds0=embeds0, max_len=max_len)
+        for mine, got in zip(caches, new):
+            for shard, c in zip(mine, got):
+                shard.append(c)
+    return [(_slice_head(r.shards, {d: x[:, -1:, :] for d, x in xs_.items()},
+                         cfg, r.tp)[:, 0, :], c)
+            for r, xs_, c in zip(runs, xs, caches)]
 
 
 def prefill(params, inputs, positions, cfg: ModelConfig, *, max_len: int,
@@ -644,26 +761,34 @@ def prefill(params, inputs, positions, cfg: ModelConfig, *, max_len: int,
     ``tp``: as in ``forward``; the caches are then one list per shard of
     its local caches (a kv-head split or replicated cache, a Mamba-2
     layer's local conv channels and SSM heads)."""
-    _check_ported(cfg)
-    sharded = tp is not None
-    shards, tp = _as_slice(params, tp)
-    xs = _embed(shards, slices.on_devices(inputs, tp), cfg, tp)
-    pos = slices.on_devices(positions, tp)
+    logits, caches = prefill_rows([(params, inputs, positions, tp)], cfg,
+                                  max_len=max_len)[0]
+    return logits, (caches if tp is not None else caches[0])
+
+
+def decode_rows(rows: list, cfg: ModelConfig) -> list:
+    """``decode_step`` of several slices in lockstep (see
+    ``forward_rows``): ``rows`` a list of (params, caches: one list per
+    shard, inputs, positions, tp), each slice's caches updated in place;
+    returns each one's logits."""
+    tokens = cfg.input_mode == "tokens"
+    rows = [(p, c, i[:, None] if tokens and i.dim() == 1 else i, q, tp)
+            for p, c, i, q, tp in rows]
+    runs, xs, pos = _runs([(r[0],) + r[2:] for r in rows], cfg)
+    local = [r[1] if r[-1] is not None else [r[1]] for r in rows]
     embeds0 = xs
-    caches: list[list] = [[] for _ in tp.devices]
     for li, spec in enumerate(layer_specs(cfg)):
-        start = None
+        layers = [[c[li] for c in mine] for mine in local]
+        xs, new, _ = _layer_rows(runs, li, spec, xs, pos, cfg=cfg,
+                                 mode="decode", caches=layers,
+                                 embeds0=embeds0)
         if spec.kind == "mamba":
-            start = slices.per_shard(tp, lambda s, d: mamba_mod.mamba_cache_init(
-                cfg, inputs.shape[0], device=d, tp=tp, shard=s))
-        xs, new, _ = _layer(shards, li, spec, xs, pos, cfg=cfg, tp=tp,
-                            mode="prefill", caches=start, embeds0=embeds0,
-                            max_len=max_len)
-        for s, c in enumerate(new):
-            caches[s].append(c)
-    logits = _slice_head(shards, {d: x[:, -1:, :] for d, x in xs.items()},
-                         cfg, tp)[:, 0, :]
-    return logits, (caches if sharded else caches[0])
+            for layer, got in zip(layers, new):
+                for cache, nc in zip(layer, got):
+                    for k, leaf in nc.items():
+                        cache[k].copy_(leaf)
+    return [_slice_head(r.shards, x, cfg, r.tp)[:, 0, :]
+            for r, x in zip(runs, xs)]
 
 
 def decode_step(params, caches, inputs, positions, cfg: ModelConfig, *,
@@ -674,22 +799,8 @@ def decode_step(params, caches, inputs, positions, cfg: ModelConfig, *,
     ``init_decode_caches``) is updated in place, where the JAX package
     returns new trees.  ``tp``: as in ``prefill`` (``caches`` one list per
     shard)."""
-    if cfg.input_mode == "tokens" and inputs.dim() == 1:
-        inputs = inputs[:, None]
-    shards, tp2 = _as_slice(params, tp)
-    local = caches if tp is not None else [caches]
-    xs = _embed(shards, slices.on_devices(inputs, tp2), cfg, tp2)
-    pos = slices.on_devices(positions, tp2)
-    embeds0 = xs
-    for li, spec in enumerate(layer_specs(cfg)):
-        layer = [c[li] for c in local]
-        xs, new, _ = _layer(shards, li, spec, xs, pos, cfg=cfg, tp=tp2,
-                            mode="decode", caches=layer, embeds0=embeds0)
-        if spec.kind == "mamba":
-            for cache, nc in zip(layer, new):
-                for k, leaf in nc.items():
-                    cache[k].copy_(leaf)
-    return _slice_head(shards, xs, cfg, tp2)[:, 0, :], caches
+    return decode_rows([(params, caches, inputs, positions, tp)],
+                       cfg)[0], caches
 
 
 # ============================================================ paged steps

@@ -36,7 +36,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.sharded import record_collective
+from repro_torch.core.sharded import on_shard, record_collective
 
 from .config import ModelConfig
 from .layers import dense_init, dtype_of
@@ -197,23 +197,25 @@ def _expert_ffn(params, xe: torch.Tensor) -> torch.Tensor:
     return torch.bmm(F.silu(g) * u, params["w_down"])
 
 
-def _routed(params, x_flat: torch.Tensor, cfg: ModelConfig, *,
-            partial: bool = False, experts=None):
-    """The routed experts' output for x_flat (N, d), and the dispatch
-    plan; ``partial``: the combine's f32 sum, before its rounding.
-    ``experts``: x_flat is one row's tokens and the experts lie over the
-    mesh's rows (``ExpertShard``): its span places the entries, and its
-    owners compute each slice of the buffer."""
-    N, d = x_flat.shape
-    E, k = cfg.n_experts, cfg.top_k
-    plan = dispatch_plan(params, x_flat, cfg,
-                         span=None if experts is None else experts.span())
+def _dispatch(params, x_flat: torch.Tensor, cfg: ModelConfig,
+              span: Span | None = None):
+    """(the dispatch plan of x_flat (N, d), the (E, groups·C, d) buffer
+    of its entries)."""
+    d, E, k = x_flat.shape[1], cfg.n_experts, cfg.top_k
+    plan = dispatch_plan(params, x_flat, cfg, span=span)
     n, rows = plan.row.shape[0], E * plan.groups * plan.capacity
     buf = x_flat.new_zeros((rows + 1, d))          # + the dropped entries' row
     buf.index_put_((plan.row,), x_flat[:n, None, :].expand(n, k, d))
-    xe = buf[:rows].view(E, -1, d)
-    ye = (_expert_ffn(params, xe) if experts is None
-          else experts.ffn(xe)).view(rows, d)
+    return plan, buf[:rows].view(E, -1, d)
+
+
+def _combine(plan: Dispatch, ye: torch.Tensor, x_flat: torch.Tensor,
+             partial: bool) -> torch.Tensor:
+    """The routed output (N, d) from the experts' outputs ``ye`` (E·
+    groups·C, d); ``partial``: the combine's f32 sum, before its
+    rounding."""
+    N, d = x_flat.shape
+    n = plan.row.shape[0]
     # the reference contracts the k entries with combine weights cast to the
     # activation dtype, accumulating in f32 and rounding once
     w = plan.weights.to(x_flat.dtype).float()
@@ -223,17 +225,35 @@ def _routed(params, x_flat: torch.Tensor, cfg: ModelConfig, *,
         y = y.to(x_flat.dtype)
     if n < N:                                      # the ragged tail (F10)
         y = torch.cat([y, y.new_zeros((N - n, d))])
-    return y, plan
+    return y
+
+
+def _routed(params, x_flat: torch.Tensor, cfg: ModelConfig, *,
+            partial: bool = False):
+    """The routed experts' output for x_flat (N, d), and the dispatch
+    plan; ``partial``: the combine's f32 sum, before its rounding."""
+    plan, xe = _dispatch(params, x_flat, cfg)
+    ye = _expert_ffn(params, xe).view(-1, x_flat.shape[1])
+    return _combine(plan, ye, x_flat, partial), plan
+
+
+def group_span(offset: int, n: int, total: int,
+               cfg: ModelConfig) -> tuple[int, int]:
+    """[g0, g1): the dispatch groups that n tokens starting at ``offset``
+    of a batch of ``total`` touch (``dispatch_plan``'s)."""
+    G, T = groups(total, cfg)
+    n = max(0, min(n, G * T - offset))
+    return offset // T, -(-(offset + n) // T)
 
 
 # ========================================================= experts over rows
 class ExpertChain:
     """What the rows of one batch share when their MoE layers' experts lie
-    over the mesh's rows ('data', Stage 5) and the rows run in turn, in
-    token order: for each MoE layer, the entries each (group, expert) has
-    taken so far (``carry``), and the routed tokens' first-choice counts
-    and probability sums, added up in row order, from which ``aux`` forms
-    the batch's Switch loss (it is not a sum of per-row losses)."""
+    over the mesh's rows ('data', Stage 5): for each MoE layer, the entries
+    each (group, expert) has taken so far in token order (``carry``), and
+    the routed tokens' first-choice counts and probability sums, added up
+    in row order, from which ``aux`` forms the batch's Switch loss (it is
+    not a sum of per-row losses)."""
 
     def __init__(self, cfg: ModelConfig, total: int):
         self.cfg, self.total = cfg, total
@@ -252,20 +272,32 @@ class ExpertChain:
         return out
 
 
+class Owner(NamedTuple):
+    """A model shard of the row that holds one slice of the experts: its
+    position in mesh order, and the (device, local param tree) that runs
+    it (in the dry run the running row's own, standing in)."""
+    index: int
+    device: torch.device
+    tree: dict
+
+
 class RowExperts:
     """One row's view of experts that lie over the mesh's rows: where its
     tokens start among the batch's (``offset``), the chain it shares with
     the other rows, and ``owners``: for each slice of the experts, in
-    expert order, (device, local param tree) of each model shard of the
-    row that holds it (in the dry run the row's own shards stand in for
-    every owner: on meta they have the owners' shapes).  A layer's carry
-    is read once and its counts added to the chain once, so the recompute
-    of a rematerialised layer places its entries as the first run did."""
+    expert order, the ``Owner`` of each model shard of the row that holds
+    it.  ``stand_in``: (the row's first mesh position, (g0, g1)) where the
+    dry run runs this row alone: the owner of the row's own slice then
+    runs the groups [g0, g1) that every row sending to it touches, and the
+    other slices are other devices' work.  A layer's carry is read once
+    and its counts added to the chain once, so the recompute of a
+    rematerialised layer places its entries as the first run did."""
 
     def __init__(self, chain: ExpertChain, offset: int, owners: list,
-                 stride: int):
+                 stride: int, stand_in: tuple | None = None):
         self.chain, self.offset, self.owners = chain, offset, owners
         self.stride = stride              # mesh positions between owners
+        self.stand_in = stand_in
         self._carry: dict = {}
         self._done: set = set()
 
@@ -316,34 +348,126 @@ class ExpertShard(NamedTuple):
         return Span(self.row.offset, self.row.chain.total,
                     self.row.carry_in(self.li))
 
-    def ffn(self, xe: torch.Tensor) -> torch.Tensor:
-        """xe (E, M, d), the row's buffer on this shard's device → the
-        experts' outputs: each owner's slice of the buffer goes to the
-        owner's device (an all-to-all over the owners), runs through its
-        shard of the owner's experts there, and comes back."""
-        owners = self.row.owners
-        e = xe.shape[0] // len(owners)
-        outs = []
-        for o, shards in enumerate(owners):
-            dev, tree = shards[self.shard]
-            piece = xe[o * e:(o + 1) * e].to(dev, non_blocking=True)
-            y = _expert_ffn(tree["layers"][self.li]["moe"], piece)
-            outs.append(y.to(xe.device, non_blocking=True))
-        ye = torch.cat(outs)
-        if self.shard == 0:
+
+def _filled(plan: Dispatch, E: int, device) -> torch.Tensor:
+    """(E, groups, C) bool: the buffer slots an entry of ``plan`` holds."""
+    n = E * plan.groups * plan.capacity
+    hit = torch.zeros(n + 1, dtype=torch.bool, device=device)
+    hit[plan.row] = True
+    return hit[:n].view(E, plan.groups, plan.capacity)
+
+
+def _owner_ffn(calls: list, plans: list) -> list:
+    """Each call's expert outputs (E, groups·C, d) from its buffer: every
+    owner device runs once over the slots that the calls of one chain
+    send it (an all-to-all).  The calls of a chain hold disjoint slots of
+    a group (each places its entries after those the calls before gave
+    the expert), so the owner merges their slices of the buffer into one
+    (E/rows, groups, C) buffer over the union of the groups they touch,
+    runs one batched product over it, and sends each call the rows of its
+    own groups back."""
+    cfg = calls[0][2].row.chain.cfg
+    E = cfg.n_experts
+    jobs: dict = {}
+    for k, (_, _, ex) in enumerate(calls):
+        for o, shards in enumerate(ex.row.owners):
+            jobs.setdefault((shards[ex.shard].index, id(ex.row.chain)),
+                            []).append((k, o))
+    outs = [[None] * len(ex.row.owners) for _, _, ex in calls]
+    for (index, _), sends in jobs.items():
+        k0, o = sends[0]
+        ex0 = calls[k0][2]
+        e = E // len(ex0.row.owners)
+        owner = ex0.row.owners[o][ex0.shard]
+        stand_in = ex0.row.stand_in
+        if stand_in is not None and index != stand_in[0] + ex0.shard:
+            # another owner's work, which the dry run does not run
+            for k, o in sends:
+                xe = plans[k][1]
+                outs[k][o] = xe.new_empty((e,) + tuple(xe.shape[1:]))
+            continue
+        spans = [(plans[k][0].group0, plans[k][0].group0 + plans[k][0].groups)
+                 for k, _ in sends] + ([stand_in[1]] if stand_in else [])
+        lo, hi = min(a for a, _ in spans), max(b for _, b in spans)
+        C, d = plans[k0][0].capacity, plans[k0][1].shape[-1]
+        with on_shard(ex0.shard):
+            merged = plans[k0][1].new_zeros((e, hi - lo, C, d),
+                                            device=owner.device)
+            for k, o in sends:
+                plan, xe = plans[k]
+                g = slice(plan.group0 - lo, plan.group0 - lo + plan.groups)
+                piece = xe[o * e:(o + 1) * e].view(e, plan.groups, C, d)
+                mask = _filled(plan, E, xe.device)[o * e:(o + 1) * e]
+                merged[:, g] = torch.where(
+                    mask.to(owner.device, non_blocking=True)[..., None],
+                    piece.to(owner.device, non_blocking=True), merged[:, g])
+            y = _expert_ffn(owner.tree["layers"][ex0.li]["moe"],
+                            merged.view(e, -1, d)).view(e, hi - lo, C, d)
+            for k, o in sends:
+                plan, xe = plans[k]
+                g = slice(plan.group0 - lo, plan.group0 - lo + plan.groups)
+                outs[k][o] = y[:, g].reshape(e, -1, d).to(
+                    xe.device, non_blocking=True)
+    yes = []
+    for (_, _, ex), (_, xe), parts in zip(calls, plans, outs):
+        ye = torch.cat(parts)
+        if ex.shard == 0:
+            n_owners = len(ex.row.owners)
             for t in (xe, ye):
                 nbytes = t.numel() * t.element_size()
-                record_collective("all-to-all", nbytes, len(owners),
-                                  self.row.stride)
+                record_collective("all-to-all", nbytes, n_owners,
+                                  ex.row.stride)
                 if t.requires_grad:
-                    t.register_hook(lambda g, n=nbytes: record_collective(
-                        "all-to-all", n, len(owners), self.row.stride))
-        return ye
+                    t.register_hook(lambda g, n=nbytes, o=n_owners, st=ex.row
+                                    .stride: record_collective(
+                                        "all-to-all", n, o, st))
+        yes.append(ye)
+    return yes
+
+
+def moe_rows(calls: list, cfg: ModelConfig, *, partial: bool = False
+             ) -> list:
+    """``moe`` of each call (params, x, ``ExpertShard``), for MoE layers
+    whose experts lie over the mesh's rows, the calls in the chains' token
+    order (row by row, each row's shards in order): each routes its own
+    tokens in the batch's groups and places each entry after the entries
+    the calls before gave its expert; the owners run every chain's slots
+    once (``_owner_ffn``); each call combines its outputs.  Returns each
+    call's y (or, ``partial``, its parts); the aux is the chain's."""
+    plans = []
+    for params, x, ex in calls:
+        with on_shard(ex.shard):
+            plan, xe = _dispatch(params, x.reshape(-1, x.shape[-1]), cfg,
+                                 span=ex.span())
+        ex.row.commit(ex.li, plan)
+        plans.append((plan, xe))
+    yes = _owner_ffn(calls, plans)
+    out = []
+    for (params, x, ex), (plan, _), ye in zip(calls, plans, yes):
+        with on_shard(ex.shard):
+            y = _combine(plan, ye.view(-1, x.shape[-1]),
+                         x.reshape(-1, x.shape[-1]), partial)
+            out.append(_shared(params, x, y.view(x.shape), cfg, partial))
+    return out
 
 
 # ===================================================================== apply
+def _shared(params: dict, x: torch.Tensor, y: torch.Tensor,
+            cfg: ModelConfig, partial: bool):
+    """The routed output y with the shared experts' MLP added after it
+    (``partial``: the list of the unrounded f32 shares)."""
+    if partial:
+        parts = [y]
+        if cfg.n_shared_experts:
+            parts.append(mlp(params["shared"], x, partial=True))
+        return parts
+    if cfg.n_shared_experts:
+        y = y + mlp(params["shared"], x)
+    return y
+
+
 def moe(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
-        partial: bool = False, experts: ExpertShard | None = None):
+        partial: bool = False):
     """x (B, T, d), or the paged step's packed row (T, d) with its pad lanes
     (the reference routes them too) → (y of x's shape, f32 aux loss).  The
     shared experts' MLP is added after the routed part.
@@ -351,20 +475,7 @@ def moe(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
     ``partial``: the params are one tensor-parallel shard's ffn columns;
     y is then the list of its unrounded f32 shares, routed and shared,
     each summed over the shards and rounded before the two are added.
-    ``experts``: x is one row's tokens and the routed experts lie over the
-    mesh's rows; the aux is then None (the chain forms the batch's)."""
+    Experts that lie over the mesh's rows run through ``moe_rows``."""
     y, plan = _routed(params, x.reshape(-1, x.shape[-1]), cfg,
-                      partial=partial, experts=experts)
-    aux = plan.aux
-    if experts is not None:
-        experts.row.commit(experts.li, plan)
-        aux = None
-    y = y.view(x.shape)
-    if partial:
-        parts = [y]
-        if cfg.n_shared_experts:
-            parts.append(mlp(params["shared"], x, partial=True))
-        return parts, aux
-    if cfg.n_shared_experts:
-        y = y + mlp(params["shared"], x)
-    return y, aux
+                      partial=partial)
+    return _shared(params, x, y.view(x.shape), cfg, partial), plan.aux

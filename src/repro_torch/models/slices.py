@@ -48,7 +48,10 @@ class TensorParallel:
     shard's): collectives are recorded over the whole group, and a gather
     tiles the pieces that ran to the whole's shape.  ``experts``: the MoE
     layers' experts lie over the mesh's rows (``moe.RowExperts``, this
-    row's view of them), or None."""
+    row's view of them), or None.  ``gather``: the params lie over the
+    mesh's rows too (over 'data'); ``gather(shard, path, subtree)`` is the
+    subtree at ``path`` of a shard's local params with those leaves
+    gathered whole, at each use (``launch.spmd.RowGather``), or None."""
     devices: tuple
     heads: bool = False
     ffn: bool = False
@@ -59,6 +62,7 @@ class TensorParallel:
     seq: tuple | None = None
     group: int | None = None
     experts: object = None
+    gather: object = None
 
     @property
     def size(self) -> int:

@@ -159,34 +159,51 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
 
     @torch.no_grad()
     def update_shards(leaves, states, grads, splits, group=None, rows=1,
-                      spread=frozenset(), row_group=None):
+                      spread=None, row_group=None):
         """The leaves of ``rows`` rows of shards (row-major, one slice of
         shards each) in lockstep: a statistic over a dim a row's shards
         split (``splits[name]``: the stacked leaf's split dim over 'model',
-        or None) is the mean over the whole dim; the update clip's RMS is
-        over the whole leaf, which for a leaf in ``spread`` (split over
-        the rows too: the experts over 'data') spans every row given.
-        ``group``: a row's shard count, and ``row_group``: the rows a copy
-        of a spread leaf spans, when only the first of them are given (the
-        dry run)."""
+        or None) is the mean over the whole dim, its shards' sums added in
+        shard order; over a dim the rows split (``spread[name]``, for a
+        leaf split over the rows too: the experts over 'data', params under
+        fsdp) likewise over the rows, shard by shard.  The update clip's
+        RMS is over the whole leaf: over every shard and row that hold a
+        piece of it.  ``group``: a row's shard count, and ``row_group``:
+        the rows a copy of a spread leaf spans, when only the first of them
+        are given (the dry run)."""
         step = states[0].step + 1
         stepf = step.float()
         lr_t = lr * torch.clamp(stepf / max(1, warmup_steps), max=1.0)
         rho = 1.0 - stepf ** (-decay)
         per = len(leaves) // rows
         n = group or per
+        nr = row_group or rows
+        spread = spread or {}
         by_row = lambda ts, fn: [y for q in range(rows)
                                  for y in fn(ts[q * per:(q + 1) * per])]
+
+        def by_col(ts, fn):
+            out = [None] * len(ts)
+            for s in range(per):
+                for q, y in zip(range(rows), fn(ts[s::per])):
+                    out[q * per + s] = y
+            return out
+
         for name in leaves[0]:
             split = splits.get(name)
+            rsplit = spread.get(name)
             ps = [_stacked(lv[name]) for lv in leaves]
             gs = [_stacked(g[name]).float() for g in grads]
             nus = [st.nu[name] for st in states]
             nd = gs[0].dim()
             g2 = [g * g + eps for g in gs]
+
+            def means(ts, dim, on):
+                if rsplit == on:
+                    return by_col(ts, lambda t: _mean(t, dim, True, nr))
+                return by_row(ts, lambda t: _mean(t, dim, split == on, n))
+
             if "row" in nus[0]:
-                means = lambda ts, dim, on: by_row(
-                    ts, lambda t: _mean(t, dim, split == on, n))
                 r_stat = means(g2, -1, nd - 1)
                 c_stat = means(g2, -2, nd - 2)
                 for nu, r, c in zip(nus, r_stat, c_stat):
@@ -204,8 +221,10 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
                   for g, v in zip(gs, vhats)]
             # update clipping (RMS <= 1) over the whole leaf
             sqs = [(u * u).reshape(-1) for u in us]
-            if name in spread:
-                sq = _mean(sqs, 0, True, n * (row_group or rows))
+            if rsplit is not None and split is not None and n > 1:
+                sq = _mean(sqs, 0, True, n * nr)
+            elif rsplit is not None:
+                sq = by_col(sqs, lambda t: _mean(t, 0, True, nr))
             else:
                 sq = by_row(sqs, lambda t: _mean(
                     t, 0, split is not None and n > 1, n))

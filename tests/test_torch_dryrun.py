@@ -37,6 +37,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.launch.mesh import logical_devices, make_production_mesh
 from repro_torch.launch.mesh import _make_mesh
+from repro_torch.tree import named_leaves, tree_leaves
+import repro_torch.models as P
 
 torch.set_num_threads(1)
 
@@ -273,13 +275,13 @@ def test_kernel_meta_routes_count_what_the_bounds_count():
 
 def test_uncovered_cells_raise_naming_their_stage(tmp_path, monkeypatch):
     """A cell that needs a stage the port has not reached raises, naming
-    it; through the CLI it exits 3 and says so.  No registered cell does
-    now, and a ``_rules`` override that splits a prefill's caches over the
-    sequence runs (Stage 4's prefill, the caches cut out of the rows'
-    and sent to their owners: an all-to-all); a decode over caches split
-    over both the batch and the sequence (the same override at
-    decode_32k's batch 128) still asks for Stage 4.  The prefill runs at
-    SMOKE width (window 16, see the module note)."""
+    it; through the CLI it exits 3 and says so.  No registered cell does,
+    and a ``_rules`` override that splits a prefill's caches over the
+    sequence runs (Stage 4's prefill, the caches cut out of the rows' and
+    sent to their owners: an all-to-all); what is left is Stage 3's
+    divisibility: mamba2-1.3b with 512-wide SSM heads has 8 of them, which
+    model 16 does not divide.  The prefill runs at SMOKE width (window 16,
+    see the module note)."""
     seq = {"_rules": {"cache_seq": "data"}}
     with monkeypatch.context() as mp:
         mp.setattr(D, "get_config",
@@ -290,14 +292,80 @@ def test_uncovered_cells_raise_naming_their_stage(tmp_path, monkeypatch):
     assert res["collective_bytes"]["all-to-all"] > 0
     assert res["fits"]
     r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
-                        "--arch", "deepseek-moe-16b", "--shape",
-                        "decode_32k", "--out", str(tmp_path), "--override",
-                        "_rules=" + json.dumps(seq["_rules"])],
+                        "--arch", "mamba2-1.3b", "--shape", "decode_32k",
+                        "--out", str(tmp_path), "--override",
+                        "ssm_head_dim=512"],
                        capture_output=True, text=True, timeout=120,
                        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
     assert r.returncode == D.UNCOVERED_EXIT, r.stderr[-2000:]
-    assert "UNCOVERED" in r.stdout and "Stage 4" in r.stdout
+    assert "UNCOVERED" in r.stdout and "Stage 3" in r.stdout
     assert not list(tmp_path.glob("*.json"))
+
+
+def _placed_bytes(prog, cfg, shape) -> list[int]:
+    """Each device's bytes of the cell's arguments as the program places
+    them (params, and the optimizer state or the caches, and the batch),
+    counted from the placements alone."""
+    from repro_torch.core.sharded import ShardedTensor
+    from repro_torch.models import init_decode_caches, init_params
+    from repro_torch.training.optimizer import get_optimizer
+    from repro_torch.tree import named_leaves, tree_leaves
+
+    params = prog.place_params(init_params(cfg, device="meta"))
+    batch = prog.place_batch(D.input_specs(cfg.name, shape.name, cfg=cfg,
+                                           shape=shape))
+    if shape.kind == "train":
+        rest = prog.init_state(get_optimizer(cfg.optimizer), params)
+    else:
+        rest = (params, prog.place_caches(init_decode_caches(
+            cfg, shape.global_batch, shape.seq_len, device="meta")))
+    out = [0] * prog.mesh.size
+    for leaf in tree_leaves((rest, batch)):
+        if isinstance(leaf, ShardedTensor):
+            for i, t in enumerate(leaf.shards):
+                out[i] += t.numel() * t.element_size()
+    return out
+
+
+@pytest.mark.parametrize("arch,shape,rules,multi_pod", [
+    ("h2o-danube-1.8b", "train_4k", {"embed": "data"}, False),
+    ("h2o-danube-1.8b", "decode_32k", {"cache_seq": "data"}, False),
+    ("h2o-danube-1.8b", "decode_32k", {"cache_seq": "data"}, True)])
+def test_the_last_layouts_of_the_rules_run_and_place_what_they_trace(
+        arch, shape, rules, multi_pod):
+    """The reference dry run's own ``_rules`` overrides run: params over
+    'data' (``embed``, the fsdp rules) in the train step, and decode
+    caches whose sequence lies over 'data' at decode_32k's batch, whose
+    batch the rules split too (over 'pod' on the multi-pod mesh, nowhere
+    on one pod).  Each device's argument bytes in the trace are the bytes
+    the program places for it; fsdp's are below the default cell's, its
+    temp above it by at most one layer's gathered weights.  SMOKE width;
+    the decode cells at window 16 (see the module note)."""
+    cfg = R.get_config(arch, smoke=True)
+    if shape == "decode_32k":
+        cfg = cfg.replace(window=16)
+    cell = R.SHAPES[shape]
+    with logical_devices(512 if multi_pod else 256, "meta"):
+        mesh = make_production_mesh(multi_pod=multi_pod)
+    base = D.make_rules(cfg, mesh, batch=cell.global_batch)
+    got = D.trace(cfg, mesh, cell, rules={**base, **rules})
+    assert got["args"] == _placed_bytes(got["prog"], cfg, cell)
+    assert D.HBM_BYTES > max(got["args"]) > 0
+    if "cache_seq" in rules:
+        assert got["prog"].seq_groups
+        assert len(got["prog"].seq_groups) == (2 if multi_pod else 1)
+        return
+    assert got["prog"].gathered
+    default = D.trace(cfg, mesh, cell)
+    assert max(got["args"]) < max(default["args"])
+    prog = got["prog"]
+    layer = sum(leaf.shards[0].numel() * leaf.shards[0].element_size()
+                * len(prog.gathered[f"layers/0/{n}"].peers[0][1])
+                for n, leaf in named_leaves(prog.place_params(P.init_params(
+                    cfg, device="meta"))["layers"][0])
+                if f"layers/0/{n}" in prog.gathered)
+    assert 0 < got["peak_bytes"] - default["peak_bytes"] <= layer
+    assert got["counter"].ledger.bytes["reduce-scatter"] > 0
 
 
 def test_the_cli_writes_a_full_width_cell(tmp_path):

@@ -32,6 +32,7 @@ from repro.training import optimizer as jopt
 from repro.training import train as jtrain
 import repro_torch.models as P
 from repro_torch.configs.registry import get_config
+from repro_torch.core.sharded import current_shard
 from repro_torch.launch.mesh import _make_mesh, logical_devices
 from repro_torch.launch.spmd import Program
 from repro_torch.training import (DataConfig, ShardedBatcher, clone_state,
@@ -180,12 +181,14 @@ def test_a_group_straddling_the_rows_and_the_tail():
             "cpu")
     finally:
         pmoe.RowExperts.carry_in = carry_in
-    # row 0 holds the first 800 tokens, which no earlier row's entries
-    # precede; row 1's tokens of the straddling group (533..1065) drop
-    # others, and attention carries the change to its later tokens
-    assert torch.equal(per_row[0], fwd1[0])
-    diff = float((per_row[1] - fwd1[1]).abs().max())
-    assert diff > 100 * TOL * float(fwd1.abs().max()), diff
+    # group 0 (tokens 0..532) is row 0's alone; in the straddling group
+    # (533..1065) each row's entries, counted from 0, take the same slots
+    # of the owner's one buffer, so both rows' tokens there get another
+    # token's output, and attention carries the change to later tokens
+    assert torch.equal(per_row[0, :533], fwd1[0, :533])
+    for r, tail in ((0, slice(533, 800)), (1, slice(0, 800))):
+        diff = float((per_row[r, tail] - fwd1[r, tail]).abs().max())
+        assert diff > 100 * TOL * float(fwd1.abs().max()), (r, diff)
 
 
 def test_scatter_dispatch_over_data():
@@ -280,3 +283,89 @@ def test_adafactor_clip_over_each_row_alone_differs():
     assert experts and max(worst[n] for n in experts) > 1e-3, worst
     rest = [n for n in worst if "/moe/w_" not in n]
     assert max(worst[n] for n in rest) < 1e-4, worst
+
+
+def _apart(calls, plans):
+    """The former design of ``moe._owner_ffn``: each row's slices of its
+    buffer run by their owners one row at a time (all E · C of a group's
+    slots a row)."""
+    out = []
+    for (_, _, ex), (_, xe) in zip(calls, plans):
+        e = xe.shape[0] // len(ex.row.owners)
+        ys = []
+        for o, shards in enumerate(ex.row.owners):
+            own = shards[ex.shard]
+            ys.append(pmoe._expert_ffn(own.tree["layers"][ex.li]["moe"],
+                                       xe[o * e:(o + 1) * e]))
+        out.append(torch.cat(ys))
+    return out
+
+
+def _places(plans, E):
+    """Each entry's (expert, group, place) of the plans (a layer's, in
+    token order), -1 for a dropped entry, and its fit."""
+    out = []
+    for p in plans:
+        G, C = p.groups, p.capacity
+        row = p.row.long()
+        kept = row < E * G * C
+        where = torch.stack([row // (G * C), (row // C) % G + p.group0,
+                             row % C], dim=-1)
+        out.append(torch.where(kept[..., None], where, -1))
+    return torch.cat(out), torch.cat([p.keep for p in plans])
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (2, 2)])
+def test_an_owner_runs_a_group_spanning_the_rows_once(shape, monkeypatch):
+    """F17: B 4 x S 12 is one group of 48 tokens over both rows.  Each
+    owner device runs it once a MoE layer, over its E/rows experts and the
+    group's C slots (the former design ran all E · C slots for each row);
+    routing choices and place counts equal the one-device program's; the
+    logits and aux are bit-equal to the former design's and within 2e-5
+    of one device's."""
+    cfg = get_config("deepseek-moe-16b", smoke=True)
+    one = P.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (4, 12)).astype(np.int32))
+    pos = torch.arange(12, dtype=torch.int32)[None].repeat(4, 1)
+    prog = Program(cfg, _mesh(shape), batch=4)
+    placed = prog.place_params(one)
+    b = prog.place_batch({"inputs": toks, "positions": pos})
+    rows = list(range(prog.n_rows))
+    n_moe = sum(s.kind == "attn_moe" for s in P.layer_specs(cfg))
+    slots: list = []
+    plans: list = []
+    ffn, plan = pmoe._expert_ffn, pmoe.dispatch_plan
+
+    def spy_ffn(params, xe):
+        slots.append(xe.shape[0] * xe.shape[1])
+        return ffn(params, xe)
+
+    def spy_plan(*a, **kw):
+        out = plan(*a, **kw)
+        if current_shard() in (None, 0):
+            plans.append(out)
+        return out
+
+    with monkeypatch.context() as mp:
+        mp.setattr(pmoe, "_expert_ffn", spy_ffn)
+        mp.setattr(pmoe, "dispatch_plan", spy_plan)
+        got = prog.forward(placed, b["inputs"], b["positions"], rows=rows)
+        mine, plans, ran = plans, [], list(slots)
+        want, _ = P.forward(one, toks, pos, cfg)
+    C = pmoe.capacity(48, cfg)
+    assert pmoe.groups(48, cfg) == (1, 48)
+    assert ran == [cfg.n_experts // 2 * C] * (n_moe * prog.mesh.size)
+    for li in range(n_moe):
+        layer = mine[li * 2:(li + 1) * 2]        # the rows, in token order
+        a, ka = _places(layer, cfg.n_experts)
+        w, kw = _places(plans[li:li + 1], cfg.n_experts)
+        assert torch.equal(a, w) and torch.equal(ka, kw), li
+    logits = torch.cat([got[r][0] for r in rows])
+    _close(logits, want, TOL)
+    with monkeypatch.context() as mp:
+        mp.setattr(pmoe, "_owner_ffn", _apart)
+        old = prog.forward(placed, b["inputs"], b["positions"], rows=rows)
+    for r in rows:
+        assert torch.equal(got[r][0], old[r][0])
+        assert torch.equal(got[r][1], old[r][1])

@@ -315,6 +315,71 @@ def test_batch_one_decode_over_a_sequence_split_cache(arch, shape):
         _close(a.float(), b.float(), TOL, err_msg=n)
 
 
+@pytest.mark.parametrize("mesh_shape,batch", [((2, 2), 1), ((2, 2), 2),
+                                              ((2, 2, 1), 4)])
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "gemma2-9b"])
+def test_decode_over_caches_split_over_the_batch_and_sequence(
+        arch, mesh_shape, batch):
+    """Stage 4 at any batch: with ``seq_shard_cache`` the caches' sequence
+    lies over 'data' and their batch over what is left of the batch axes
+    (on (2, 2) nothing: each device holds every batch row of its part; on
+    (2, 2, 1) 'pod'), while the inputs lie over 'data' (and 'pod').  The
+    prefill of distinct prompts builds the split caches (equal to
+    ``place_caches`` of the one-device prefill's); each batch region's
+    rows then decode in lockstep over the whole region's batch, each batch
+    row's parts merged by their log-sum-exps.  Four greedy steps equal
+    the one-device steps and the JAX package's jitted ``decode_step`` at
+    fp32: the same greedy stream."""
+    from repro_torch.launch.sharding import make_rules
+
+    jcfg, cfg = jget_config(arch, smoke=True), get_config(arch, smoke=True)
+    jp = jax.tree.map(np.asarray, J.init_params(jax.random.PRNGKey(0), jcfg))
+    params = P.params_from_numpy(jp, cfg, "cpu")
+    toks = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (batch, S)).astype(np.int32)
+    pos = np.tile(np.arange(S, dtype=np.int32), (batch, 1))
+    jl, jc = _jprefill(jp, jnp.asarray(toks), jnp.asarray(pos), cfg=jcfg,
+                       max_len=S + NEW)
+    want, caches = P.prefill(params, torch.from_numpy(toks),
+                             torch.from_numpy(pos), cfg, max_len=S + NEW)
+    mesh = _mesh(mesh_shape)
+    prog = Program(cfg, mesh, rules=make_rules(cfg, mesh, batch=batch,
+                                               seq_shard_cache=True))
+    groups = 2 if len(mesh_shape) == 3 else 1
+    assert len(prog.seq_groups) == groups
+    assert all(len(g[2]) == 2 for g in prog.seq_groups)
+    placed = prog.place_params(params)
+    b = prog.place_batch({"inputs": torch.from_numpy(toks),
+                          "positions": torch.from_numpy(pos)})
+    logits, split = prog.prefill(placed, b["inputs"], b["positions"],
+                                 max_len=S + NEW)
+    logits = logits.gather("cpu")
+    _close(logits, want, TOL)
+    for (n, x), y in zip(named_leaves(split),
+                         tree_leaves(prog.place_caches(caches))):
+        assert x.placement.spec == y.placement.spec, n
+        for u, v in zip(x.shards, y.shards):
+            _close(u.float(), v.float(), TOL, err_msg=n)
+    nxt = logits.argmax(-1).to(torch.int32)
+    np.testing.assert_array_equal(nxt.numpy(), np.asarray(jl).argmax(-1))
+    for i in range(NEW):
+        p1 = torch.full((batch, 1), S + i, dtype=torch.int32)
+        jl, jc = _jdecode(jp, jc, jnp.asarray(nxt.numpy()),
+                          jnp.asarray(p1.numpy()), cfg=jcfg)
+        want, caches = P.decode_step(params, caches, nxt, p1, cfg)
+        d = prog.place_batch({"inputs": nxt, "positions": p1})
+        got = prog.decode_step(placed, split, d["inputs"],
+                               d["positions"]).gather("cpu")
+        _close(got, want, TOL, err_msg=str(i))
+        _close(got, np.asarray(jl), JAX_TOL, err_msg=str(i))
+        np.testing.assert_array_equal(got.argmax(-1).numpy(),
+                                      np.asarray(jl).argmax(-1))
+        nxt = got.argmax(-1).to(torch.int32)
+    for (n, a), c in zip(named_leaves(prog.gather_caches(split)),
+                         tree_leaves(caches)):
+        _close(a.float(), c.float(), TOL, err_msg=n)
+
+
 @pytest.mark.parametrize("arch,shape,batch,rules", [
     ("gemma2-9b", (2, 2), 1, None), ("gemma2-9b", (2, 2, 2), 1, None),
     ("zamba2-2.7b", (2, 2), 1, None), ("deepseek-moe-16b", (2, 2), 1, None),
@@ -390,8 +455,8 @@ def test_decode_attention_returns_the_parts_log_sum_exp():
     _close(merged[[0, 2]], out[[0, 2]], TOL)
 
 
-def test_uncovered_stages_raise_and_name_the_stage():
-    """Stages 4 and 5, once uncovered, run now.  Stage 4's prefill: at
+def test_sequence_split_prefill_and_experts_over_data_run():
+    """Stages 4 and 5 run.  Stage 4's prefill: at
     batch 1 the rules split the caches' sequence over 'data', and
     ``Program.prefill`` builds them split (the first row's program, each
     device keeping its part): they equal ``place_caches`` of the
